@@ -1,0 +1,365 @@
+"""T5-style encoder and decoder stacks, inference (port of rqvae_tpu/models/t5.py).
+
+- RMSNorm: no mean subtraction, no bias; f32 math, cast back to the input
+  dtype, then scaled by the f32 weight.
+- Attention without 1/sqrt(d) scaling, bias-free q/k/v/o, -1e9 additive
+  masks; the relative position bias is computed by the first block of each
+  stack and shared by all blocks. Cross-attention has no bias.
+- FFN: wi -> ReLU -> wo. Final RMSNorm at the end of each stack.
+
+Parameters stay float32. With `dtype="bfloat16"` every projection rounds its
+operands to bf16, sums the products in f32 and rounds the result to bf16 once
+(XLA's bf16 dot on the JAX side); softmax and normalization stay f32.
+
+The decoder serves beam search through `fused_decode`, one launch of the
+decoder-stack kernel per level (ops/cuda/decoder_stack.py), gated on the
+encoder row length as in the JAX package. The encoder runs the plain path at
+every length: the encoder-stack kernel is not ported yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from rqvae_tpu_torch.ops.cuda.decoder_stack import t5_decoder_stack_infer
+from rqvae_tpu_torch.ops.embedding import embedding_lookup
+
+NEG_INF = -1e9
+
+# fused decoder-stack gate on the encoder row length Le: the JAX package's
+# TPU-measured value, kept only so the port routes as the reference does
+# (its value on the card is still to be measured)
+FUSED_DECODE_MAX_LEN = 128
+
+
+@dataclass(frozen=True)
+class T5StackConfig:
+    d_model: int = 128
+    d_kv: int = 64
+    num_heads: int = 6
+    d_ff: int = 1024
+    num_layers: int = 4
+    rel_buckets: int = 32
+    rel_max_distance: int = 128
+    layer_norm_eps: float = 1e-6
+    dtype: str = "float32"  # compute dtype: "float32" | "bfloat16"
+    # decoder-stack kernel for beam search: "auto" (on when the encoder
+    # rows are <= FUSED_DECODE_MAX_LEN) or "off"
+    fused_decode: str = "auto"
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
+
+
+def dense(x: torch.Tensor, weight: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
+    """x @ weight.T at the compute dtype: operands rounded to cdt, products
+    summed in f32, the result rounded to cdt once."""
+    if cdt == torch.float32:
+        return F.linear(x.float(), weight.float())
+    return F.linear(x.to(cdt).float(), weight.to(cdt).float()).to(cdt)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int, eps: float = 1e-6, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        return (xf * (1.0 / torch.sqrt(var + self.eps))).to(x.dtype) * self.weight
+
+
+def relative_position_bucket(
+    relative_position: torch.Tensor,
+    bidirectional: bool,
+    num_buckets: int = 32,
+    max_distance: int = 128,
+) -> torch.Tensor:
+    """T5's log-binned relative position buckets, computed in float32 with
+    truncating casts, as the JAX package does."""
+    rp = relative_position.to(torch.int32)
+    ret = torch.zeros_like(rp)
+    n = -rp
+    if bidirectional:
+        num_buckets //= 2
+        ret = ret + (n < 0).to(torch.int32) * num_buckets
+        n = torch.abs(n)
+    else:
+        n = torch.clamp(n, min=0)
+    max_exact = num_buckets // 2
+    is_small = n < max_exact
+    log_ratio = torch.log(torch.tensor(max_distance / max_exact, dtype=torch.float32))
+    val_if_large = max_exact + (
+        torch.log(torch.clamp(n, min=1).to(torch.float32) / max_exact)
+        / log_ratio.to(n.device)
+        * (num_buckets - max_exact)
+    ).to(torch.int32)
+    val_if_large = torch.clamp(val_if_large, max=num_buckets - 1)
+    return ret + torch.where(is_small, n, val_if_large)
+
+
+class T5Attention(nn.Module):
+    def __init__(self, cfg: T5StackConfig, has_relative_bias: bool = False,
+                 bidirectional: bool = True, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.bidirectional = bidirectional
+        inner = cfg.num_heads * cfg.d_kv
+        d = cfg.d_model
+        self.q = nn.Linear(d, inner, bias=False, device=device)
+        self.k = nn.Linear(d, inner, bias=False, device=device)
+        self.v = nn.Linear(d, inner, bias=False, device=device)
+        self.o = nn.Linear(inner, d, bias=False, device=device)
+        self.rel_bias = (
+            nn.Parameter(torch.zeros(cfg.rel_buckets, cfg.num_heads, device=device))
+            if has_relative_bias else None
+        )
+
+    def _heads(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, L, H*dk] -> [B, H, L, dk]."""
+        B, L, _ = x.shape
+        return x.reshape(B, L, self.cfg.num_heads, self.cfg.d_kv).transpose(1, 2)
+
+    def kv_heads(self, kv_in: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Projected K/V heads [B, H, Lk, dk]: the level-invariant half of
+        cross-attention, computed once per generate()."""
+        cdt = self.cfg.compute_dtype
+        return self._heads(dense(kv_in, self.k.weight, cdt)), self._heads(dense(kv_in, self.v.weight, cdt))
+
+    def position_bias(self, lq: int, lk: int) -> torch.Tensor:
+        """[1, H, Lq, Lk] float32 relative position bias."""
+        dev = self.rel_bias.device
+        ctx = torch.arange(lq, device=dev)[:, None]
+        mem = torch.arange(lk, device=dev)[None, :]
+        buckets = relative_position_bucket(
+            mem - ctx, self.bidirectional, self.cfg.rel_buckets, self.cfg.rel_max_distance
+        )
+        return embedding_lookup(self.rel_bias.float(), buckets).permute(2, 0, 1)[None]
+
+    def forward(
+        self,
+        x: torch.Tensor,  # [B, Lq, d]
+        kv: Optional[torch.Tensor] = None,  # [B, Lk, d] for cross-attention
+        mask: Optional[torch.Tensor] = None,  # [B, Lk] 1 = attend
+        position_bias: Optional[torch.Tensor] = None,  # [1, H, Lq, Lk]
+        causal: bool = False,
+        kv_cache: Optional[tuple] = None,  # precomputed kv_heads() output
+    ):
+        cfg = self.cfg
+        cdt = cfg.compute_dtype
+        B, Lq, _ = x.shape
+        q = self._heads(dense(x, self.q.weight, cdt))
+        k, v = kv_cache if kv_cache is not None else self.kv_heads(x if kv is None else kv)
+        Lk = k.shape[2]
+        if position_bias is None and self.rel_bias is not None:
+            position_bias = self.position_bias(Lq, Lk)
+
+        scores = q.float() @ k.float().transpose(-1, -2)  # no 1/sqrt(d) scale
+        if position_bias is not None:
+            scores = scores + position_bias
+        if mask is not None:
+            scores = scores + torch.where(mask[:, None, None, :] != 0, 0.0, NEG_INF)
+        if causal:
+            cmask = torch.ones(Lq, Lk, dtype=torch.bool, device=x.device).tril()
+            scores = scores + torch.where(cmask, 0.0, NEG_INF)
+        weights = torch.softmax(scores, dim=-1).to(cdt)
+        out = (weights.float() @ v.float()).to(cdt)
+        out = out.transpose(1, 2).reshape(B, Lq, cfg.num_heads * cfg.d_kv)
+        return dense(out, self.o.weight, cdt), position_bias
+
+
+class T5FFN(nn.Module):
+    def __init__(self, cfg: T5StackConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.wi = nn.Linear(cfg.d_model, cfg.d_ff, bias=False, device=device)
+        self.wo = nn.Linear(cfg.d_ff, cfg.d_model, bias=False, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cdt = self.cfg.compute_dtype
+        return dense(torch.relu(dense(x, self.wi.weight, cdt)), self.wo.weight, cdt)
+
+
+class T5Block(nn.Module):
+    def __init__(self, cfg: T5StackConfig, is_decoder: bool = False,
+                 has_relative_bias: bool = False, device=None):
+        super().__init__()
+        self.is_decoder = is_decoder
+        eps = cfg.layer_norm_eps
+        self.ln_self = RMSNorm(cfg.d_model, eps, device)
+        self.self_attn = T5Attention(cfg, has_relative_bias, not is_decoder, device)
+        if is_decoder:
+            self.ln_cross = RMSNorm(cfg.d_model, eps, device)
+            self.cross_attn = T5Attention(cfg, device=device)
+        self.ln_ffn = RMSNorm(cfg.d_model, eps, device)
+        self.ffn = T5FFN(cfg, device)
+
+    def forward(self, x, enc_out=None, self_mask=None, enc_mask=None, position_bias=None,
+                beams: int = 1, cross_kv=None):
+        h, position_bias = self.self_attn(
+            self.ln_self(x), mask=self_mask, position_bias=position_bias, causal=self.is_decoder
+        )
+        x = x + h
+        if self.is_decoder and (enc_out is not None or cross_kv is not None):
+            xq = self.ln_cross(x)
+            if beams > 1:
+                # beam-folded cross-attention: the k beams of one query share
+                # the encoder rows, so attend as [B, k*T] queries against the
+                # un-replicated [B, Le] keys/values
+                Bk, T, d = xq.shape
+                xq = xq.reshape(Bk // beams, beams * T, d)
+            h, _ = self.cross_attn(xq, kv=enc_out, mask=enc_mask, kv_cache=cross_kv)
+            if beams > 1:
+                h = h.reshape(x.shape)
+            x = x + h
+        return x + self.ffn(self.ln_ffn(x)), position_bias
+
+
+class DecodeWeights(NamedTuple):
+    """The decoder stack's weights in the kernel's layout (stacked over
+    layers, projections pre-shaped per head): level-invariant, built once
+    per generate()."""
+
+    wq: torch.Tensor  # [NL, H, d, dk]
+    wk: torch.Tensor
+    wv: torch.Tensor
+    wo: torch.Tensor  # [NL, H, dk, d]
+    cq: torch.Tensor  # [NL, H, d, dk]
+    co: torch.Tensor  # [NL, H, dk, d]
+    wi: torch.Tensor  # [NL, d, dff]
+    wo2: torch.Tensor  # [NL, dff, d]
+    ln_s: torch.Tensor  # [NL, d] f32
+    ln_c: torch.Tensor
+    ln_f: torch.Tensor
+    ln_final: torch.Tensor  # [d] f32
+
+
+class T5Stack(nn.Module):
+    """Encoder or decoder stack over pre-computed input embeddings."""
+
+    def __init__(self, cfg: T5StackConfig, is_decoder: bool = False, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.is_decoder = is_decoder
+        self.block = nn.ModuleList(
+            T5Block(cfg, is_decoder, has_relative_bias=(i == 0), device=device)
+            for i in range(cfg.num_layers)
+        )
+        self.ln_final = RMSNorm(cfg.d_model, cfg.layer_norm_eps, device)
+
+    def cross_kv(self, enc_out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Cross-attention K and V of every layer over `enc_out`, stacked as
+        [NL, B, H, Le, dk] at the compute dtype (decoder stacks only)."""
+        if not self.is_decoder:
+            raise ValueError("cross_kv is a decoder-stack cache")
+        enc = enc_out.to(self.cfg.compute_dtype)
+        kv = [b.cross_attn.kv_heads(enc) for b in self.block]
+        return torch.stack([k for k, _ in kv]), torch.stack([v for _, v in kv])
+
+    def use_fused_decode(self, enc_len: int) -> bool:
+        """The decoder-stack kernel gate: on unless "off", and only for
+        encoder rows up to FUSED_DECODE_MAX_LEN."""
+        return self.cfg.fused_decode != "off" and enc_len <= FUSED_DECODE_MAX_LEN
+
+    def decode_weights(self) -> DecodeWeights:
+        cfg = self.cfg
+        cdt = cfg.compute_dtype
+        d, H, dk = cfg.d_model, cfg.num_heads, cfg.d_kv
+
+        def stack(get, dtype=cdt):
+            return torch.stack([get(b) for b in self.block]).to(dtype).contiguous()
+
+        def per_head_in(lin):  # weight [H*dk, d] -> [H, d, dk]
+            return lin.weight.t().reshape(d, H, dk).permute(1, 0, 2)
+
+        def per_head_out(lin):  # weight [d, H*dk] -> [H, dk, d]
+            return lin.weight.t().reshape(H, dk, d)
+
+        f32 = torch.float32
+        return DecodeWeights(
+            wq=stack(lambda b: per_head_in(b.self_attn.q)),
+            wk=stack(lambda b: per_head_in(b.self_attn.k)),
+            wv=stack(lambda b: per_head_in(b.self_attn.v)),
+            wo=stack(lambda b: per_head_out(b.self_attn.o)),
+            cq=stack(lambda b: per_head_in(b.cross_attn.q)),
+            co=stack(lambda b: per_head_out(b.cross_attn.o)),
+            wi=stack(lambda b: b.ffn.wi.weight.t()),
+            wo2=stack(lambda b: b.ffn.wo.weight.t()),
+            ln_s=stack(lambda b: b.ln_self.weight, f32),
+            ln_c=stack(lambda b: b.ln_cross.weight, f32),
+            ln_f=stack(lambda b: b.ln_ffn.weight, f32),
+            ln_final=self.ln_final.weight.to(f32).contiguous(),
+        )
+
+    def decode_operands(
+        self,
+        x_folded: torch.Tensor,  # [B, beams*T, d] decoder input embeddings
+        cross_kv: Tuple[torch.Tensor, torch.Tensor],  # self.cross_kv(enc_out)
+        enc_mask: torch.Tensor,  # [B, Le]
+        beams: int,
+        weights: DecodeWeights,  # self.decode_weights()
+    ) -> tuple:
+        """The decoder-stack kernel's operands for one beam-search level, in
+        its argument order (ops/cuda/decoder_stack.py)."""
+        cfg = self.cfg
+        B, kt, _ = x_folded.shape
+        T = kt // beams
+        if kt != beams * T:
+            raise ValueError(f"{kt} folded rows are not {beams} beams of equal length")
+        dev = x_folded.device
+        # block-diagonal folded self-attention bias: block 0's rel-pos table
+        # plus causal, tiled per beam; cross-beam pairs get -1e9, which
+        # underflows to exactly 0 through softmax
+        rel = self.block[0].self_attn.rel_bias.float()  # [buckets, H]
+        ctx = torch.arange(T, device=dev)[:, None]
+        mem = torch.arange(T, device=dev)[None, :]
+        buckets = relative_position_bucket(mem - ctx, False, cfg.rel_buckets, cfg.rel_max_distance)
+        bias_tt = rel[buckets.long()].permute(2, 0, 1) + torch.where(mem <= ctx, 0.0, NEG_INF)[None]
+        beam_of = torch.arange(kt, device=dev) // T
+        same_beam = beam_of[:, None] == beam_of[None, :]
+        bias_fold = torch.where(same_beam[None], bias_tt.repeat(1, beams, beams), NEG_INF)
+        mask = torch.where(enc_mask != 0, 0.0, NEG_INF).to(torch.float32)
+        kc, vc = cross_kv
+        return (
+            x_folded.to(cfg.compute_dtype).contiguous(), *weights,
+            bias_fold.contiguous(), kc.contiguous(), vc.contiguous(), mask.contiguous(),
+        )
+
+    def fused_decode(
+        self,
+        x_folded: torch.Tensor,
+        cross_kv: Tuple[torch.Tensor, torch.Tensor],
+        enc_mask: torch.Tensor,
+        beams: int,
+        weights: DecodeWeights,
+    ) -> torch.Tensor:
+        """One-launch decoder-stack forward for one beam-search level:
+        self-attention beam-folded under a block-diagonal causal rel-pos
+        bias, cross-attention against the cached K/V. Returns
+        [B, beams*T, d] f32 ln_final-normalized states."""
+        ops = self.decode_operands(x_folded, cross_kv, enc_mask, beams, weights)
+        return t5_decoder_stack_infer(*ops, eps=self.cfg.layer_norm_eps)
+
+    def forward(
+        self,
+        inputs_embeds: torch.Tensor,  # [B, L, d]
+        self_mask: Optional[torch.Tensor] = None,  # [B, L] 1 = valid
+        enc_out: Optional[torch.Tensor] = None,
+        enc_mask: Optional[torch.Tensor] = None,
+        beams: int = 1,  # decoder: input batch = beams * encoder batch
+        cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # self.cross_kv()
+    ) -> torch.Tensor:
+        x = inputs_embeds.to(self.cfg.compute_dtype)
+        position_bias = None
+        for i, blk in enumerate(self.block):
+            layer_kv = None if cross_kv is None else (cross_kv[0][i], cross_kv[1][i])
+            x, position_bias = blk(x, enc_out, self_mask, enc_mask, position_bias, beams, layer_kv)
+        return self.ln_final(x).float()

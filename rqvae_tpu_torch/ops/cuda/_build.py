@@ -1,0 +1,101 @@
+"""Build the CUDA C++ kernels (rqvae_tpu_torch/csrc/*.cu) and load them.
+
+Each source is compiled at first use by `nvcc` for Hopper (sm_90a) into a
+shared library with a plain C interface, placed in rqvae_tpu_torch/_build/
+(named by a hash of the source, so an edited source rebuilds), and loaded
+with ctypes. Pointers and the stream cross the boundary as c_void_p.
+`build_all()` starts one nvcc per source at once, for callers that want
+every kernel built up front.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, List
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+SOURCES = ("rq_encode", "decoder_stack")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
+
+
+def _lib_path(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def _start_build(name: str):
+    """Start nvcc for one source; returns (process, tmp path, final path),
+    or None when the library is already built."""
+    out = _lib_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish_build(name: str, job) -> str:
+    proc, tmp, out = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
+    return log
+
+
+def build_all() -> Dict[str, str]:
+    """Build every kernel library, one nvcc per source, all at once.
+    Returns each source's compiler log (ptxas register/shared-memory use);
+    empty for a library that was already built."""
+    jobs = {name: _start_build(name) for name in SOURCES}
+    return {name: _finish_build(name, job) if job else "" for name, job in jobs.items()}
+
+
+def load_library(name: str, functions: Dict[str, List]) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu, built on first use, with
+    argtypes declared for `functions` (every function returns an int:
+    the cudaError_t of its launch)."""
+    lib = _loaded.get(name)
+    if lib is None:
+        job = _start_build(name)
+        if job is not None:
+            _finish_build(name, job)
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        for fn, argtypes in functions.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.kernel_error_string.argtypes = [ctypes.c_int]
+        lib.kernel_error_string.restype = ctypes.c_char_p
+        _loaded[name] = lib
+    return lib
+
+
+def check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error (cudaGetLastError != 0)."""
+    if rc != 0:
+        msg = lib.kernel_error_string(rc).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")

@@ -1,0 +1,140 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Run on a machine with an NVIDIA card: python -m pytest tests/ -m gpu -q
+Without a card every test here skips (the check is in the fixture).
+Tolerances: rq_encode ids identical except rows at an argmin near-tie;
+decoder_stack max abs error 1e-3 in f32 and 6e-2 in bf16 (a bf16 rounding
+flipped by f32 summation order carries through the residual stream).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from rqvae_tpu_torch.models.quantize import QuantizeForwardMode
+from rqvae_tpu_torch.models.retrieval import EncoderDecoderRetrievalModel, RetrievalConfig
+from rqvae_tpu_torch.models.rqvae import RqVae, RqVaeConfig
+from rqvae_tpu_torch.models.t5 import T5Stack, T5StackConfig
+from rqvae_tpu_torch.ops.cuda.decoder_stack import t5_decoder_stack_infer, t5_decoder_stack_plain
+from rqvae_tpu_torch.ops.cuda.rq_encode import fused_encode_quantize, fused_encode_quantize_plain
+from rqvae_tpu_torch.serving.retriever import Retriever
+from rqvae_tpu_torch.tokenizer.semids import SemanticIdTokenizer
+
+pytestmark = pytest.mark.gpu
+
+SMALL_VAE = dict(input_dim=32, embed_dim=8, hidden_dims=(24, 16), codebook_size=16, n_layers=3)
+AMAZON_VAE = dict(input_dim=768, embed_dim=32, hidden_dims=(512, 256, 128), codebook_size=256, n_layers=3)
+SMALL_T5 = dict(d_model=32, d_kv=8, num_heads=4, d_ff=64, num_layers=2)
+AMAZON_T5 = dict(d_model=384, d_kv=64, num_heads=6, d_ff=1024, num_layers=4)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rqvae(fields, n, device, seed=0):
+    """An RQ-VAE whose codebooks are jittered residuals of its corpus."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, fields["input_dim"], generator=g)
+    rq = RqVae(RqVaeConfig(**fields, codebook_mode=QuantizeForwardMode.STE), device="cpu", seed=seed)
+    with torch.no_grad():
+        res = rq.encode(x)
+        for level in range(fields["n_layers"]):
+            cb = res[torch.randperm(n, generator=g)[: fields["codebook_size"]]]
+            cb = cb + 0.1 * res.std() * torch.randn(cb.shape, generator=g)
+            rq.codebooks[level].copy_(cb)
+            res = res - cb[torch.cdist(res, cb).argmin(1)]
+    return rq.to(device), x.to(device)
+
+
+def _near_ties(x, weights, codebooks, rel=1e-5):
+    """Rows with a level whose float64 top-2 distance gap is below `rel` of
+    ||res||^2 + max ||c||^2."""
+    h = x.double()
+    for i, w in enumerate(weights):
+        h = h @ w.double()
+        h = torch.relu(h) if i != len(weights) - 1 else h
+    near = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+    for cb in codebooks.double():
+        top2 = torch.topk(torch.cdist(h, cb) ** 2, 2, dim=1, largest=False)
+        near |= top2.values[:, 1] - top2.values[:, 0] < rel * ((h * h).sum(1) + (cb * cb).sum(1).max())
+        h = h - cb[top2.indices[:, 0]]
+    return near
+
+
+@pytest.mark.parametrize("fields,n", [(SMALL_VAE, 1000), (AMAZON_VAE, 8192)])
+def test_rq_encode_kernel_matches_plain(cuda, fields, n):
+    rq, x = _rqvae(fields, n, cuda)
+    w, cb = rq.encoder.kernels(), rq.codebooks.detach()
+    before = fused_encode_quantize.launches
+    got = fused_encode_quantize(x, w, cb, fields["n_layers"])
+    torch.cuda.synchronize()
+    assert fused_encode_quantize.launches == before + 1
+    want = fused_encode_quantize_plain(x, w, cb, fields["n_layers"])
+    differ = (got != want).any(1)
+    assert not (differ & ~_near_ties(x, w, cb)).any()
+
+
+def _decoder_operands(t5_fields, dtype, beams, T, B, Le, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    cfg = T5StackConfig(**t5_fields, dtype=dtype)
+    stack = T5Stack(cfg, is_decoder=True, device=device)
+    for p in stack.parameters():  # T5-scale random weights
+        with torch.no_grad():
+            p.copy_((torch.randn(p.shape, generator=g) * p.shape[-1] ** -0.5).to(device))
+    d = cfg.d_model
+    x = torch.randn(B, beams * T, d, generator=g).to(device)
+    enc = torch.randn(B, Le, d, generator=g).to(device)
+    enc_mask = (torch.rand(B, Le, generator=g) > 0.2).to(torch.int32).to(device)
+    enc_mask[:, 0] = 1
+    with torch.no_grad():
+        ops = stack.decode_operands(x, stack.cross_kv(enc), enc_mask, beams, stack.decode_weights())
+    return ops, cfg.layer_norm_eps
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-3), ("bfloat16", 6e-2)])
+@pytest.mark.parametrize(
+    "t5_fields,beams,T,B,Le",
+    [(SMALL_T5, 3, 2, 5, 7), (SMALL_T5, 1, 1, 3, 4), (AMAZON_T5, 1, 1, 64, 80),
+     (AMAZON_T5, 10, 2, 64, 80), (AMAZON_T5, 10, 3, 64, 80)],
+)
+def test_decoder_stack_kernel_matches_plain(cuda, dtype, tol, t5_fields, beams, T, B, Le):
+    ops, eps = _decoder_operands(t5_fields, dtype, beams, T, B, Le, cuda)
+    before = t5_decoder_stack_infer.launches
+    got = t5_decoder_stack_infer(*ops, eps=eps)
+    torch.cuda.synchronize()
+    assert t5_decoder_stack_infer.launches == before + 1
+    want = t5_decoder_stack_plain(*ops, eps=eps)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= tol
+
+
+def test_retriever_on_card_matches_cpu(cuda):
+    """The small slice end to end in f32: card (kernels) against CPU (plain)."""
+    rq, x = _rqvae(SMALL_VAE, 600, cuda, seed=1)
+    tok = SemanticIdTokenizer(rq, device=cuda)
+    before = (fused_encode_quantize.launches, t5_decoder_stack_infer.launches)
+    tok.precompute_corpus_ids(x)
+    rq_cpu = RqVae(rq.config, device="cpu")
+    rq_cpu.load_state_dict({k: v.cpu() for k, v in rq.state_dict().items()})
+    tok_cpu = SemanticIdTokenizer(rq_cpu, device="cpu")
+    tok_cpu.precompute_corpus_ids(x.cpu())
+    near = _near_ties(x, rq.encoder.kernels(), rq.codebooks.detach()).cpu()
+    differ = (tok.cached_ids.cpu()[:, :3] != tok_cpu.cached_ids[:, :3]).any(1)
+    assert not (differ & ~near).any()
+
+    cfg = RetrievalConfig(num_hierarchies=3, codebook_size=16, t5_d_model=32, t5_d_kv=8, t5_num_heads=4,
+                          t5_d_ff=64, t5_num_layers=2, top_k_for_generation=5)
+    hist = np.random.RandomState(2).randint(-1, 600, (8, 6))
+    card = Retriever(EncoderDecoderRetrievalModel(cfg, device=cuda, seed=3), tok, device=cuda).retrieve(hist)
+    host = Retriever(EncoderDecoderRetrievalModel(cfg, device="cpu", seed=3), tok_cpu, device="cpu").retrieve(hist)
+    assert fused_encode_quantize.launches == before[0] + 1
+    assert t5_decoder_stack_infer.launches == before[1] + 3
+    same = (card.sem_ids.cpu() == host.sem_ids).all(2).all(1).float().mean().item()
+    assert same >= 0.95
+    torch.testing.assert_close(card.log_probas.cpu(), host.log_probas, rtol=1e-4, atol=1e-4)
