@@ -20,6 +20,14 @@
 // conflicts); one warp takes one row's argmin with a shuffle reduction and
 // subtracts the chosen code in place. The ragged last tile is zero-filled on
 // load and masked on store. Everything accumulates in float32.
+//
+// Shared memory: once the MLP chain is done only the [ROWS, D] residuals are
+// live, at the front of the block's memory, and the codebook is staged over
+// the dead activation buffers instead of beside them. A block
+// needs max(the two activation buffers, residuals + codebook): 166,400 B at
+// 788 -> 512 -> 256 -> 128 -> 64 with K = 256, where buffers plus codebook
+// (233,984 B) would pass the 232,448 B a Hopper block may use. The arithmetic
+// and its order are untouched, so the ids are too.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -91,16 +99,19 @@ __device__ void tile_gemm(const float* __restrict__ A, int M, int Kd,
   }
 }
 
+// Floats of ping-pong buffer `parity`: it holds the activations whose index
+// has that parity counted back from the last one, so the residuals (index
+// n_weights) always land in buffer 0, at the front of shared memory.
 __host__ __device__ int buffer_floats(const int* dims, int n_weights, int parity) {
   int m = 0;
-  for (int i = parity; i <= n_weights; i += 2) m = dims[i] > m ? dims[i] : m;
+  for (int i = n_weights - parity; i >= 0; i -= 2) m = dims[i] > m ? dims[i] : m;
   return ROWS * m;
 }
 
 size_t smem_bytes(const int* dims, int n_weights, int K, int D) {
-  const size_t floats = (size_t)buffer_floats(dims, n_weights, 0) +
-                        buffer_floats(dims, n_weights, 1) + (size_t)K * (D + 1) + K;
-  return floats * sizeof(float);
+  const size_t mlp = (size_t)buffer_floats(dims, n_weights, 0) + buffer_floats(dims, n_weights, 1);
+  const size_t quant = (size_t)ROWS * D + (size_t)K * (D + 1) + K;
+  return (mlp > quant ? mlp : quant) * sizeof(float);
 }
 
 __global__ void __launch_bounds__(THREADS) rq_encode_kernel(Params p) {
@@ -109,28 +120,29 @@ __global__ void __launch_bounds__(THREADS) rq_encode_kernel(Params p) {
   float* buf[2];
   buf[0] = smem;
   buf[1] = smem + buffer_floats(p.dims, p.n_weights, 0);
-  float* cb_s = buf[1] + buffer_floats(p.dims, p.n_weights, 1);  // [K, D+1]
-  float* cb2_s = cb_s + p.K * (p.D + 1);                           // [K]
+  float* cb_s = smem + ROWS * p.D;         // [K, D+1], over the dead activations
+  float* cb2_s = cb_s + p.K * (p.D + 1);   // [K]
 
   const int row0 = blockIdx.x * ROWS;
   const int in_dim = p.dims[0];
 
-  // input tile -> buf[0], zero rows past the corpus end
+  // input tile -> the buffer of index 0, zero rows past the corpus end
+  float* in_buf = buf[p.n_weights & 1];
   for (int i = threadIdx.x; i < ROWS * in_dim / 4; i += blockDim.x) {
     const int r = (i * 4) / in_dim, c = (i * 4) % in_dim;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (row0 + r < p.n_rows)
       v = __ldg(reinterpret_cast<const float4*>(p.x + (size_t)(row0 + r) * in_dim + c));
-    *reinterpret_cast<float4*>(buf[0] + r * in_dim + c) = v;
+    *reinterpret_cast<float4*>(in_buf + r * in_dim + c) = v;
   }
   __syncthreads();
 
   for (int i = 0; i < p.n_weights; ++i) {
-    tile_gemm(buf[i & 1], ROWS, p.dims[i], p.w[i], p.dims[i + 1], buf[(i + 1) & 1],
-              i != p.n_weights - 1);
+    tile_gemm(buf[(p.n_weights - i) & 1], ROWS, p.dims[i], p.w[i], p.dims[i + 1],
+              buf[(p.n_weights - i - 1) & 1], i != p.n_weights - 1);
     __syncthreads();
   }
-  float* res = buf[p.n_weights & 1];  // [ROWS, D]
+  float* res = smem;  // buf[0]: [ROWS, D]
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;

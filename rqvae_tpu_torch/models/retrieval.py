@@ -44,6 +44,8 @@ class RetrievalConfig:
     sample_candidates: bool = False
     t5_dtype: str = "float32"
     t5_fused_decode: str = "auto"
+    t5_fused_encode: str = "auto"
+    t5_fused_attention: str = "auto"
 
     @property
     def t5(self) -> T5StackConfig:
@@ -55,6 +57,8 @@ class RetrievalConfig:
             num_layers=self.t5_num_layers,
             dtype=self.t5_dtype,
             fused_decode=self.t5_fused_decode,
+            fused_encode=self.t5_fused_encode,
+            fused_attention=self.t5_fused_attention,
         )
 
 

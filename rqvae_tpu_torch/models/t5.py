@@ -11,10 +11,20 @@ Parameters stay float32. With `dtype="bfloat16"` every projection rounds its
 operands to bf16, sums the products in f32 and rounds the result to bf16 once
 (XLA's bf16 dot on the JAX side); softmax and normalization stay f32.
 
-The decoder serves beam search through `fused_decode`, one launch of the
-decoder-stack kernel per level (ops/cuda/decoder_stack.py), gated on the
-encoder row length as in the JAX package. The encoder runs the plain path at
-every length: the encoder-stack kernel is not ported yet.
+Three kernels sit behind the JAX package's gates, whose values are kept so
+that the port routes as the reference does:
+
+- the decoder serves beam search through `fused_decode`, one launch of the
+  decoder-stack kernel per level (ops/cuda/decoder_stack.py), for encoder
+  rows up to FUSED_DECODE_MAX_LEN;
+- the encoder serves rows of FUSED_ENCODE_MIN_LEN or more through
+  `fused_encode`, one call of the encoder-stack kernel
+  (ops/cuda/encoder_stack.py);
+- with `fused_encode="off"`, self- and cross-attention over at least
+  FUSED_ATTENTION_MIN_LEN queries and keys go through the attention kernel
+  (ops/cuda/attention.py), once per layer.
+
+Each mode field is "auto" (the gate decides) or "off".
 """
 
 from __future__ import annotations
@@ -26,15 +36,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from rqvae_tpu_torch.ops.cuda.attention import t5_attention
 from rqvae_tpu_torch.ops.cuda.decoder_stack import t5_decoder_stack_infer
+from rqvae_tpu_torch.ops.cuda.encoder_stack import t5_encoder_stack_infer
 from rqvae_tpu_torch.ops.embedding import embedding_lookup
 
 NEG_INF = -1e9
 
-# fused decoder-stack gate on the encoder row length Le: the JAX package's
-# TPU-measured value, kept only so the port routes as the reference does
-# (its value on the card is still to be measured)
-FUSED_DECODE_MAX_LEN = 128
+# The kernels' length gates are the JAX package's TPU-measured values, kept
+# only so the port routes as the reference does (their crossovers on the card
+# are still to be measured). Module-level so tests can patch them down.
+FUSED_DECODE_MAX_LEN = 128  # decoder stack: encoder rows Le at most this
+FUSED_ENCODE_MIN_LEN = 512  # encoder stack: rows L at least this
+FUSED_ATTENTION_MIN_LEN = 512  # attention at inference: min(Lq, Lk) at least this
+FUSED_ATTENTION_MIN_TILE = 16  # attention: Lq and Lk at least this
 
 
 @dataclass(frozen=True)
@@ -51,6 +66,15 @@ class T5StackConfig:
     # decoder-stack kernel for beam search: "auto" (on when the encoder
     # rows are <= FUSED_DECODE_MAX_LEN) or "off"
     fused_decode: str = "auto"
+    # encoder-stack kernel: "auto" (on for rows >= FUSED_ENCODE_MIN_LEN) or "off"
+    fused_encode: str = "auto"
+    # attention kernel: "auto" (on for min(Lq, Lk) >= FUSED_ATTENTION_MIN_LEN) or "off"
+    fused_attention: str = "auto"
+
+    def __post_init__(self):
+        for name in ("fused_decode", "fused_encode", "fused_attention"):
+            if getattr(self, name) not in ("auto", "off"):
+                raise ValueError(f'{name} must be "auto" or "off", got {getattr(self, name)!r}')
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -144,6 +168,16 @@ class T5Attention(nn.Module):
         )
         return embedding_lookup(self.rel_bias.float(), buckets).permute(2, 0, 1)[None]
 
+    def _use_fused(self, lq: int, lk: int, training: bool = False) -> bool:
+        """The attention-kernel gate, as the reference's: never below
+        FUSED_ATTENTION_MIN_TILE queries or keys, and at inference only
+        for long rows."""
+        if self.cfg.fused_attention == "off":
+            return False
+        if lq < FUSED_ATTENTION_MIN_TILE or lk < FUSED_ATTENTION_MIN_TILE:
+            return False
+        return training or min(lq, lk) >= FUSED_ATTENTION_MIN_LEN
+
     def forward(
         self,
         x: torch.Tensor,  # [B, Lq, d]
@@ -161,6 +195,15 @@ class T5Attention(nn.Module):
         Lk = k.shape[2]
         if position_bias is None and self.rel_bias is not None:
             position_bias = self.position_bias(Lq, Lk)
+
+        if self._use_fused(Lq, Lk):
+            bias = (position_bias[0] if position_bias is not None
+                    else torch.zeros(cfg.num_heads, Lq, Lk, device=x.device))
+            keys = mask if mask is not None else torch.ones(B, Lk, dtype=torch.int32, device=x.device)
+            out = t5_attention(q.contiguous(), k.contiguous(), v.contiguous(), bias.contiguous(),
+                               keys.to(torch.int32), causal=causal)
+            out = out.transpose(1, 2).reshape(B, Lq, cfg.num_heads * cfg.d_kv)
+            return dense(out, self.o.weight, cdt), position_bias
 
         scores = q.float() @ k.float().transpose(-1, -2)  # no 1/sqrt(d) scale
         if position_bias is not None:
@@ -242,6 +285,21 @@ class DecodeWeights(NamedTuple):
     ln_final: torch.Tensor  # [d] f32
 
 
+class EncodeWeights(NamedTuple):
+    """The encoder stack's weights in the kernel's layout (stacked over
+    layers, projections pre-shaped per head)."""
+
+    wq: torch.Tensor  # [NL, H, d, dk]
+    wk: torch.Tensor
+    wv: torch.Tensor
+    wo: torch.Tensor  # [NL, H, dk, d]
+    wi: torch.Tensor  # [NL, d, dff]
+    wo2: torch.Tensor  # [NL, dff, d]
+    ln_s: torch.Tensor  # [NL, d] f32
+    ln_f: torch.Tensor
+    ln_final: torch.Tensor  # [d] f32
+
+
 class T5Stack(nn.Module):
     """Encoder or decoder stack over pre-computed input embeddings."""
 
@@ -269,28 +327,31 @@ class T5Stack(nn.Module):
         encoder rows up to FUSED_DECODE_MAX_LEN."""
         return self.cfg.fused_decode != "off" and enc_len <= FUSED_DECODE_MAX_LEN
 
-    def decode_weights(self) -> DecodeWeights:
+    def _stack(self, get, dtype=None) -> torch.Tensor:
+        """get(block) of every block, stacked, at `dtype` (the compute dtype
+        when None)."""
+        dtype = self.cfg.compute_dtype if dtype is None else dtype
+        return torch.stack([get(b) for b in self.block]).to(dtype).contiguous()
+
+    def _per_head_in(self, lin: nn.Linear) -> torch.Tensor:
+        """weight [H*dk, d] -> [H, d, dk]."""
         cfg = self.cfg
-        cdt = cfg.compute_dtype
-        d, H, dk = cfg.d_model, cfg.num_heads, cfg.d_kv
+        return lin.weight.t().reshape(cfg.d_model, cfg.num_heads, cfg.d_kv).permute(1, 0, 2)
 
-        def stack(get, dtype=cdt):
-            return torch.stack([get(b) for b in self.block]).to(dtype).contiguous()
+    def _per_head_out(self, lin: nn.Linear) -> torch.Tensor:
+        """weight [d, H*dk] -> [H, dk, d]."""
+        cfg = self.cfg
+        return lin.weight.t().reshape(cfg.num_heads, cfg.d_kv, cfg.d_model)
 
-        def per_head_in(lin):  # weight [H*dk, d] -> [H, d, dk]
-            return lin.weight.t().reshape(d, H, dk).permute(1, 0, 2)
-
-        def per_head_out(lin):  # weight [d, H*dk] -> [H, dk, d]
-            return lin.weight.t().reshape(H, dk, d)
-
-        f32 = torch.float32
+    def decode_weights(self) -> DecodeWeights:
+        stack, head_in, head_out, f32 = self._stack, self._per_head_in, self._per_head_out, torch.float32
         return DecodeWeights(
-            wq=stack(lambda b: per_head_in(b.self_attn.q)),
-            wk=stack(lambda b: per_head_in(b.self_attn.k)),
-            wv=stack(lambda b: per_head_in(b.self_attn.v)),
-            wo=stack(lambda b: per_head_out(b.self_attn.o)),
-            cq=stack(lambda b: per_head_in(b.cross_attn.q)),
-            co=stack(lambda b: per_head_out(b.cross_attn.o)),
+            wq=stack(lambda b: head_in(b.self_attn.q)),
+            wk=stack(lambda b: head_in(b.self_attn.k)),
+            wv=stack(lambda b: head_in(b.self_attn.v)),
+            wo=stack(lambda b: head_out(b.self_attn.o)),
+            cq=stack(lambda b: head_in(b.cross_attn.q)),
+            co=stack(lambda b: head_out(b.cross_attn.o)),
             wi=stack(lambda b: b.ffn.wi.weight.t()),
             wo2=stack(lambda b: b.ffn.wo.weight.t()),
             ln_s=stack(lambda b: b.ln_self.weight, f32),
@@ -348,6 +409,49 @@ class T5Stack(nn.Module):
         ops = self.decode_operands(x_folded, cross_kv, enc_mask, beams, weights)
         return t5_decoder_stack_infer(*ops, eps=self.cfg.layer_norm_eps)
 
+    def use_fused_encode(self, L: int, training: bool = False) -> bool:
+        """The encoder-stack kernel gate: encoder stacks at inference, on
+        unless "off", and only for rows of FUSED_ENCODE_MIN_LEN or more."""
+        if self.is_decoder or training or self.cfg.fused_encode == "off":
+            return False
+        return L >= FUSED_ENCODE_MIN_LEN
+
+    def encode_weights(self) -> EncodeWeights:
+        stack, head_in, head_out, f32 = self._stack, self._per_head_in, self._per_head_out, torch.float32
+        return EncodeWeights(
+            wq=stack(lambda b: head_in(b.self_attn.q)),
+            wk=stack(lambda b: head_in(b.self_attn.k)),
+            wv=stack(lambda b: head_in(b.self_attn.v)),
+            wo=stack(lambda b: head_out(b.self_attn.o)),
+            wi=stack(lambda b: b.ffn.wi.weight.t()),
+            wo2=stack(lambda b: b.ffn.wo.weight.t()),
+            ln_s=stack(lambda b: b.ln_self.weight, f32),
+            ln_f=stack(lambda b: b.ln_ffn.weight, f32),
+            ln_final=self.ln_final.weight.to(f32).contiguous(),
+        )
+
+    def encode_operands(self, x: torch.Tensor, self_mask: Optional[torch.Tensor]) -> tuple:
+        """The encoder-stack kernel's operands, in its argument order
+        (ops/cuda/encoder_stack.py): x at the compute dtype, the weights, the
+        [H, L, L] bidirectional rel-pos bias of block 0's table and the
+        additive key mask. Rows keep their length (no padding)."""
+        if self.is_decoder:
+            raise ValueError("the encoder-stack kernel serves encoder stacks")
+        B, L, _ = x.shape
+        bias = self.block[0].self_attn.position_bias(L, L)[0]
+        if self_mask is None:
+            mask = torch.zeros(B, L, dtype=torch.float32, device=x.device)
+        else:
+            mask = torch.where(self_mask != 0, 0.0, NEG_INF).to(torch.float32)
+        return (x.to(self.cfg.compute_dtype).contiguous(), *self.encode_weights(),
+                bias.contiguous(), mask.contiguous())
+
+    def fused_encode(self, x: torch.Tensor, self_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """One-call encoder-stack forward for long-row serving: every layer
+        and the final norm in the encoder-stack kernel. Keys are masked,
+        query rows are not. Inference only. Returns [B, L, d] f32."""
+        return t5_encoder_stack_infer(*self.encode_operands(x, self_mask), eps=self.cfg.layer_norm_eps)
+
     def forward(
         self,
         inputs_embeds: torch.Tensor,  # [B, L, d]
@@ -357,6 +461,8 @@ class T5Stack(nn.Module):
         beams: int = 1,  # decoder: input batch = beams * encoder batch
         cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # self.cross_kv()
     ) -> torch.Tensor:
+        if self.use_fused_encode(inputs_embeds.shape[1]):
+            return self.fused_encode(inputs_embeds, self_mask)
         x = inputs_embeds.to(self.cfg.compute_dtype)
         position_bias = None
         for i, blk in enumerate(self.block):

@@ -2,8 +2,8 @@
 
 Each source is compiled at first use by `nvcc` for Hopper (sm_90a) into a
 shared library with a plain C interface, placed in rqvae_tpu_torch/_build/
-(named by a hash of the source, so an edited source rebuilds), and loaded
-with ctypes. Pointers and the stream cross the boundary as c_void_p.
+(named by a hash of the source and of every csrc/ header it includes, so an
+edited source or header rebuilds), and loaded with ctypes. Pointers and the stream cross the boundary as c_void_p.
 `build_all()` starts one nvcc per source at once, for callers that want
 every kernel built up front.
 """
@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -21,11 +22,12 @@ from typing import Dict, List
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("rq_encode", "decoder_stack")
+SOURCES = ("rq_encode", "decoder_stack", "attention", "encoder_stack")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC),
 ]
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -40,9 +42,29 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
 
 
+def source_files(name: str) -> List[Path]:
+    """csrc/<name>.cu and every file under csrc/ it includes with quotes,
+    directly or through another such header, in a fixed order."""
+    seen: List[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_text()):
+            header = (CSRC / inc).resolve()
+            if not header.is_file() or CSRC.resolve() not in header.parents:
+                raise RuntimeError(f"{path.name} includes \"{inc}\", which is not a file under {CSRC}")
+            todo.append(CSRC / inc)
+    return [seen[0], *sorted(seen[1:])]
+
+
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    h = hashlib.sha256()
+    for path in source_files(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def _start_build(name: str):

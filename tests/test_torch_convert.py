@@ -40,15 +40,21 @@ def _numbered_like(shapes):
     return jax.tree_util.tree_unflatten(treedef, out)
 
 
-@pytest.mark.parametrize("sim_vq", [False, True])
-def test_bridge_rqvae(sim_vq):
-    fields = dict(input_dim=12, embed_dim=4, hidden_dims=(8, 6), codebook_size=5, n_layers=2, sim_vq=sim_vq)
+SMALL_VAE = dict(input_dim=12, embed_dim=4, hidden_dims=(8, 6), codebook_size=5, n_layers=2)
+ML32M_VAE = dict(input_dim=788, embed_dim=64, hidden_dims=(512, 256, 128), codebook_size=256, n_layers=3)
+
+
+@pytest.mark.parametrize("fields", [SMALL_VAE, {**SMALL_VAE, "sim_vq": True}, ML32M_VAE],
+                         ids=["small", "small-sim_vq", "ml32m"])
+def test_bridge_rqvae(fields):
+    sim_vq = fields.get("sim_vq", False)
     jm = JRqVae(JRqVaeConfig(**fields))
     rngs = {"params": jax.random.PRNGKey(0), "gumbel": jax.random.PRNGKey(1)}
-    params = _numbered_like(jax.eval_shape(lambda: jm.init(rngs, jnp.zeros((2, 12)), 0.2)))
+    params = _numbered_like(jax.eval_shape(lambda: jm.init(rngs, jnp.zeros((2, fields["input_dim"])), 0.2)))
     tm = load_jax_params(RqVae(RqVaeConfig(**fields), device="cpu"), params)
     p = params["params"]
-    for i in range(3):
+    assert tm.codebooks.shape == (fields["n_layers"], fields["codebook_size"], fields["embed_dim"])
+    for i in range(len(fields["hidden_dims"]) + 1):
         np.testing.assert_array_equal(tm.encoder.layers[i].weight.detach().numpy(), p["encoder"][f"dense_{i}"]["kernel"].T)
         np.testing.assert_array_equal(tm.decoder.layers[i].weight.detach().numpy(), p["decoder"][f"dense_{i}"]["kernel"].T)
     np.testing.assert_array_equal(tm.codebooks.detach().numpy(), p["codebooks"])
@@ -109,6 +115,7 @@ def _imports(path):
 def test_port_never_imports_jax():
     files = sorted((ROOT / "rqvae_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
+    assert {"hash_dropout.py", "attention.py", "encoder_stack.py", "_build.py"} <= {f.name for f in files}
     banned = {"jax", "flax", "rqvae_tpu", "jaxlib", "optax"}
     for path in files:
         for mod in _imports(path):

@@ -4,7 +4,11 @@ Run on a machine with an NVIDIA card: python -m pytest tests/ -m gpu -q
 Without a card every test here skips (the check is in the fixture).
 Tolerances: rq_encode ids identical except rows at an argmin near-tie;
 decoder_stack max abs error 1e-3 in f32 and 6e-2 in bf16 (a bf16 rounding
-flipped by f32 summation order carries through the residual stream).
+flipped by f32 summation order carries through the residual stream);
+attention 2e-5 in f32 and 3.2e-2 in bf16 (one bf16 step, 2^-5, of an output
+between 4 and 8 whose f32 sum lands across a rounding boundary); encoder_stack
+1e-3 in f32 and, in bf16, 1.5e-1 at the worst element with a mean error of
+at most 4e-3 (flipped roundings carry through 4 layers of 800-key softmaxes).
 """
 
 import numpy as np
@@ -15,7 +19,9 @@ from rqvae_tpu_torch.models.quantize import QuantizeForwardMode
 from rqvae_tpu_torch.models.retrieval import EncoderDecoderRetrievalModel, RetrievalConfig
 from rqvae_tpu_torch.models.rqvae import RqVae, RqVaeConfig
 from rqvae_tpu_torch.models.t5 import T5Stack, T5StackConfig
+from rqvae_tpu_torch.ops.cuda.attention import t5_attention, t5_attention_plain
 from rqvae_tpu_torch.ops.cuda.decoder_stack import t5_decoder_stack_infer, t5_decoder_stack_plain
+from rqvae_tpu_torch.ops.cuda.encoder_stack import t5_encoder_stack_infer, t5_encoder_stack_plain
 from rqvae_tpu_torch.ops.cuda.rq_encode import fused_encode_quantize, fused_encode_quantize_plain
 from rqvae_tpu_torch.serving.retriever import Retriever
 from rqvae_tpu_torch.tokenizer.semids import SemanticIdTokenizer
@@ -24,6 +30,8 @@ pytestmark = pytest.mark.gpu
 
 SMALL_VAE = dict(input_dim=32, embed_dim=8, hidden_dims=(24, 16), codebook_size=16, n_layers=3)
 AMAZON_VAE = dict(input_dim=768, embed_dim=32, hidden_dims=(512, 256, 128), codebook_size=256, n_layers=3)
+ML32M_VAE = dict(input_dim=788, embed_dim=64, hidden_dims=(512, 256, 128), codebook_size=256, n_layers=3)
+ODD_VAE = dict(input_dim=40, embed_dim=8, hidden_dims=(24,), codebook_size=16, n_layers=2)  # 2 products
 SMALL_T5 = dict(d_model=32, d_kv=8, num_heads=4, d_ff=64, num_layers=2)
 AMAZON_T5 = dict(d_model=384, d_kv=64, num_heads=6, d_ff=1024, num_layers=4)
 
@@ -67,7 +75,7 @@ def _near_ties(x, weights, codebooks, rel=1e-5):
     return near
 
 
-@pytest.mark.parametrize("fields,n", [(SMALL_VAE, 1000), (AMAZON_VAE, 8192)])
+@pytest.mark.parametrize("fields,n", [(SMALL_VAE, 1000), (ODD_VAE, 333), (AMAZON_VAE, 8192), (ML32M_VAE, 8191)])
 def test_rq_encode_kernel_matches_plain(cuda, fields, n):
     rq, x = _rqvae(fields, n, cuda)
     w, cb = rq.encoder.kernels(), rq.codebooks.detach()
@@ -112,6 +120,78 @@ def test_decoder_stack_kernel_matches_plain(cuda, dtype, tol, t5_fields, beams, 
     want = t5_decoder_stack_plain(*ops, eps=eps)
     assert torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= tol
+
+
+def _attention_inputs(B, H, Lq, Lk, dk, dtype, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(B, H, L, dk, generator=g).to(dtype).to(device) for L in (Lq, Lk, Lk))
+    bias = torch.randn(H, Lq, Lk, generator=g).to(device)
+    lengths = torch.randint(1, Lk + 1, (B,), generator=g)
+    mask = (torch.arange(Lk)[None, :] < lengths[:, None]).to(torch.int32)
+    mask[0] = 0  # a row with every key masked
+    return q, k, v, bias, mask.to(device)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 3.2e-2)])
+@pytest.mark.parametrize(
+    "B,H,Lq,Lk,dk,causal,rate",
+    [(3, 2, 24, 24, 8, False, 0.0), (2, 3, 70, 133, 16, False, 0.3), (2, 2, 65, 65, 128, True, 0.1),
+     (4, 6, 512, 512, 64, True, 0.0), (64, 6, 800, 800, 64, False, 0.0), (64, 6, 800, 800, 64, False, 0.1)],
+)
+def test_attention_kernel_matches_plain(cuda, dtype, tol, B, H, Lq, Lk, dk, causal, rate):
+    q, k, v, bias, mask = _attention_inputs(B, H, Lq, Lk, dk, dtype, cuda)
+    before = t5_attention.launches
+    got = t5_attention(q, k, v, bias, mask, 77, causal=causal, dropout_rate=rate)
+    torch.cuda.synchronize()
+    assert t5_attention.launches == before + 1
+    want = t5_attention_plain(q, k, v, bias, mask, 77, causal=causal, dropout_rate=rate)
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    if rate == 0.0 and Lk < 100:
+        # every key at -1e9, and scores small enough to round away beside it
+        # (f32 steps are 64 there): the uniform softmax, the mean of v
+        torch.testing.assert_close(got[0].float(), v[0].float().mean(1, keepdim=True).expand_as(got[0]),
+                                   atol=tol, rtol=0)
+
+
+def test_attention_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v, bias, mask = _attention_inputs(2, 2, 16, 16, 8, torch.float32, cuda)
+    with pytest.raises(ValueError, match="dk"):
+        t5_attention(q[..., :6].contiguous(), k[..., :6].contiguous(), v[..., :6].contiguous(), bias, mask)
+    with pytest.raises(ValueError, match="contiguous"):
+        t5_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, bias, mask)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        t5_attention(q.half(), k.half(), v.half(), bias, mask)
+
+
+def _encoder_operands(t5_fields, dtype, B, L, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    cfg = T5StackConfig(**t5_fields, dtype=dtype)
+    stack = T5Stack(cfg, device=device)
+    for p in stack.parameters():  # T5-scale random weights
+        with torch.no_grad():
+            p.copy_((torch.randn(p.shape, generator=g) * p.shape[-1] ** -0.5).to(device))
+    x = torch.randn(B, L, cfg.d_model, generator=g).to(device)
+    lengths = torch.randint(1, L + 1, (B,), generator=g)
+    lengths[0] = L
+    mask = (torch.arange(L)[None, :] < lengths[:, None]).to(torch.int32).to(device)
+    with torch.no_grad():
+        return stack.encode_operands(x, mask), cfg.layer_norm_eps
+
+
+@pytest.mark.parametrize("dtype,tol,mean_tol", [("float32", 1e-3, 1e-5), ("bfloat16", 1.5e-1, 4e-3)])
+@pytest.mark.parametrize("t5_fields,B,L", [(SMALL_T5, 3, 11), (SMALL_T5, 5, 70), (AMAZON_T5, 2, 513),
+                                           (AMAZON_T5, 64, 800)])
+def test_encoder_stack_kernel_matches_plain(cuda, dtype, tol, mean_tol, t5_fields, B, L):
+    ops, eps = _encoder_operands(t5_fields, dtype, B, L, cuda)
+    before = t5_encoder_stack_infer.launches
+    got = t5_encoder_stack_infer(*ops, eps=eps)
+    torch.cuda.synchronize()
+    assert t5_encoder_stack_infer.launches == before + 1
+    want = t5_encoder_stack_plain(*ops, eps=eps)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    err = (got - want).abs()
+    assert err.max().item() <= tol and err.mean().item() <= mean_tol
 
 
 def test_retriever_on_card_matches_cpu(cuda):

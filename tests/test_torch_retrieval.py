@@ -23,6 +23,7 @@ from rqvae_tpu.serving.retriever import Retriever as JRetriever
 from rqvae_tpu.tokenizer.semids import SemanticIdTokenizer as JTokenizer
 
 from rqvae_tpu_torch.models import retrieval as tr
+from rqvae_tpu_torch.models import t5 as tt5
 from rqvae_tpu_torch.models.quantize import QuantizeForwardMode
 from rqvae_tpu_torch.models.rqvae import RqVae, RqVaeConfig
 from rqvae_tpu_torch.serving import beam as tbeam
@@ -81,10 +82,10 @@ def _tables(corpus, **kw):
     return jt, tt
 
 
-def _generate_both(models, tm, corpus, seed=1, **table_kw):
+def _generate_both(models, tm, corpus, seed=1, n_items=4, **table_kw):
     jm, params, _, jgen = models
     jt, tt = _tables(corpus, **table_kw)
-    b = _batch(np.random.RandomState(seed), corpus)
+    b = _batch(np.random.RandomState(seed), corpus, n_items=n_items)
     want = jgen(params, b.sem_ids, b.seq_mask, b.user_ids, jt)
     got = tm.generate(torch.tensor(np.asarray(b.sem_ids)), torch.tensor(np.asarray(b.seq_mask)),
                       torch.tensor(np.asarray(b.user_ids)), tt)
@@ -156,6 +157,35 @@ def test_generate_matches_jax(models, fused_decode, dense_limit):
     np.testing.assert_array_equal(got.sem_ids.numpy(), np.asarray(want.sem_ids))
     np.testing.assert_allclose(got.log_probas.numpy(), np.asarray(want.log_probas), **LOGP_TOL)
     assert (got.log_probas > -1e8).all()  # a full corpus: every beam valid
+
+
+@pytest.mark.parametrize("fused_encode,kernel", [("auto", "encoder_stack"), ("off", "attention")])
+def test_generate_long_rows_matches_jax(models, monkeypatch, fused_encode, kernel):
+    """The long-row slice as a whole, at a small size: histories of 6 items
+    give 6 x (3 + 1) + 1 = 25 encoder rows, past the two long-row gates
+    (patched down from 512 to 16) and past the decoder gate (patched down
+    from 128 to 8), so the encoder takes its kernel's route (the encoder
+    stack by default, the attention kernel per layer with
+    t5_fused_encode="off") and the decoder the plain per-level path. Beam ids
+    equal the JAX package's XLA path exactly, in f32."""
+    monkeypatch.setattr(tt5, "FUSED_ENCODE_MIN_LEN", 16)
+    monkeypatch.setattr(tt5, "FUSED_ATTENTION_MIN_LEN", 16)
+    monkeypatch.setattr(tt5, "FUSED_DECODE_MAX_LEN", 8)
+    calls = {"encoder_stack": 0, "attention": 0, "decoder_stack": 0}
+    for name, attr in (("encoder_stack", "t5_encoder_stack_infer"), ("attention", "t5_attention"),
+                       ("decoder_stack", "t5_decoder_stack_infer")):
+        def counting(*a, _fn=getattr(tt5, attr), _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(tt5, attr, counting)
+    tm = _port(models[1], **USER_BINS, t5_fused_encode=fused_encode)
+    assert not tm.decoder.use_fused_decode(25)
+    corpus = np.random.RandomState(6).randint(0, K, (60, L)).astype(np.int32)
+    want, got = _generate_both(models, tm, corpus, seed=3, n_items=6)
+    assert calls == {"encoder_stack": int(kernel == "encoder_stack"),
+                     "attention": 2 * int(kernel == "attention"), "decoder_stack": 0}
+    np.testing.assert_array_equal(got.sem_ids.numpy(), np.asarray(want.sem_ids))
+    np.testing.assert_allclose(got.log_probas.numpy(), np.asarray(want.log_probas), **LOGP_TOL)
 
 
 def test_generate_ties_with_few_valid_children(models):

@@ -190,3 +190,15 @@ def test_rq_encode_plain_matches_pallas_interpret(pair):
     ))
     got = fused_encode_quantize_plain(torch.from_numpy(x[:64]), tm.encoder.kernels(), tm.codebooks.detach(), 3)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_rq_encode_plain_at_the_ml32m_widths():
+    """The widths the ML-32M tokenizer runs (788 -> 512 -> 256 -> 128 -> 64),
+    on a few hundred rows: the plain version's ids equal the JAX XLA path's."""
+    jm, params, tm, x = _pair(seed=9, n=300, input_dim=788, embed_dim=64, hidden_dims=(512, 256, 128))
+    want = jm.apply(params, jnp.asarray(x), training=False, method=JRqVae.get_semantic_ids)
+    assert _min_gap(np.asarray(want.residuals), np.asarray(params["params"]["codebooks"])) > 1e-4
+    weights = tm.encoder.kernels()
+    assert [tuple(w.shape) for w in weights] == [(788, 512), (512, 256), (256, 128), (128, 64)]
+    got = fused_encode_quantize(torch.from_numpy(x), weights, tm.codebooks.detach(), 3)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want.sem_ids))
