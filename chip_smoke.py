@@ -1,8 +1,9 @@
-"""Drive the PyTorch/CUDA port's serving paths on one NVIDIA card and check them.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA card
+and check them.
 
     python3 chip_smoke.py
 
-Two published serving geometries, weights made from seeds. Amazon Beauty:
+Two published geometries, served and trained, weights made from seeds. Amazon Beauty:
 RQ-VAE 768 -> [512, 256, 128] -> 32, 20-item histories (encoder rows
 Le = 80), 65,536 synthetic items. MovieLens-32M: RQ-VAE 788 -> [512, 256,
 128] -> 64, 200-item histories (Le = 800), 87,585 synthetic items (the
@@ -10,7 +11,7 @@ dataset's movie count, no multiple of the 32 rows of an rq_encode block). Both:
 3 x 256 codebooks; T5 d_model 384, 6 heads, d_kv 64, d_ff 1024, 4+4 layers,
 bf16, top-k 10, batches of 64 histories.
 
-   1. card: name, count, power limit, torch/CUDA versions; builds the four
+   1. card: name, count, power limit, torch/CUDA versions; builds the five
       CUDA kernels from rqvae_tpu_torch/csrc (one nvcc per source, in
       parallel) and prints each one's ptxas register and spill lines;
    2. rq_encode kernel against its plain version on the card (Amazon width):
@@ -55,7 +56,43 @@ bf16, top-k 10, batches of 64 histories.
       plain torch attention (routes that differ inside attention only); then
       one default-route retrieve() under torch.profiler;
   10. the ML-32M path in f32 on 8 queries, card (kernels) against CPU (plain
-      versions): all 10 beams identical on >= 95% of the queries.
+      versions): all 10 beams identical on >= 95% of the queries;
+  11. attention backward kernel against its plain version at the two training
+      shapes, q, k, v, dout [640, 6, 80, 64] and [64, 6, 800, 64], f32 and bf16,
+      dropout rate 0 and 0.1 (same seed on both sides), ragged key masks and
+      one row with every key masked, and a causal case: dq, dk, dv and dbias
+      each within 4e-6 of the tensor's largest entry in f32 (a few f32 steps:
+      sums of up to 800 terms taken in another order) and within 2^-7 of it in
+      bf16 (one bf16 step of the largest output, when an f32 sum lands across
+      a rounding boundary; dbias, summed in f32, within 1e-4); two launches
+      bit-equal; the backward's p equal in bits to the forward's (read off
+      identity v and dout at Lq = Lk = dk = 64); times of the kernel, its plain version and the library's
+      backward (autograd through scaled_dot_product_attention, no dropout);
+      the forward kernel's time at the Amazon training shape;
+  12. stage-2 training at the ML-32M width through train_decoder.train, counts
+      zeroed first: 87,585 items, 20,000 synthetic users of 10..202 items
+      (histories of up to 200, encoder rows Le = 800), batch 64, bf16, dropout
+      0.1, 3 iterations and one full-eval batch; requires attention forward ==
+      backward == 4 layers x 3 micro-batches, encoder_stack == 1 (the eval
+      batch), finite losses and hits@k in [0, 1]; then 3 timed steps of the
+      same step function (host clock, synchronised) and the peak device memory;
+  13. stage-2 training at the Amazon width through train_decoder.train, counts
+      zeroed first: 65,536 items, 22,363 synthetic users (Amazon Beauty's user
+      count) of 8..22 items, batch 640, bf16, dropout 0.1, weight decay 1e-4:
+      5 iterations with the loss-only and the full evaluation (one batch),
+      then a resumed run of 1 iteration with gradient_accumulate_every=2;
+      requires attention forward == backward == 4 x 7 micro-batches,
+      decoder_stack == 3 levels x 2 eval batches, rq_encode >= 1. Then, with
+      the step function it is made of: every parameter has a finite, non-zero
+      gradient on the first step and has moved after it, the same seed gives
+      the same first-step loss twice (bit-equal), and 5 timed steps;
+  14. one training step in f32 with dropout 0.1 and the same seeds at batch 32,
+      card (kernels) against CPU (plain versions): loss rtol 1e-5, every
+      gradient within 2e-4 of the tensor's largest entry;
+  15. one Amazon training step under torch.profiler: device time by kernel,
+      launches, the device's idle share, the shares of the attention kernels
+      and of the cuBLAS products; beside it the CUDA-event time of the
+      hash-dropout masks at the encoder's dropout sites, forward and backward.
 
 Each phase prints one JSON line. Then the `kernels` line, the card's
 `nvidia-smi` name and power limit, and last `{"ok": true, "device": ...}`.
@@ -66,8 +103,10 @@ Without a CUDA device it exits with code 1 before printing anything.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -86,6 +125,13 @@ CPU_QUERIES_ML32M = 8
 ID_NEAR_TIE = 1e-5  # top-2 gap relative to ||res||^2 + max ||c||^2
 DECODER_TOL = {torch.float32: 1e-3, torch.bfloat16: 6e-2}
 ATTENTION_TOL = {torch.float32: 2e-5, torch.bfloat16: 3.2e-2}
+# attention backward, relative to the tensor's largest entry: (dq, dk, dv; dbias)
+ATTENTION_BWD_TOL = {torch.float32: (4e-6, 4e-6), torch.bfloat16: (2.0 ** -7, 1e-4)}
+TRAIN_AMAZON = dict(users=22363, min_len=8, max_len=22, max_seq_len=20, batch=640)
+TRAIN_ML32M = dict(users=20000, min_len=10, max_len=202, max_seq_len=200, batch=64)
+TRAIN_CPU_BATCH = 32
+TRAIN_GRAD_TOL = 2e-4  # card vs CPU in f32, relative to the gradient tensor's largest entry
+T5 = dict(t5_d_model=384, t5_num_heads=6, t5_d_ff=1024, t5_num_layers=4)
 ENCODER_TOL = {torch.float32: (1e-3, 1e-5), torch.bfloat16: (1.5e-1, 4e-3)}  # (max, mean) abs error
 BEAMS_SAME_MIN = 0.95
 BF16_TOP1_MIN, BF16_OVERLAP_MIN = 0.8, 0.9  # two bf16 routes: first beam equal; beams in common
@@ -106,6 +152,15 @@ def check(cond: bool, what: str) -> None:
 def sync() -> None:
     if DEVICE == "cuda":
         torch.cuda.synchronize()
+
+
+def reset_peak_memory() -> None:
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def peak_memory() -> int:
+    return torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -429,7 +484,8 @@ def decoder_stack_phase(models: dict, rq, x, hist, dev) -> dict:
 
 
 class LaunchCounts:
-    """The four wrappers' launch counters: zeroed before a path, read after."""
+    """The wrappers' launch counters (the attention wrapper counts forwards
+    and backwards apart): zeroed before a path, read after."""
 
     def __init__(self):
         from rqvae_tpu_torch.ops.cuda.attention import t5_attention
@@ -443,9 +499,11 @@ class LaunchCounts:
     def zero(self) -> None:
         for fn in self.wrappers.values():
             fn.launches = 0
+        self.wrappers["attention"].backward_launches = 0
 
     def read(self) -> dict:
-        return {name: fn.launches for name, fn in self.wrappers.items()}
+        return {**{name: fn.launches for name, fn in self.wrappers.items()},
+                "attention_bwd": self.wrappers["attention"].backward_launches}
 
 
 def retrieve_calls(retriever, hist):
@@ -528,6 +586,338 @@ def card_vs_cpu(phase: str, rq, x_cpu, tok, cached_np, near, model_card, hist, d
     emit({"phase": phase, "queries": int(hist.shape[0]), "index_rows_differ": int(id_differ.sum()),
           "index_rows_near_tie": int(near_np.sum()), "queries_all_beams_same": same,
           "log_probas_max_abs_diff": logp_err})
+
+
+def attention_bwd_inputs(B, H, L, dk, dtype, dev, seed):
+    q, k, v, bias, mask = attention_inputs(B, H, L, dk, dtype, dev, seed)
+    do = torch.randn(B, H, L, dk, generator=torch.Generator().manual_seed(seed + 1)).to(dtype).to(dev)
+    return q, k, v, bias, mask, do
+
+
+def backward_p_equals_forward_p(dtype, dev, rate: float, causal: bool) -> bool:
+    """With v = dout = the identity at Lq = Lk = dk = 64, the forward's output
+    is its rounded (dropped) p and the backward's dv is the transpose of its
+    own: equal bits mean the backward rebuilt the forward's p exactly."""
+    from rqvae_tpu_torch.ops.cuda import attention as A
+
+    B, H, L = 5, 3, 64
+    g = torch.Generator().manual_seed(8)
+    q, k = (torch.randn(B, H, L, L, generator=g).to(dtype).to(dev) for _ in range(2))
+    eye = torch.eye(L).to(dtype).to(dev).expand(B, H, L, L).contiguous()
+    bias = torch.randn(H, L, L, generator=g).to(dev)
+    mask = (torch.rand(B, L, generator=g) > 0.2).to(torch.int32).to(dev)
+    out, m, l = A._forward_cuda(q, k, eye, bias, mask, 9, causal, rate, True)
+    dv = A._backward_cuda(q, k, eye, bias, mask, 9, eye, m, l, causal, rate)[2]
+    return bool(torch.equal(dv.transpose(-1, -2), out))
+
+
+def attention_bwd_phase(dev):
+    """attention backward kernel against its plain version at the two training
+    shapes; returns its row of the `kernels` line (bf16, dropout 0.1, the
+    Amazon shape: what every encoder layer of an Amazon step launches) and
+    the forward kernel's time at that shape."""
+    from rqvae_tpu_torch.ops.cuda import attention as A
+
+    H, dk, seed = 6, 64, 77
+    shapes = {"amazon": (TRAIN_AMAZON["batch"], AMAZON["history"] * 4), "ml32m": (TRAIN_ML32M["batch"], ML32M["history"] * 4)}
+    cases = [(name, dt, False, rate) for name in shapes for dt in (torch.float32, torch.bfloat16) for rate in (0.0, 0.1)]
+    cases.append(("amazon", torch.bfloat16, True, 0.1))
+    rows, kernel_row, fwd_amazon = [], None, {}
+    for name, dt, causal, rate in cases:
+        B, L = shapes[name]
+        q, k, v, bias, mask, do = attention_bwd_inputs(B, H, L, dk, dt, dev, seed=5)
+        kw = dict(causal=causal, dropout_rate=rate)
+        what = f"attention_bwd {name} {dtype_name(dt)} causal={causal} rate={rate}"
+        with torch.no_grad():
+            out, m, l = A._forward_cuda(q, k, v, bias, mask, seed, causal, rate, True)
+            run = lambda: A._backward_cuda(q, k, v, bias, mask, seed, do, m, l, causal, rate)
+            got = run()
+            sync()
+            again = run()
+            want = A.t5_attention_backward_plain(q, k, v, bias, mask, seed, do, **kw)
+            check(bool(torch.equal(out, A.t5_attention(q, k, v, bias, mask, seed, **kw))),
+                  f"{what}: the forward that writes its row statistics differs from the forward")
+            errs = {}
+            for gname, g, a, w in zip(("dq", "dk", "dv", "dbias"), got, again, want):
+                check(bool(torch.isfinite(g).all()), f"{what}: non-finite {gname}")
+                check(bool(torch.equal(g, a)), f"{what}: two launches give different {gname}")
+                top = float(w.float().abs().max().item())
+                err = float((g.float() - w.float()).abs().max().item())
+                tol = ATTENTION_BWD_TOL[dt][gname == "dbias"]
+                check(err <= tol * top, f"{what}: {gname} max abs err {err} over {tol} x {top}")
+                errs[gname] = {"max_abs_err": err, "largest": top}
+            k_ms = cuda_ms(run, reps=3, warmup=1)
+            p_ms = cuda_ms(lambda: A.t5_attention_backward_plain(q, k, v, bias, mask, seed, do, **kw), reps=2, warmup=1)
+            f_ms = cuda_ms(lambda: A._forward_cuda(q, k, v, bias, mask, seed, causal, rate, True), reps=5, warmup=1)
+        # 5 products; q, k, v, dout, bias, mask read once, dq, dk, dv, dbias written once
+        b_ms, b_by = bound_ms(10 * B * H * L * L * dk, peak_flops(dt), nbytes_of(q, k, v, do, bias, mask, *got))
+        row = {"shape": name, "dtype": dtype_name(dt), "B": B, "L": L, "causal": causal, "dropout_rate": rate,
+               "errors": errs, "tol_rel": list(ATTENTION_BWD_TOL[dt]), "bit_equal": True, "kernel_ms": k_ms,
+               "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "forward_kernel_ms": f_ms,
+               "groups": A.backward_groups(B, H, L)}
+        if not causal and rate == 0.0:
+            # the yardstick: the library's backward of the same function (timed here, used nowhere in the port)
+            ql, kl, vl, bl = (t.detach().clone().requires_grad_() for t in (q, k, v, bias))
+            add = (bl[None] + torch.where(mask != 0, 0.0, -1e9)[:, None, None, :]).to(dt)
+            lib_out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=add, scale=1.0)
+            lib = lambda: torch.autograd.grad(lib_out, (ql, kl, vl, bl), do, retain_graph=True)
+            lib_dq = lib()[0]
+            # row 0 (every key masked) left out: the call adds bias + mask before the scores
+            row["library_max_abs_err_dq"] = float((lib_dq[1:].float() - want[0][1:].float()).abs().max().item())
+            row["library_ms"] = cuda_ms(lib, reps=3, warmup=1)
+            del ql, kl, vl, bl, add, lib_out, lib_dq
+        rows.append(row)
+        if name == "amazon" and not causal:
+            fwd_amazon[(dtype_name(dt), rate)] = f_ms
+        if name == "amazon" and dt == torch.bfloat16 and not causal and rate == 0.1:
+            kernel_row = {
+                "name": "attention_bwd", "route": "cuda", "source": "rqvae_tpu_torch/csrc/attention_bwd.cu",
+                "replaces": "rqvae_tpu/ops/pallas/attention.py:205",
+                "max_abs_err": max(e["max_abs_err"] for e in errs.values()), "ms": k_ms, "plain_ms": p_ms,
+                "bound_ms": b_ms, "bound_by": b_by,
+            }
+        del q, k, v, bias, mask, do, got, again, want, out, m, l
+        torch.cuda.empty_cache()
+    by = {(r["shape"], r["dtype"], r["dropout_rate"], r["causal"]): r for r in rows}
+    kernel_row["library_ms"] = by[("amazon", "bfloat16", 0.0, False)]["library_ms"]
+    kernel_row["ml32m_ms"] = by[("ml32m", "bfloat16", 0.1, False)]["kernel_ms"]
+    p_bits = {f"{dtype_name(dt)}_rate{rate}_causal{causal}": backward_p_equals_forward_p(dt, dev, rate, causal)
+              for dt in (torch.float32, torch.bfloat16) for rate, causal in ((0.0, False), (0.2, True))}
+    check(all(p_bits.values()), f"attention_bwd: the backward's p differs from the forward's: {p_bits}")
+    emit({"phase": "attention_bwd", "H": H, "dk": dk, "backward_p_equals_forward_p": p_bits, "rows": rows})
+    return kernel_row, {f"{d}_rate{r}": ms for (d, r), ms in fwd_amazon.items()}
+
+
+def make_sequences(geo: dict, n_items: int, seed: int):
+    """Synthetic user histories, leave-two-out layout: [users, max_len] item
+    ids right-padded with -1, and their lengths (min_len..max_len)."""
+    r = np.random.RandomState(seed)
+    lengths = r.randint(geo["min_len"], geo["max_len"] + 1, geo["users"]).astype(np.int64)
+    items = r.randint(0, n_items, (geo["users"], geo["max_len"])).astype(np.int64)
+    items[np.arange(geo["max_len"])[None, :] >= lengths[:, None]] = -1
+    return items, lengths
+
+
+def write_training_inputs(root: str, geo: dict, rq, x_cpu: torch.Tensor, seed: int):
+    """The processed dataset file and the frozen RQ-VAE's checkpoint, as
+    train_decoder.train reads them. Returns (dataset folder, checkpoint path,
+    the dataset's arrays)."""
+    from rqvae_tpu_torch.utils.checkpoint import save_checkpoint
+
+    seq_items, seq_lengths = make_sequences(geo, x_cpu.shape[0], seed)
+    data = {"item_features": x_cpu.numpy(), "item_is_train": np.ones(x_cpu.shape[0], bool), "seq_items": seq_items,
+            "seq_lengths": seq_lengths, "user_ids": np.arange(geo["users"], dtype=np.int64),
+            "max_seq_len": np.int64(geo["max_seq_len"]), "dataset_name": np.asarray("synthetic")}
+    os.makedirs(os.path.join(root, "data", "processed"))
+    np.savez(os.path.join(root, "data", "processed", "data.npz"), **data)
+    ckpt = save_checkpoint(os.path.join(root, "rqvae"), 0, rq.state_dict(), None, rq.config)
+    return os.path.join(root, "data"), ckpt, data
+
+
+def train_kwargs(geo: dict, vae: dict, dataset_folder: str, rq_ckpt: str, dtype: str = "bfloat16") -> dict:
+    """The published stage-2 settings (configs/decoder_amazon.gin, decoder_ml32m.gin)."""
+    from rqvae_tpu_torch.data.registry import RecDataset
+
+    return dict(batch_size=geo["batch"], learning_rate=1e-3, weight_decay=1e-4, dataset_folder=dataset_folder,
+                dataset=RecDataset.SYNTHETIC, pretrained_rqvae_path=rq_ckpt, vae_input_dim=vae["input_dim"],
+                vae_embed_dim=vae["embed_dim"], vae_hidden_dims=[512, 256, 128], vae_codebook_size=256,
+                vae_n_cat_feats=0, vae_n_layers=3, top_k_for_generation=10, should_add_sep_token=True,
+                t5_dropout=0.1, t5_dtype=dtype, warmup_steps=10000, seed=0, **T5)
+
+
+def training_parts(geo: dict, data: dict, rq, x, dev, dtype: str, cached=None):
+    """What train_decoder.train is made of, held here so that a step can be
+    inspected and timed: model, optimizer, the fused step and its operands
+    (`cached`: an id table to use in place of this device's own index)."""
+    from rqvae_tpu_torch.ops.schedules import inverse_sqrt_schedule
+    from rqvae_tpu_torch.tokenizer.semids import SemanticIdTokenizer
+    from rqvae_tpu_torch.train.decoder_steps import make_decoder_fused_train_step
+    from rqvae_tpu_torch.train.state import adamw
+
+    if cached is None:
+        cached = SemanticIdTokenizer(rq, device=dev).precompute_corpus_ids(x)
+    model = retrieval_model(dtype, dev, t5_dropout=0.1)
+    opt = adamw(model.parameters(), inverse_sqrt_schedule(1e-3, 10000), weight_decay=1e-4)
+    step = make_decoder_fused_train_step(model, opt, max_seq_len=geo["max_seq_len"], leave_two_out=True,
+                                         subsample=True)
+    tables = [torch.as_tensor(data[k], device=dev) for k in ("seq_items", "seq_lengths", "user_ids")] + [cached]
+    return model, opt, step, tables
+
+
+def run_steps(step, tables, geo: dict, dev, n: int, first: int = 0):
+    """n training steps (numbers first .. first + n - 1 of seed 0): their
+    host-clock ms (synchronised) and losses."""
+    from rqvae_tpu_torch.train.train_decoder import step_generator, step_rows
+
+    ms, losses = [], []
+    for it in range(first, first + n):
+        sync()
+        t0 = time.perf_counter()
+        rows = torch.as_tensor(step_rows(0, it, geo["users"], geo["batch"])).to(dev)
+        metrics = step(*tables, rows, step_generator(0, it))
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["total_loss"]))
+    return ms, losses
+
+
+def check_summary(phase: str, summary: dict) -> None:
+    check(bool(np.isfinite(summary["total_loss"])), f"{phase}: loss {summary['total_loss']}")
+    for k in ("h@1", "h@5", "h@10", "ndcg"):
+        check(0.0 <= summary[k] <= 1.0, f"{phase}: {k} = {summary[k]}")
+    check(summary["checkpoint_path"] is not None, f"{phase}: no checkpoint written")
+
+
+def train_ml32m_phase(rq, x_cpu, x, counts, dev) -> dict:
+    """Stage-2 training at the ML-32M width through the trainer's entry point;
+    returns the path's launch counts."""
+    from rqvae_tpu_torch.train.train_decoder import train
+
+    geo, L = TRAIN_ML32M, ML32M["history"] * 4
+    with tempfile.TemporaryDirectory() as root:
+        folder, rq_ckpt, data = write_training_inputs(root, geo, rq, x_cpu, seed=11)
+        kw = train_kwargs(geo, ML32M, folder, rq_ckpt)
+        reset_peak_memory()
+        counts.zero()
+        summary = train(iterations=3, save_dir_root=os.path.join(root, "dec"), partial_eval_every=1000,
+                        full_eval_every=1000, full_eval_max_batches=1, log_every=1, device=dev, **kw)
+        sync()
+        got = counts.read()
+        peak_train_call = peak_memory()
+    check(got["attention"] == 4 * 3 and got["attention_bwd"] == 4 * 3 and got["encoder_stack"] == 1
+          and got["decoder_stack"] == 0 and got["rq_encode"] >= 1, f"ML-32M training launches {got}")
+    check_summary("train_path_ml32m", summary)
+    model, opt, step, tables = training_parts(geo, data, rq, x, dev, "bfloat16")
+    run_steps(step, tables, geo, dev, 1)  # warm
+    reset_peak_memory()
+    step_ms, losses = run_steps(step, tables, geo, dev, 3, first=1)
+    peak_step = peak_memory()
+    check(all(np.isfinite(losses)), f"train_path_ml32m: losses {losses}")
+    emit({"phase": "train_path_ml32m", "items": int(x.shape[0]), "users": geo["users"], "batch": geo["batch"],
+          "Le": L, "dtype": "bfloat16", "dropout": 0.1, "iterations": 3, "launches": got,
+          "summary": {k: v for k, v in summary.items() if isinstance(v, float)}, "step_ms": step_ms,
+          "step_losses": losses, "peak_memory_bytes_train_call": peak_train_call, "peak_memory_bytes_step": peak_step})
+    del model, opt, step, tables
+    torch.cuda.empty_cache()
+    return got
+
+
+def train_amazon_phase(rq, x_cpu, x, counts, dev):
+    """Stage-2 training at the Amazon width through the trainer's entry point
+    (5 iterations, both evaluations, then a resumed iteration that accumulates
+    2 micro-batches) and the checks on its step function; returns the path's
+    launch counts and the parts for the later phases."""
+    from rqvae_tpu_torch.train.train_decoder import train
+
+    geo = TRAIN_AMAZON
+    with tempfile.TemporaryDirectory() as root:
+        folder, rq_ckpt, data = write_training_inputs(root, geo, rq, x_cpu, seed=12)
+        kw = train_kwargs(geo, AMAZON, folder, rq_ckpt)
+        save_dir = os.path.join(root, "dec")
+        counts.zero()
+        t0 = time.perf_counter()
+        first = train(iterations=5, save_dir_root=save_dir, partial_eval_every=5, full_eval_every=5,
+                      full_eval_max_batches=1, log_every=1, device=dev, **kw)
+        resumed = train(iterations=1, save_dir_root=save_dir, gradient_accumulate_every=2, auto_resume=True,
+                        partial_eval_every=1000, full_eval_every=1000, full_eval_max_batches=1, log_every=1,
+                        device=dev, **kw)
+        sync()
+        train_s = time.perf_counter() - t0
+        got = counts.read()
+    micro = 5 + 2
+    check(got["attention"] == 4 * micro and got["attention_bwd"] == 4 * micro and got["decoder_stack"] == 3 * 2
+          and got["rq_encode"] >= 1 and got["encoder_stack"] == 0, f"Amazon training launches {got}")
+    for name, summary in (("first", first), ("resumed", resumed)):
+        check_summary(f"train_path {name}", summary)
+    check(bool(np.isfinite(first["eval_loss"])), f"train_path: eval loss {first['eval_loss']}")
+    check(resumed["checkpoint_path"].endswith("checkpoint_5.pt"), f"resumed run wrote {resumed['checkpoint_path']}")
+
+    # the step function, inspected: gradients, movement, determinism, time
+    model, opt, step, tables = training_parts(geo, data, rq, x, dev, "bfloat16")
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    _, loss_a = run_steps(step, tables, geo, dev, 1)
+    for n, p in model.named_parameters():
+        check(p.grad is not None and bool(torch.isfinite(p.grad).all()) and bool((p.grad != 0).any()),
+              f"train_path: gradient of {n} is missing, non-finite or all zero")
+        check(not torch.equal(p.detach(), before[n]), f"train_path: {n} did not move")
+    model2, _, step2, tables2 = training_parts(geo, data, rq, x, dev, "bfloat16")
+    _, loss_b = run_steps(step2, tables2, geo, dev, 1)
+    check(loss_a == loss_b, f"train_path: same seed, first-step losses {loss_a} and {loss_b}")
+    del model2, step2, tables2, before
+    step_ms, losses = run_steps(step, tables, geo, dev, 5, first=1)
+    check(all(np.isfinite(losses)), f"train_path: losses {losses}")
+    emit({"phase": "train_path", "items": int(x.shape[0]), "users": geo["users"], "batch": geo["batch"],
+          "Le": AMAZON["history"] * 4, "dtype": "bfloat16", "dropout": 0.1, "iterations": 5,
+          "resumed_iterations": 1, "resumed_accumulate": 2, "micro_batches": micro, "launches": got,
+          "train_calls_s": train_s, "summary": {k: v for k, v in first.items() if isinstance(v, float)},
+          "resumed_total_loss": resumed["total_loss"], "first_step_loss_twice": [loss_a[0], loss_b[0]],
+          "step_ms": step_ms, "step_losses": losses})
+    return got, (model, opt, step, tables, data)
+
+
+def train_card_vs_cpu_phase(data: dict, rq, x, dev) -> None:
+    """One f32 training step with dropout, the same seeds: card (kernels)
+    against CPU (plain versions)."""
+    from rqvae_tpu_torch.train.train_decoder import step_generator, step_rows
+
+    geo = {**TRAIN_AMAZON, "batch": TRAIN_CPU_BATCH}
+    rows = torch.as_tensor(step_rows(0, 0, geo["users"], geo["batch"]))
+    result, cached = {}, None
+    # both sides tokenize from the card's index: the two devices' indexes differ
+    # at argmin near-ties (phase 5), and this phase compares the training step
+    for name, d in {"card": dev, "cpu": torch.device("cpu")}.items():
+        model, opt, step, tables = training_parts(geo, data, rq, x, d, "float32", cached=cached)
+        cached = tables[3].cpu()
+        metrics = step(*tables, rows.to(d), step_generator(0, 0))
+        result[name] = (float(metrics["total_loss"]), {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+    loss_card, loss_cpu = result["card"][0], result["cpu"][0]
+    check(abs(loss_card - loss_cpu) <= 1e-5 * abs(loss_cpu), f"train_card_vs_cpu_f32: loss {loss_card} vs {loss_cpu}")
+    worst, worst_name = 0.0, None
+    for n, g in result["cpu"][1].items():
+        rel = float((g - result["card"][1][n]).abs().max() / g.abs().max())
+        if rel > worst:
+            worst, worst_name = rel, n
+    check(worst <= TRAIN_GRAD_TOL, f"train_card_vs_cpu_f32: gradient of {worst_name} differs by {worst} of its largest entry")
+    emit({"phase": "train_card_vs_cpu_f32", "batch": TRAIN_CPU_BATCH, "dropout": 0.1, "loss_card": loss_card,
+          "loss_cpu": loss_cpu, "worst_gradient_rel_diff": worst,
+          "worst_gradient": worst_name, "tol_rel": TRAIN_GRAD_TOL})
+
+
+def train_profile_phase(step, tables, dev, top: int = 12) -> None:
+    """One Amazon training step under torch.profiler (CUPTI), and the
+    CUDA-event time of the hash-dropout masks at the encoder's sites."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rqvae_tpu_torch.ops.hash_dropout import hash_dropout
+
+    geo = TRAIN_AMAZON
+    run_steps(step, tables, geo, dev, 1, first=20)  # warm
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ms, _ = run_steps(step, tables, geo, dev, 1, first=21)
+    rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    device_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    share = lambda pick: sum(e.self_device_time_total for e in rows if pick(e.key.lower())) / 1e3 / device_ms
+    attention_fwd = lambda k: "attention_mma_kernel" in k or "attention_kernel" in k
+    attention_bwd = lambda k: any(s in k for s in ("delta_kernel", "dkv_kernel", "dq_dbias_kernel", "reduce_groups_kernel"))
+    gemm = lambda k: "gemm" in k or "cutlass" in k or "cublas" in k
+    # the masks of the encoder's dropout sites of one micro-batch: input, two
+    # sublayer outputs per layer and the final output at [B * Le, d], the FFN's
+    # inner activation per layer at [B * Le, d_ff]; each built forward and backward
+    n_tok = geo["batch"] * AMAZON["history"] * 4
+    sites = [((n_tok, 384), 2 + 2 * 4), ((n_tok, 1024), 4)]
+    dropout_ms = 0.0
+    for shape, count in sites:
+        h = torch.randn(shape, device=dev).to(torch.bfloat16)
+        dropout_ms += 2 * count * cuda_ms(lambda: hash_dropout(h, 123, 0.1), reps=5, warmup=1)
+    emit({"phase": "train_profile", "host_ms": ms[0], "device_ms": device_ms,
+          "device_launches": sum(e.count for e in rows),
+          "device_idle_share": max(0.0, 1.0 - device_ms / ms[0]),
+          "share_attention_forward": share(attention_fwd), "share_attention_backward": share(attention_bwd),
+          "share_gemm": share(gemm), "hash_dropout_encoder_sites_ms": dropout_ms,
+          "hash_dropout_encoder_sites_share_of_device_ms": dropout_ms / device_ms,
+          "kernels": [{"name": e.key[:60], "count": e.count, "ms": e.self_device_time_total / 1e3}
+                      for e in rows[:top]]})
 
 
 def main() -> int:
@@ -643,9 +1033,27 @@ def main() -> int:
     card_vs_cpu("card_vs_cpu_f32_ml32m", rq, x_cpu, tok, cached_np, near, models[torch.float32],
                 hist[:CPU_QUERIES_ML32M], dev)
 
+    del retriever, retriever_off, results, results_off, models, tok, cached, f32_default
+    torch.cuda.empty_cache()
+
+    # ---- 11. the attention backward kernel at both training shapes ----
+    kernels["attention_bwd"], fwd_amazon_ms = attention_bwd_phase(dev)
+    kernels["attention"]["amazon_train_shape_ms"] = fwd_amazon_ms
+
+    # ---- 12. training at the ML-32M width ----
+    launches["train_ml32m"] = train_ml32m_phase(rq, x_cpu, x, counts, dev)
+    del rq, x, x_cpu
+    torch.cuda.empty_cache()
+
+    # ---- 13-15. training at the Amazon width ----
+    rq, x_cpu, x = make_rqvae(AMAZON, dev)
+    launches["train_amazon"], (model, opt, step, tables, data) = train_amazon_phase(rq, x_cpu, x, counts, dev)
+    train_card_vs_cpu_phase(data, rq, x, dev)
+    train_profile_phase(step, tables, dev)
+
     # ---- kernels, card, result ----
     for name, row in kernels.items():
-        row["launches_by_path"] = {path: got[name] for path, got in launches.items()}
+        row["launches_by_path"] = {path: got.get(name, 0) for path, got in launches.items()}
         row["launches"] = sum(row["launches_by_path"].values())
         check(row["launches"] >= 1, f"{name} was launched no time on a main path")
     emit({"kernels": [{k: row[k] for k in (*KERNEL_KEYS, *sorted(set(row) - set(KERNEL_KEYS)))}

@@ -1,8 +1,9 @@
 """PyTorch/CUDA port of rqvae_tpu: generative semantic-ID retrieval.
 
-The serving path (corpus index build -> constrained beam search) runs on an
-NVIDIA Hopper card, with hand-written CUDA C++ kernels (csrc/) in place of
-the JAX package's Pallas TPU kernels. Entry points (`Retriever`,
-`SemanticIdTokenizer`, the model constructors) run on the card unless the
-caller passes `device="cpu"`; they raise when no card is present.
+The serving path (corpus index build -> constrained beam search) and stage-2
+(retrieval) training run on an NVIDIA Hopper card, with hand-written CUDA C++
+kernels (csrc/) in place of the JAX package's Pallas TPU kernels. Entry
+points (`Retriever`, `SemanticIdTokenizer`, the model constructors,
+`train.train_decoder.train`) run on the card unless the caller passes
+`device="cpu"`; they raise when no card is present.
 """

@@ -1,5 +1,7 @@
 // Fused T5 attention forward: softmax(q k^T + bias + mask [+ causal]) @ v with
-// in-register dropout, one launch for all (batch row, head, query tile).
+// in-register dropout, one launch for all (batch row, head, query tile). When
+// asked (training), it also writes each row's softmax maximum and sum, from
+// which the backward kernel (attention_bwd.cu) rebuilds the same p.
 //
 // Replaces the Pallas TPU kernel rqvae_tpu/ops/pallas/attention.py::_fwd_kernel
 // (via _fwd_call / t5_attention). The device routine, its rounding points and
@@ -31,6 +33,8 @@ int launch(void* const* ptrs, const int* dims, int seed, unsigned keep_thresh, f
   p.mask_add = nullptr;
   p.mask_keep = static_cast<const int*>(ptrs[4]);
   p.out = static_cast<T*>(ptrs[5]);
+  p.row_max = static_cast<float*>(ptrs[6]);
+  p.row_sum = static_cast<float*>(ptrs[7]);
   p.B = dims[0]; p.H = dims[1]; p.Lq = dims[2]; p.Lk = dims[3]; p.dk = dims[4];
   p.causal = dims[5];
   p.dropout = dropout;
@@ -46,7 +50,8 @@ extern "C" {
 
 const char* kernel_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-// ptrs: q, k, v, bias [H, Lq, Lk] f32, mask [B, Lk] int32 (1 = attend), out.
+// ptrs: q, k, v, bias [H, Lq, Lk] f32, mask [B, Lk] int32 (1 = attend), out,
+// then row_max and row_sum [B, H, Lq] f32 (both null: statistics not written).
 // dims: B, H, Lq, Lk, dk, causal. With dropout != 0, keep iff the hash bits
 // >= keep_thresh and kept probabilities are scaled by keep_scale.
 int attention_forward(int is_bf16, void* const* ptrs, const int* dims, int seed,

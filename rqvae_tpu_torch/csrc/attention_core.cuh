@@ -42,6 +42,11 @@
 // uint32 counter ((b*H + h)*Lq + q)*Lk + k XOR seed * 0x9E3779B9, keep iff
 // bits >= round(rate * 2^32); dropped p is zeroed and the rest scaled by
 // 1/(1-rate) in float32 before the rounding to the compute dtype.
+//
+// Row statistics: when Params::row_max / row_sum are set, each row's pass-1
+// maximum m and sum l are written out ([B, H, Lq] float32), so that the
+// backward kernel (csrc/attention_bwd.cu) rebuilds p = exp(s - m) / l from
+// the forward's own m and l.
 
 #pragma once
 
@@ -93,6 +98,8 @@ template <typename T> struct Params {
   const float* mask_add;    // [B, Lk] additive (0 / -1e9), or null
   const int* mask_keep;     // [B, Lk] 1 = attend, used when mask_add is null
   T* out;                   // [B, H, Lq, dk]
+  float* row_max;           // [B, H, Lq] softmax row maximum m, or null: not written
+  float* row_sum;           // [B, H, Lq] sum l of exp(s - m) over the keys, or null
   int B, H, Lq, Lk, dk;
   int causal;
   int dropout;              // 0: no dropout, the three fields below unused
@@ -229,6 +236,19 @@ __device__ void attention_tile(const Params<T>& p, int b, int h, int q0, float* 
       for (int j = 0; j < 4; ++j) sum += expf(s[i][j] - mn);
       l[i] = l[i] * expf(m[i] - mn) + row_sum(sum);
       m[i] = mn;
+    }
+  }
+
+  // the row statistics, for a backward pass that recomputes p = exp(s - m) / l
+  if (p.row_max != nullptr && tx == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + ty * 4 + i;
+      if (row < Lq) {
+        const size_t at = ((size_t)b * p.H + h) * Lq + row;
+        p.row_max[at] = m[i];
+        p.row_sum[at] = l[i];
+      }
     }
   }
 
@@ -440,6 +460,18 @@ __device__ void attention_tile_mma(const Params<__nv_bfloat16>& p, int b, int h,
       for (int j = 0; j < 8; ++j) sum += expf(s[j][2 * hh] - mn) + expf(s[j][2 * hh + 1] - mn);
       l[hh] = l[hh] * expf(m[hh] - mn) + quad_sum(sum);
       m[hh] = mn;
+    }
+  }
+
+  if (p.row_max != nullptr && t == 0) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = row_lo + hh * 8;
+      if (row < Lq) {
+        const size_t at = ((size_t)b * p.H + h) * Lq + row;
+        p.row_max[at] = m[hh];
+        p.row_sum[at] = l[hh];
+      }
     }
   }
 

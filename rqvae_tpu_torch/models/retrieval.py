@@ -1,4 +1,4 @@
-"""Retrieval model, inference (port of rqvae_tpu/models/retrieval.py).
+"""Retrieval model (port of rqvae_tpu/models/retrieval.py).
 
 T5-style encoder-decoder over semantic-ID sequences with constrained beam
 search: per level, candidates are scored by cumulative log-prob, children
@@ -7,7 +7,10 @@ beams are kept. Top-k breaks ties toward the lower index, as jax.lax.top_k
 does; ties are common, since every invalid candidate scores -1e9 plus its
 beam's log-prob, which rounds to -1e9.
 
-The training loss and sampled-candidate generation belong to later slices.
+Training: `forward(batch, training, generator)` is the teacher-forced loss, the
+sum over hierarchy levels of the mean cross-entropy of that level's head at
+its decoder position. Sampled-candidate generation and rematerialisation
+(`t5_remat`) are not ported.
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
-from rqvae_tpu_torch.models.t5 import T5Stack, T5StackConfig
+from rqvae_tpu_torch.data.schemas import TokenizedSeqBatch
+from rqvae_tpu_torch.models.t5 import DropoutSeeds, T5Stack, T5StackConfig
 from rqvae_tpu_torch.ops.embedding import embedding_lookup
 from rqvae_tpu_torch.serving.beam import PrefixTable, extend_keys, valid_children
 from rqvae_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -28,8 +32,8 @@ NEG_INF = -1e9
 
 @dataclass(frozen=True)
 class RetrievalConfig:
-    """The inference fields of rqvae_tpu.models.retrieval.RetrievalConfig,
-    same names and defaults."""
+    """The fields of rqvae_tpu.models.retrieval.RetrievalConfig, same names
+    and defaults (`n_candidates` comes with sampled-candidate generation)."""
 
     num_hierarchies: int = 3
     codebook_size: int = 256
@@ -38,14 +42,21 @@ class RetrievalConfig:
     t5_num_heads: int = 6
     t5_d_ff: int = 1024
     t5_num_layers: int = 4
+    t5_dropout: float = 0.1
     top_k_for_generation: int = 10
     should_add_sep_token: bool = True
     num_user_bins: Optional[int] = None
     sample_candidates: bool = False
     t5_dtype: str = "float32"
+    t5_remat: bool = False  # not ported: True raises
+    t5_hash_dropout: bool = True
     t5_fused_decode: str = "auto"
     t5_fused_encode: str = "auto"
     t5_fused_attention: str = "auto"
+
+    def __post_init__(self):
+        if self.t5_remat:
+            raise NotImplementedError("t5_remat (rematerialised blocks) is not ported")
 
     @property
     def t5(self) -> T5StackConfig:
@@ -55,11 +66,19 @@ class RetrievalConfig:
             num_heads=self.t5_num_heads,
             d_ff=self.t5_d_ff,
             num_layers=self.t5_num_layers,
+            dropout=self.t5_dropout,
             dtype=self.t5_dtype,
+            hash_dropout=self.t5_hash_dropout,
             fused_decode=self.t5_fused_decode,
             fused_encode=self.t5_fused_encode,
             fused_attention=self.t5_fused_attention,
         )
+
+
+class ModelOutput(NamedTuple):
+    loss: torch.Tensor  # scalar
+    logits: torch.Tensor  # [B, L, K] per-hierarchy teacher-forced logits
+    loss_d: torch.Tensor  # [L] per-hierarchy losses
 
 
 class GenerationOutput(NamedTuple):
@@ -120,6 +139,8 @@ class EncoderDecoderRetrievalModel(nn.Module):
         sem_ids: torch.Tensor,  # [B, N*L], dedup stripped, -1 padded
         seq_mask: torch.Tensor,  # [B, N*L] 1 = valid
         user_ids: Optional[torch.Tensor] = None,  # [B]
+        training: bool = False,
+        seeds: Optional[DropoutSeeds] = None,
     ):
         cfg = self.config
         B, T = sem_ids.shape
@@ -140,7 +161,7 @@ class EncoderDecoderRetrievalModel(nn.Module):
             u = torch.remainder(user_ids.long(), cfg.num_user_bins)
             embs = torch.cat([self.user_embedding[u][:, None, :], embs], dim=1)
             mask = torch.cat([torch.ones_like(mask[:, :1]), mask], dim=1)
-        return self.encoder(embs, self_mask=mask), mask
+        return self.encoder(embs, self_mask=mask, training=training, seeds=seeds), mask
 
     def _decoder_embs(self, fut_ids: Optional[torch.Tensor], rows: int) -> torch.Tensor:
         """BOS + offset-shifted prefix embeddings: [rows, T+1, d]."""
@@ -157,11 +178,35 @@ class EncoderDecoderRetrievalModel(nn.Module):
         enc_mask: torch.Tensor,
         beams: int = 1,
         cross_kv=None,  # decoder.cross_kv(enc_out)
+        training: bool = False,
+        seeds: Optional[DropoutSeeds] = None,
     ) -> torch.Tensor:
         embs = self._decoder_embs(fut_ids, enc_out.shape[0] * beams)
         return self.decoder(
-            embs, enc_out=enc_out, enc_mask=enc_mask, beams=beams, cross_kv=cross_kv
+            embs, enc_out=enc_out, enc_mask=enc_mask, beams=beams, cross_kv=cross_kv,
+            training=training, seeds=seeds,
         )  # [B*beams, T+1, d]
+
+    def forward(self, batch: TokenizedSeqBatch, training: bool = False,
+                generator: Optional[torch.Generator] = None) -> ModelOutput:
+        """Teacher-forced loss. With `training` and a dropout rate above 0,
+        `generator` (a CPU torch.Generator) supplies the dropout seeds."""
+        cfg = self.config
+        L = cfg.num_hierarchies
+        D = L + 1  # sem_ids_dim including the dedup column
+        input_ids = strip_dedup_col(batch.sem_ids, D, L)
+        mask = strip_dedup_col(batch.seq_mask.to(torch.int32), D, L)
+        fut = batch.sem_ids_fut[:, :L]
+        seeds = DropoutSeeds(generator) if training and generator is not None else None
+
+        enc, enc_mask = self.encoder_forward(input_ids, mask, batch.user_ids, training, seeds)
+        dec = self.decoder_forward(fut, enc, enc_mask, training=training, seeds=seeds)[:, :-1]  # [B, L, d]
+
+        logits = torch.einsum("bld,ldk->blk", dec, self.heads)  # [B, L, K]
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(logp, 2, fut.long()[:, :, None])[..., 0]  # [B, L]
+        loss_d = nll.mean(0)  # [L]
+        return ModelOutput(loss=loss_d.sum(), logits=logits, loss_d=loss_d)
 
     @torch.no_grad()
     def generate(

@@ -1,11 +1,21 @@
-"""T5-style encoder and decoder stacks, inference (port of rqvae_tpu/models/t5.py).
+"""T5-style encoder and decoder stacks (port of rqvae_tpu/models/t5.py).
 
 - RMSNorm: no mean subtraction, no bias; f32 math, cast back to the input
   dtype, then scaled by the f32 weight.
 - Attention without 1/sqrt(d) scaling, bias-free q/k/v/o, -1e9 additive
   masks; the relative position bias is computed by the first block of each
   stack and shared by all blocks. Cross-attention has no bias.
-- FFN: wi -> ReLU -> wo. Final RMSNorm at the end of each stack.
+- FFN: wi -> ReLU -> dropout -> wo. Final RMSNorm and dropout at the end of
+  each stack.
+- Dropout (training only, rate `dropout`) at the reference's sites, in its
+  order: the stack's input, the attention weights (inside the attention kernel
+  where that runs), each sublayer's output before the residual add, the FFN's
+  inner activation, the stack's output. Each site takes its own int32 seed
+  from a `DropoutSeeds` handed down by the caller, which draws them on the
+  host from an explicit `torch.Generator`: nothing reads global random state.
+  With `hash_dropout` the mask is the counter hash of ops/hash_dropout.py and
+  is rebuilt in the backward pass; without it, a Bernoulli mask from a
+  generator seeded with the site's seed.
 
 Parameters stay float32. With `dtype="bfloat16"` every projection rounds its
 operands to bf16, sums the products in f32 and rounds the result to bf16 once
@@ -20,17 +30,21 @@ that the port routes as the reference does:
 - the encoder serves rows of FUSED_ENCODE_MIN_LEN or more through
   `fused_encode`, one call of the encoder-stack kernel
   (ops/cuda/encoder_stack.py);
-- with `fused_encode="off"`, self- and cross-attention over at least
-  FUSED_ATTENTION_MIN_LEN queries and keys go through the attention kernel
-  (ops/cuda/attention.py), once per layer.
+- self- and cross-attention go through the attention kernels
+  (ops/cuda/attention.py, forward and backward), once per layer: in training
+  whenever there are at least FUSED_ATTENTION_MIN_TILE queries and keys, at
+  inference (with `fused_encode="off"`) only over at least
+  FUSED_ATTENTION_MIN_LEN of them.
 
-Each mode field is "auto" (the gate decides) or "off".
+Each mode field is "auto" (the gate decides), "on" (the same here: one
+device, no device-count gate to force past) or "off". Rematerialisation
+(`remat`) is not ported.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -40,6 +54,7 @@ from rqvae_tpu_torch.ops.cuda.attention import t5_attention
 from rqvae_tpu_torch.ops.cuda.decoder_stack import t5_decoder_stack_infer
 from rqvae_tpu_torch.ops.cuda.encoder_stack import t5_encoder_stack_infer
 from rqvae_tpu_torch.ops.embedding import embedding_lookup
+from rqvae_tpu_torch.ops.hash_dropout import hash_dropout
 
 NEG_INF = -1e9
 
@@ -62,19 +77,26 @@ class T5StackConfig:
     rel_buckets: int = 32
     rel_max_distance: int = 128
     layer_norm_eps: float = 1e-6
+    dropout: float = 0.1
     dtype: str = "float32"  # compute dtype: "float32" | "bfloat16"
+    # counter-hash dropout (ops/hash_dropout.py): nothing but the seed is kept
+    # for the backward pass; False draws a Bernoulli mask per site
+    hash_dropout: bool = True
     # decoder-stack kernel for beam search: "auto" (on when the encoder
     # rows are <= FUSED_DECODE_MAX_LEN) or "off"
     fused_decode: str = "auto"
     # encoder-stack kernel: "auto" (on for rows >= FUSED_ENCODE_MIN_LEN) or "off"
     fused_encode: str = "auto"
-    # attention kernel: "auto" (on for min(Lq, Lk) >= FUSED_ATTENTION_MIN_LEN) or "off"
+    # attention kernels: "auto" (in training on from FUSED_ATTENTION_MIN_TILE
+    # queries and keys, at inference from FUSED_ATTENTION_MIN_LEN) or "off"
     fused_attention: str = "auto"
 
     def __post_init__(self):
         for name in ("fused_decode", "fused_encode", "fused_attention"):
-            if getattr(self, name) not in ("auto", "off"):
-                raise ValueError(f'{name} must be "auto" or "off", got {getattr(self, name)!r}')
+            if getattr(self, name) not in ("auto", "on", "off"):
+                raise ValueError(f'{name} must be "auto", "on" or "off", got {getattr(self, name)!r}')
+        if not 0.0 <= self.dropout < 1.0:
+            raise ValueError(f"dropout {self.dropout} outside [0, 1)")
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -87,6 +109,40 @@ def dense(x: torch.Tensor, weight: torch.Tensor, cdt: torch.dtype) -> torch.Tens
     if cdt == torch.float32:
         return F.linear(x.float(), weight.float())
     return F.linear(x.to(cdt).float(), weight.to(cdt).float()).to(cdt)
+
+
+class DropoutSeeds:
+    """Host-side int32 seeds for the dropout sites of forward passes: drawn
+    from `generator` (a CPU torch.Generator) a block at a time, handed out one
+    per site in call order. The same generator state gives the same masks."""
+
+    BLOCK = 64  # more than the sites of one forward of an 8-layer model
+
+    def __init__(self, generator: torch.Generator):
+        if generator.device.type != "cpu":
+            raise ValueError("dropout seeds are drawn on the host: pass a CPU torch.Generator")
+        self.generator = generator
+        self._seeds: List[int] = []
+
+    def next(self) -> int:
+        if not self._seeds:
+            self._seeds = torch.randint(0, 2**31 - 1, (self.BLOCK,), generator=self.generator).tolist()[::-1]
+        return self._seeds.pop()
+
+
+def dropout(x: torch.Tensor, cfg: T5StackConfig, training: bool, seeds: Optional[DropoutSeeds]) -> torch.Tensor:
+    """One dropout site at rate cfg.dropout (the identity outside training)."""
+    if not training or cfg.dropout == 0.0:
+        return x
+    if seeds is None:
+        raise ValueError("training with dropout needs a DropoutSeeds (an explicit generator)")
+    seed = seeds.next()
+    if cfg.hash_dropout:
+        return hash_dropout(x, seed, cfg.dropout)
+    keep_prob = 1.0 - cfg.dropout
+    g = torch.Generator(device=x.device).manual_seed(seed)
+    keep = torch.rand(x.shape, device=x.device, generator=g) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class RMSNorm(nn.Module):
@@ -186,6 +242,8 @@ class T5Attention(nn.Module):
         position_bias: Optional[torch.Tensor] = None,  # [1, H, Lq, Lk]
         causal: bool = False,
         kv_cache: Optional[tuple] = None,  # precomputed kv_heads() output
+        training: bool = False,
+        seeds: Optional[DropoutSeeds] = None,
     ):
         cfg = self.cfg
         cdt = cfg.compute_dtype
@@ -196,12 +254,16 @@ class T5Attention(nn.Module):
         if position_bias is None and self.rel_bias is not None:
             position_bias = self.position_bias(Lq, Lk)
 
-        if self._use_fused(Lq, Lk):
+        if self._use_fused(Lq, Lk, training):
             bias = (position_bias[0] if position_bias is not None
                     else torch.zeros(cfg.num_heads, Lq, Lk, device=x.device))
             keys = mask if mask is not None else torch.ones(B, Lk, dtype=torch.int32, device=x.device)
+            rate = cfg.dropout if training else 0.0
+            if rate > 0.0 and seeds is None:
+                raise ValueError("training with dropout needs a DropoutSeeds (an explicit generator)")
+            seed = seeds.next() if rate > 0.0 else 0  # a host int: the kernels take it without a sync
             out = t5_attention(q.contiguous(), k.contiguous(), v.contiguous(), bias.contiguous(),
-                               keys.to(torch.int32), causal=causal)
+                               keys.to(torch.int32), seed, causal=causal, dropout_rate=rate)
             out = out.transpose(1, 2).reshape(B, Lq, cfg.num_heads * cfg.d_kv)
             return dense(out, self.o.weight, cdt), position_bias
 
@@ -213,7 +275,7 @@ class T5Attention(nn.Module):
         if causal:
             cmask = torch.ones(Lq, Lk, dtype=torch.bool, device=x.device).tril()
             scores = scores + torch.where(cmask, 0.0, NEG_INF)
-        weights = torch.softmax(scores, dim=-1).to(cdt)
+        weights = dropout(torch.softmax(scores, dim=-1).to(cdt), cfg, training, seeds)
         out = (weights.float() @ v.float()).to(cdt)
         out = out.transpose(1, 2).reshape(B, Lq, cfg.num_heads * cfg.d_kv)
         return dense(out, self.o.weight, cdt), position_bias
@@ -226,15 +288,17 @@ class T5FFN(nn.Module):
         self.wi = nn.Linear(cfg.d_model, cfg.d_ff, bias=False, device=device)
         self.wo = nn.Linear(cfg.d_ff, cfg.d_model, bias=False, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, training: bool = False, seeds: Optional[DropoutSeeds] = None) -> torch.Tensor:
         cdt = self.cfg.compute_dtype
-        return dense(torch.relu(dense(x, self.wi.weight, cdt)), self.wo.weight, cdt)
+        h = dropout(torch.relu(dense(x, self.wi.weight, cdt)), self.cfg, training, seeds)
+        return dense(h, self.wo.weight, cdt)
 
 
 class T5Block(nn.Module):
     def __init__(self, cfg: T5StackConfig, is_decoder: bool = False,
                  has_relative_bias: bool = False, device=None):
         super().__init__()
+        self.cfg = cfg
         self.is_decoder = is_decoder
         eps = cfg.layer_norm_eps
         self.ln_self = RMSNorm(cfg.d_model, eps, device)
@@ -246,11 +310,13 @@ class T5Block(nn.Module):
         self.ffn = T5FFN(cfg, device)
 
     def forward(self, x, enc_out=None, self_mask=None, enc_mask=None, position_bias=None,
-                beams: int = 1, cross_kv=None):
+                beams: int = 1, cross_kv=None, training: bool = False, seeds: Optional[DropoutSeeds] = None):
+        drop = lambda h: dropout(h, self.cfg, training, seeds)
         h, position_bias = self.self_attn(
-            self.ln_self(x), mask=self_mask, position_bias=position_bias, causal=self.is_decoder
+            self.ln_self(x), mask=self_mask, position_bias=position_bias, causal=self.is_decoder,
+            training=training, seeds=seeds,
         )
-        x = x + h
+        x = x + drop(h)
         if self.is_decoder and (enc_out is not None or cross_kv is not None):
             xq = self.ln_cross(x)
             if beams > 1:
@@ -259,11 +325,12 @@ class T5Block(nn.Module):
                 # un-replicated [B, Le] keys/values
                 Bk, T, d = xq.shape
                 xq = xq.reshape(Bk // beams, beams * T, d)
-            h, _ = self.cross_attn(xq, kv=enc_out, mask=enc_mask, kv_cache=cross_kv)
+            h, _ = self.cross_attn(xq, kv=enc_out, mask=enc_mask, kv_cache=cross_kv,
+                                   training=training, seeds=seeds)
             if beams > 1:
                 h = h.reshape(x.shape)
-            x = x + h
-        return x + self.ffn(self.ln_ffn(x)), position_bias
+            x = x + drop(h)
+        return x + drop(self.ffn(self.ln_ffn(x), training, seeds)), position_bias
 
 
 class DecodeWeights(NamedTuple):
@@ -460,12 +527,16 @@ class T5Stack(nn.Module):
         enc_mask: Optional[torch.Tensor] = None,
         beams: int = 1,  # decoder: input batch = beams * encoder batch
         cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # self.cross_kv()
+        training: bool = False,
+        seeds: Optional[DropoutSeeds] = None,  # the dropout sites' seeds; needed when training with dropout
     ) -> torch.Tensor:
-        if self.use_fused_encode(inputs_embeds.shape[1]):
+        cfg = self.cfg
+        if self.use_fused_encode(inputs_embeds.shape[1], training):
             return self.fused_encode(inputs_embeds, self_mask)
-        x = inputs_embeds.to(self.cfg.compute_dtype)
+        x = dropout(inputs_embeds.to(cfg.compute_dtype), cfg, training, seeds)
         position_bias = None
         for i, blk in enumerate(self.block):
             layer_kv = None if cross_kv is None else (cross_kv[0][i], cross_kv[1][i])
-            x, position_bias = blk(x, enc_out, self_mask, enc_mask, position_bias, beams, layer_kv)
-        return self.ln_final(x).float()
+            x, position_bias = blk(x, enc_out, self_mask, enc_mask, position_bias, beams, layer_kv,
+                                   training, seeds)
+        return dropout(self.ln_final(x), cfg, training, seeds).float()

@@ -1,21 +1,31 @@
-"""Fused T5 attention forward: CUDA kernel wrapper and plain version.
+"""Fused T5 attention, forward and backward: CUDA kernel wrappers, their plain
+versions and the autograd function around them.
 
-Port of rqvae_tpu/ops/pallas/attention.py (forward). `t5_attention` launches
-csrc/attention.cu for CUDA tensors and runs `t5_attention_plain` (the
-arithmetic of the reference's `attention_reference`, keep bits from
-ops/hash_dropout.py) for CPU tensors. No 1/sqrt(dk) scale; scores, bias,
-masks (-1e9, never -inf) and softmax in float32; dropped probabilities are
-zeroed and the rest scaled by 1/(1-rate) in float32, then rounded to the
-compute dtype before the PV product. Forward only: the backward kernel and
-the autograd.Function around both belong to the training slice, so inputs
-that require grad are refused.
+Port of rqvae_tpu/ops/pallas/attention.py. `t5_attention` is differentiable in
+q, k, v and bias. For CUDA tensors the forward launches csrc/attention.cu and
+the backward csrc/attention_bwd.cu (or raises: there is no fallback); CPU
+tensors take `t5_attention_plain` and `t5_attention_backward_plain`, the same
+arithmetic in torch with the keep bits of ops/hash_dropout.py.
+
+Forward: no 1/sqrt(dk) scale; scores, bias, masks (-1e9, never -inf) and
+softmax in float32; dropped probabilities are zeroed and the rest scaled by
+1/(1-rate) in float32, then rounded to the compute dtype before the PV
+product. Backward: p rebuilt from the same scores (on the card from the
+forward's own row maximum and sum), the same keep bits applied to p and to
+dp, pd and ds rounded to the compute dtype before their products, the softmax
+VJP over the whole row in float32, dq, dk, dv summed in float32 and rounded
+once, dbias summed over the batch from the unrounded float32 ds. Every sum is
+taken in a fixed order: two backward passes on the same inputs give the same
+bits.
 
 Shapes (cdt = compute dtype, float32 or bfloat16):
   q       [B, H, Lq, dk]  cdt
   k, v    [B, H, Lk, dk]  cdt
   bias    [H, Lq, Lk]     f32 (zeros when there is no position bias)
   mask    [B, Lk]         int/bool, nonzero = attend
-  seed    int or 1-element int32 tensor (read only when dropout_rate > 0)
+  seed    int, or a 1-element int32 tensor (read only when dropout_rate > 0;
+          a tensor is read with .item(), which waits for the device: callers
+          on a hot path pass a host int)
   out     [B, H, Lq, dk]  cdt
 """
 
@@ -29,13 +39,15 @@ from rqvae_tpu_torch.ops.cuda._build import check_launch, load_library
 from rqvae_tpu_torch.ops.hash_dropout import attention_keep_mask, keep_threshold
 
 NEG_INF = -1e9
-MAX_DK = 128  # the kernel's widest head (csrc/attention_core.cuh)
+MAX_DK = 128  # the kernels' widest head (csrc/attention_core.cuh, csrc/attention_bwd.cu)
+QUERY_TILE = 64  # query rows per block in both kernels
+BWD_TARGET_BLOCKS = 528  # the dq/dbias pass aims at about 4 blocks on each of an H100's 132 SMs
 _C = ctypes.c_void_p
-_FUNCTIONS = {
-    "attention_forward": [ctypes.c_int, ctypes.POINTER(_C), ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-                          ctypes.c_uint, ctypes.c_float, ctypes.c_int, _C],
-}
-_PLAIN_CHUNK_ELEMS = 1 << 26  # score elements held at once by the plain version
+_ARGTYPES = [ctypes.c_int, ctypes.POINTER(_C), ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+             ctypes.c_uint, ctypes.c_float, ctypes.c_int, _C]
+_FUNCTIONS = {"attention_forward": _ARGTYPES}
+_BWD_FUNCTIONS = {"attention_backward": _ARGTYPES}
+_PLAIN_CHUNK_ELEMS = 1 << 26  # score elements held at once by the plain versions
 
 
 def _check(q, k, v, bias, mask, causal, dropout_rate):
@@ -54,34 +66,49 @@ def _check(q, k, v, bias, mask, causal, dropout_rate):
         raise ValueError("causal attention assumes Lq == Lk")
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"dropout_rate {dropout_rate} outside [0, 1)")
-    if any(t.requires_grad for t in (q, k, v, bias)):
-        raise NotImplementedError("t5_attention is forward only; the backward kernel is not ported yet")
     return B, H, Lq, Lk, dk
 
 
 def _seed_value(seed) -> int:
+    """The seed as a host int. A tensor seed is read with `.item()`, which
+    synchronises with the device; the training path passes host ints."""
     return int(seed.reshape(-1)[0].item()) if isinstance(seed, torch.Tensor) else int(seed)
+
+
+def _chunks(B, H, Lq, Lk):
+    """Batch-row ranges whose [rows, H, Lq, Lk] float32 scores fit the plain
+    versions' budget."""
+    step = max(1, _PLAIN_CHUNK_ELEMS // max(1, H * Lq * Lk))
+    return [(b0, min(B, b0 + step)) for b0 in range(0, B, step)]
+
+
+def _plain_probs(q, k, bias, madd, cadd, b0, b1):
+    s = q[b0:b1].float() @ k[b0:b1].float().transpose(-1, -2)
+    s = s + bias[None]
+    s = s + madd[b0:b1, None, None, :]
+    if cadd is not None:
+        s = s + cadd
+    return torch.softmax(s, dim=-1)
+
+
+def _additive_masks(mask, causal, Lq, Lk, dev):
+    madd = torch.where(mask != 0, 0.0, NEG_INF).to(torch.float32)
+    cadd = None
+    if causal:
+        cadd = torch.where(torch.ones(Lq, Lk, dtype=torch.bool, device=dev).tril(), 0.0, NEG_INF)
+    return madd, cadd
 
 
 def t5_attention_plain(q, k, v, bias, mask, seed=0, *, causal: bool = False,
                        dropout_rate: float = 0.0) -> torch.Tensor:
-    """The kernel's arithmetic in torch, a few batch rows at a time so the
-    [B, H, Lq, Lk] float32 scores are never held whole."""
+    """The forward kernel's arithmetic in torch, a few batch rows at a time so
+    the [B, H, Lq, Lk] float32 scores are never held whole."""
     B, H, Lq, Lk, _ = _check(q, k, v, bias, mask, causal, dropout_rate)
     cdt, dev = q.dtype, q.device
     out = torch.empty_like(q)
-    madd = torch.where(mask != 0, 0.0, NEG_INF).to(torch.float32)
-    if causal:
-        cadd = torch.where(torch.ones(Lq, Lk, dtype=torch.bool, device=dev).tril(), 0.0, NEG_INF)
-    step = max(1, _PLAIN_CHUNK_ELEMS // max(1, H * Lq * Lk))
-    for b0 in range(0, B, step):
-        b1 = min(B, b0 + step)
-        s = q[b0:b1].float() @ k[b0:b1].float().transpose(-1, -2)
-        s = s + bias[None]
-        s = s + madd[b0:b1, None, None, :]
-        if causal:
-            s = s + cadd
-        p = torch.softmax(s, dim=-1)
+    madd, cadd = _additive_masks(mask, causal, Lq, Lk, dev)
+    for b0, b1 in _chunks(B, H, Lq, Lk):
+        p = _plain_probs(q, k, bias, madd, cadd, b0, b1)
         if dropout_rate > 0.0:
             keep = attention_keep_mask(_seed_value(seed), b1 - b0, H, Lq, Lk, dropout_rate, dev, b0)
             p = torch.where(keep, p, 0.0) * (1.0 / (1.0 - dropout_rate))
@@ -89,46 +116,159 @@ def t5_attention_plain(q, k, v, bias, mask, seed=0, *, causal: bool = False,
     return out
 
 
-def t5_attention(q, k, v, bias, mask, seed=0, *, causal: bool = False,
-                 dropout_rate: float = 0.0) -> torch.Tensor:
-    """softmax(q k^T + bias + mask [+ causal]) [dropout] @ v, [B, H, Lq, dk]
-    at q's dtype. Launches the CUDA kernel for CUDA tensors (counted in
-    `t5_attention.launches`); CPU tensors take the plain version."""
-    dropout_rate = float(dropout_rate)
-    if q.device.type == "cpu":
-        return t5_attention_plain(q, k, v, bias, mask, seed, causal=causal, dropout_rate=dropout_rate)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    B, H, Lq, Lk, dk = _check(q, k, v, bias, mask, causal, dropout_rate)
+def t5_attention_backward_plain(q, k, v, bias, mask, seed, do, *, causal: bool = False,
+                                dropout_rate: float = 0.0):
+    """(dq, dk, dv, dbias): the backward kernel's arithmetic in torch, with
+    the reference's rounding points, a few batch rows at a time."""
+    B, H, Lq, Lk, _ = _check(q, k, v, bias, mask, causal, dropout_rate)
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"do: want {tuple(q.shape)} {q.dtype}, got {tuple(do.shape)} {do.dtype}")
+    cdt, dev = q.dtype, q.device
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dbias = torch.zeros(H, Lq, Lk, dtype=torch.float32, device=dev)
+    madd, cadd = _additive_masks(mask, causal, Lq, Lk, dev)
+    scale = 1.0 / (1.0 - dropout_rate)
+    for b0, b1 in _chunks(B, H, Lq, Lk):
+        p = _plain_probs(q, k, bias, madd, cadd, b0, b1)
+        dof = do[b0:b1].float()
+        dpd = dof @ v[b0:b1].float().transpose(-1, -2)
+        if dropout_rate > 0.0:
+            keep = attention_keep_mask(_seed_value(seed), b1 - b0, H, Lq, Lk, dropout_rate, dev, b0)
+            pd = torch.where(keep, p, 0.0) * scale
+            dp = torch.where(keep, dpd, 0.0) * scale
+        else:
+            pd, dp = p, dpd
+        dv[b0:b1] = (pd.to(cdt).float().transpose(-1, -2) @ dof).to(cdt)
+        ds = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))
+        ds_c = ds.to(cdt).float()
+        dq[b0:b1] = (ds_c @ k[b0:b1].float()).to(cdt)
+        dk[b0:b1] = (ds_c.transpose(-1, -2) @ q[b0:b1].float()).to(cdt)
+        dbias += ds.sum(0)
+    return dq, dk, dv, dbias
+
+
+def _check_cuda(q, dk, tensors):
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"attention computes in float32 or bfloat16, got {q.dtype}")
     if dk % 4 or not 4 <= dk <= MAX_DK:
         raise ValueError(f"attention needs dk a multiple of 4 in 4..{MAX_DK}, got {dk}")
-    mask = mask.to(torch.int32).contiguous()
-    if Lk == 0:
-        raise ValueError("attention over no keys")
-    out = torch.empty_like(q, memory_format=torch.contiguous_format)
-    if out.numel() == 0:
-        return out
-    tensors = (q, k, v, bias, mask, out)
     for t in tensors:
         if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("attention takes contiguous, 16-byte aligned tensors on one CUDA device")
-    lib = load_library("attention", _FUNCTIONS)
-    ptrs = (_C * 6)(*[t.data_ptr() for t in tensors])
-    dims = (ctypes.c_int * 6)(B, H, Lq, Lk, dk, int(bool(causal)))
+
+
+def _dropout_args(seed, dropout_rate):
     if dropout_rate > 0.0:
         seed32 = ((_seed_value(seed) + 2**31) % 2**32) - 2**31  # the int32 the reference casts to
-        thresh, scale = keep_threshold(dropout_rate), 1.0 / (1.0 - dropout_rate)
-    else:
-        seed32, thresh, scale = 0, 0, 1.0
-    rc = lib.attention_forward(
-        int(q.dtype == torch.bfloat16), ptrs, dims, seed32, thresh, scale, int(dropout_rate > 0.0),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+        return seed32, keep_threshold(dropout_rate), 1.0 / (1.0 - dropout_rate), 1
+    return 0, 0, 1.0, 0
+
+
+def _forward_cuda(q, k, v, bias, mask, seed, causal, dropout_rate, with_stats):
+    """Launch the forward kernel. Returns (out, row_max, row_sum); the two
+    statistics [B, H, Lq] f32 are None unless `with_stats`. `mask` is int32."""
+    B, H, Lq, Lk, dk = _check(q, k, v, bias, mask, causal, dropout_rate)
+    if Lk == 0:
+        raise ValueError("attention over no keys")
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    stats = [torch.empty(B, H, Lq, dtype=torch.float32, device=q.device) for _ in range(2)] if with_stats else []
+    if out.numel() == 0:
+        return (out, *stats) if with_stats else (out, None, None)
+    tensors = (q, k, v, bias, mask, out, *stats)
+    _check_cuda(q, dk, tensors)
+    lib = load_library("attention", _FUNCTIONS)
+    ptrs = (_C * 8)(*[t.data_ptr() for t in tensors], *([None] * (8 - len(tensors))))
+    dims = (ctypes.c_int * 6)(B, H, Lq, Lk, dk, int(bool(causal)))
+    seed32, thresh, scale, on = _dropout_args(seed, dropout_rate)
+    rc = lib.attention_forward(int(q.dtype == torch.bfloat16), ptrs, dims, seed32, thresh, scale, on,
+                               torch.cuda.current_stream(q.device).cuda_stream)
     t5_attention.launches += 1
     check_launch(lib, rc, "attention")
-    return out
+    return (out, *stats) if with_stats else (out, None, None)
+
+
+def backward_groups(B: int, H: int, Lq: int) -> int:
+    """Batch groups of the backward's dq/dbias pass: enough (query tile, head,
+    group) blocks to fill the card, at most B / 4 groups, none of them empty."""
+    q_tiles = -(-Lq // QUERY_TILE)
+    want = max(1, min(max(1, B // 4), BWD_TARGET_BLOCKS // max(1, q_tiles * H)))
+    rows = -(-B // want)
+    return -(-B // rows)
+
+
+def _backward_cuda(q, k, v, bias, mask, seed, do, row_max, row_sum, causal, dropout_rate):
+    """Launch the backward kernel. `mask` is int32; row_max / row_sum are the
+    forward's statistics."""
+    B, H, Lq, Lk, dk = _check(q, k, v, bias, mask, causal, dropout_rate)
+    do = do.contiguous()
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"do: want {tuple(q.shape)} {q.dtype}, got {tuple(do.shape)} {do.dtype}")
+    dev = q.device
+    dq, dk_, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dbias = torch.empty(H, Lq, Lk, dtype=torch.float32, device=dev)
+    if q.numel() == 0:
+        return dq, dk_, dv, dbias.zero_()
+    groups = backward_groups(B, H, Lq)
+    delta = torch.empty(B, H, Lq, dtype=torch.float32, device=dev)
+    part = torch.empty(groups, H, Lq, Lk, dtype=torch.float32, device=dev) if groups > 1 else dbias
+    tensors = (q, k, v, bias, mask, do, row_max, row_sum, delta, dq, dk_, dv, dbias, part)
+    _check_cuda(q, dk, tensors)
+    lib = load_library("attention_bwd", _BWD_FUNCTIONS)
+    ptrs = (_C * len(tensors))(*[t.data_ptr() for t in tensors])
+    dims = (ctypes.c_int * 7)(B, H, Lq, Lk, dk, int(bool(causal)), groups)
+    seed32, thresh, scale, on = _dropout_args(seed, dropout_rate)
+    rc = lib.attention_backward(int(q.dtype == torch.bfloat16), ptrs, dims, seed32, thresh, scale, on,
+                                torch.cuda.current_stream(dev).cuda_stream)
+    t5_attention.backward_launches += 1
+    check_launch(lib, rc, "attention backward")
+    return dq, dk_, dv, dbias
+
+
+class _T5Attention(torch.autograd.Function):
+    """Kernel 4 forward, kernel 5 backward (plain versions for CPU tensors).
+    Saves q, k, v, bias, mask, the seed and, on the card, the forward's row
+    statistics; never the [B, H, Lq, Lk] probabilities."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, mask, seed, causal, dropout_rate):
+        ctx.causal, ctx.dropout_rate, ctx.seed = causal, dropout_rate, seed
+        if q.device.type == "cpu":
+            ctx.save_for_backward(q, k, v, bias, mask)
+            return t5_attention_plain(q, k, v, bias, mask, seed, causal=causal, dropout_rate=dropout_rate)
+        out, row_max, row_sum = _forward_cuda(q, k, v, bias, mask, seed, causal, dropout_rate, with_stats=True)
+        ctx.save_for_backward(q, k, v, bias, mask, row_max, row_sum)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias, mask, *stats = ctx.saved_tensors
+        kw = dict(causal=ctx.causal, dropout_rate=ctx.dropout_rate)
+        if q.device.type == "cpu":
+            grads = t5_attention_backward_plain(q, k, v, bias, mask, ctx.seed, do, **kw)
+        else:
+            grads = _backward_cuda(q, k, v, bias, mask, ctx.seed, do, *stats, **kw)
+        return (*grads, None, None, None, None)
+
+
+def t5_attention(q, k, v, bias, mask, seed=0, *, causal: bool = False,
+                 dropout_rate: float = 0.0) -> torch.Tensor:
+    """softmax(q k^T + bias + mask [+ causal]) [dropout] @ v, [B, H, Lq, dk]
+    at q's dtype, differentiable in q, k, v and bias. CUDA tensors launch the
+    kernels (forwards counted in `t5_attention.launches`, backwards in
+    `t5_attention.backward_launches`); CPU tensors take the plain versions."""
+    dropout_rate = float(dropout_rate)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {q.device}")
+    if q.device.type == "cuda":
+        mask = mask.to(torch.int32).contiguous()
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, bias)):
+        if dropout_rate > 0.0:
+            seed = _seed_value(seed)  # saved for the backward as a host int
+        return _T5Attention.apply(q, k, v, bias, mask, seed, bool(causal), dropout_rate)
+    if q.device.type == "cpu":
+        return t5_attention_plain(q, k, v, bias, mask, seed, causal=causal, dropout_rate=dropout_rate)
+    return _forward_cuda(q, k, v, bias, mask, seed, causal, dropout_rate, with_stats=False)[0]
 
 
 t5_attention.launches = 0
+t5_attention.backward_launches = 0

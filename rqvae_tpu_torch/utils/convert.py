@@ -50,6 +50,14 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     return state
 
 
+def grads_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """A JAX gradient tree, or one tree of optimizer moments (optax's `mu` or
+    `nu`), under the port's parameter names: the view that lays it beside
+    `p.grad` and the optimizer's moments. A Dense kernel's gradient is
+    transposed exactly as the kernel is."""
+    return state_dict_from_jax(tree)
+
+
 def _rename(m: re.Match) -> str:
     return f"{'block' if m.group(1) == 'block' else 'layers'}.{m.group(2)}"
 

@@ -16,7 +16,7 @@ from rqvae_tpu.ops import hash_dropout as jhd
 from rqvae_tpu.ops.pallas import attention as jattn
 
 from rqvae_tpu_torch.ops import hash_dropout as thd
-from rqvae_tpu_torch.ops.cuda.attention import t5_attention, t5_attention_plain
+from rqvae_tpu_torch.ops.cuda.attention import t5_attention, t5_attention_backward_plain, t5_attention_plain
 
 F32 = dict(atol=1e-5, rtol=1e-5)
 BF16 = dict(atol=2e-2, rtol=2e-2)
@@ -142,7 +142,9 @@ def test_wrapper_checks():
         t5_attention(q[:, :, :5], k, v, bias[:, :5], mask, causal=True)
     with pytest.raises(ValueError, match="dropout_rate"):
         t5_attention(q, k, v, bias, mask, dropout_rate=1.0)
-    with pytest.raises(NotImplementedError, match="forward only"):
-        t5_attention(q.clone().requires_grad_(), k, v, bias, mask)
+    with pytest.raises(ValueError, match="do"):
+        t5_attention_backward_plain(q, k, v, bias, mask, 0, q[:, :, :5])
+    out = t5_attention(q.clone().requires_grad_(), k, v, bias, mask)  # inputs that require grad are taken
+    assert out.requires_grad
     with pytest.raises(ValueError, match="unsupported device"):
         t5_attention(*(t.to("meta") for t in (q, k, v, bias, mask)))

@@ -18,12 +18,13 @@ def csrc_copy(tmp_path, monkeypatch):
 
 
 def test_sources_and_their_headers():
-    assert _build.SOURCES == ("rq_encode", "decoder_stack", "attention", "encoder_stack")
+    assert _build.SOURCES == ("rq_encode", "decoder_stack", "attention", "encoder_stack", "attention_bwd")
     names = {name: [p.name for p in _build.source_files(name)] for name in _build.SOURCES}
     assert names == {
         "rq_encode": ["rq_encode.cu"], "decoder_stack": ["decoder_stack.cu"],
         "attention": ["attention.cu", "attention_core.cuh"],
         "encoder_stack": ["encoder_stack.cu", "attention_core.cuh"],
+        "attention_bwd": ["attention_bwd.cu", "attention_core.cuh"],
     }
     assert str(_build.CSRC) in _build.NVCC_FLAGS  # quoted includes resolve under csrc/
 
@@ -34,6 +35,7 @@ def test_library_name_follows_the_header(csrc_copy):
         f.write("// edited\n")
     after = {name: _build._lib_path(name).name for name in _build.SOURCES}
     assert after["attention"] != before["attention"] and after["encoder_stack"] != before["encoder_stack"]
+    assert after["attention_bwd"] != before["attention_bwd"]
     assert after["rq_encode"] == before["rq_encode"] and after["decoder_stack"] == before["decoder_stack"]
     with open(csrc_copy / "attention.cu", "a") as f:
         f.write("// edited\n")

@@ -8,7 +8,13 @@ flipped by f32 summation order carries through the residual stream);
 attention 2e-5 in f32 and 3.2e-2 in bf16 (one bf16 step, 2^-5, of an output
 between 4 and 8 whose f32 sum lands across a rounding boundary); encoder_stack
 1e-3 in f32 and, in bf16, 1.5e-1 at the worst element with a mean error of
-at most 4e-3 (flipped roundings carry through 4 layers of 800-key softmaxes).
+at most 4e-3 (flipped roundings carry through 4 layers of 800-key softmaxes);
+attention backward, against its plain version: dq, dk, dv and dbias within
+4e-6 of the tensor's largest entry in f32 (a few f32 steps of sums of up to
+800 terms taken in another order) and within 2^-7 of it in bf16 (one bf16 step
+of the largest output: a sum that lands across a rounding boundary), dbias
+within 1e-4 of its largest entry in bf16 (it is summed in f32 from ds whose p
+differs in the 7th digit), two launches bit-equal.
 """
 
 import numpy as np
@@ -19,7 +25,7 @@ from rqvae_tpu_torch.models.quantize import QuantizeForwardMode
 from rqvae_tpu_torch.models.retrieval import EncoderDecoderRetrievalModel, RetrievalConfig
 from rqvae_tpu_torch.models.rqvae import RqVae, RqVaeConfig
 from rqvae_tpu_torch.models.t5 import T5Stack, T5StackConfig
-from rqvae_tpu_torch.ops.cuda.attention import t5_attention, t5_attention_plain
+from rqvae_tpu_torch.ops.cuda.attention import t5_attention, t5_attention_backward_plain, t5_attention_plain
 from rqvae_tpu_torch.ops.cuda.decoder_stack import t5_decoder_stack_infer, t5_decoder_stack_plain
 from rqvae_tpu_torch.ops.cuda.encoder_stack import t5_encoder_stack_infer, t5_encoder_stack_plain
 from rqvae_tpu_torch.ops.cuda.rq_encode import fused_encode_quantize, fused_encode_quantize_plain
@@ -162,6 +168,105 @@ def test_attention_kernel_refuses_what_it_does_not_take(cuda):
         t5_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, bias, mask)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         t5_attention(q.half(), k.half(), v.half(), bias, mask)
+
+
+def _attention_grads(q, k, v, bias, mask, do, **kw):
+    """(out, dq, dk, dv, dbias) through the autograd function."""
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, bias)]
+    out = t5_attention(*leaves, mask, 77, **kw)
+    out.backward(do)
+    return [out.detach(), *(t.grad for t in leaves)]
+
+
+@pytest.mark.parametrize("dtype,tol,dbias_tol", [(torch.float32, 4e-6, 4e-6), (torch.bfloat16, 2.0 ** -7, 1e-4)])
+@pytest.mark.parametrize(
+    "B,H,Lq,Lk,dk,causal,rate",
+    [(3, 2, 24, 24, 8, False, 0.0), (2, 3, 70, 133, 16, False, 0.3), (2, 2, 65, 65, 128, True, 0.1),
+     (9, 2, 200, 200, 64, True, 0.2), (640, 6, 80, 80, 64, False, 0.1), (64, 6, 800, 800, 64, False, 0.1)],
+)
+def test_attention_backward_kernel_matches_plain(cuda, dtype, tol, dbias_tol, B, H, Lq, Lk, dk, causal, rate):
+    q, k, v, bias, mask = _attention_inputs(B, H, Lq, Lk, dk, dtype, cuda)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)).to(dtype).to(cuda)
+    kw = dict(causal=causal, dropout_rate=rate)
+    before = (t5_attention.launches, t5_attention.backward_launches)
+    out, *got = _attention_grads(q, k, v, bias, mask, do, **kw)
+    torch.cuda.synchronize()
+    assert (t5_attention.launches, t5_attention.backward_launches) == (before[0] + 1, before[1] + 1)
+    _, *again = _attention_grads(q, k, v, bias, mask, do, **kw)
+    want = t5_attention_backward_plain(q, k, v, bias, mask, 77, do, **kw)
+    # the forward that saves its row statistics is the forward
+    assert torch.equal(out, t5_attention(q, k, v, bias, mask, 77, **kw))
+    for name, g, a, w in zip(("dq", "dk", "dv", "dbias"), got, again, want):
+        assert g.dtype == w.dtype and torch.isfinite(g).all(), name
+        assert torch.equal(g, a), f"{name}: two launches differ"
+        limit = (dbias_tol if name == "dbias" else tol) * w.float().abs().max().item()
+        assert (g.float() - w.float()).abs().max().item() <= limit, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,rate,causal", [(64, 0.0, False), (64, 0.2, True), (16, 0.2, False), (128, 0.0, True)])
+def test_attention_backward_rebuilds_the_forwards_p(cuda, dtype, L, rate, causal):
+    """With v = dout = the identity at Lq = Lk = dk = L the forward's output is
+    its rounded (dropped) p and the backward's dv the transpose of its own:
+    they must be equal bit for bit (at dk = 64 in bf16 both run mma.sync,
+    elsewhere both sum q.k in ascending order on the CUDA cores)."""
+    g = torch.Generator().manual_seed(8)
+    q, k = (torch.randn(5, 3, L, L, generator=g).to(dtype).to(cuda) for _ in range(2))
+    eye = torch.eye(L).to(dtype).to(cuda).expand(5, 3, L, L).contiguous()
+    bias = torch.randn(3, L, L, generator=g).to(cuda)
+    mask = (torch.rand(5, L, generator=g) > 0.2).to(torch.int32).to(cuda)
+    v = eye.clone().requires_grad_()
+    out = t5_attention(q, k, v, bias, mask, 9, causal=causal, dropout_rate=rate)
+    out.backward(eye)
+    assert torch.equal(v.grad.transpose(-1, -2), out.detach())
+
+
+def test_attention_backward_has_no_fallback(cuda, monkeypatch):
+    """A backward kernel that cannot be loaded raises; nothing computes the
+    gradient some other way."""
+    import rqvae_tpu_torch.ops.cuda.attention as mod
+
+    q, k, v, bias, mask = _attention_inputs(2, 2, 16, 16, 8, torch.float32, cuda)
+    real = mod.load_library
+
+    def broken(name, functions):
+        if name == "attention_bwd":
+            raise RuntimeError("nvcc failed for attention_bwd.cu")
+        return real(name, functions)
+
+    monkeypatch.setattr(mod, "load_library", broken)
+    out = t5_attention(q.requires_grad_(), k, v, bias, mask)
+    with pytest.raises(RuntimeError, match="attention_bwd"):
+        out.sum().backward()
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One f32 training step with dropout, card (kernels 4 and 5) against CPU
+    (plain versions), same weights and seeds: loss rtol 1e-5, every gradient
+    within 1e-4 of the tensor's largest entry."""
+    cfg = RetrievalConfig(num_hierarchies=3, codebook_size=16, t5_d_model=32, t5_d_kv=8, t5_num_heads=4,
+                          t5_d_ff=64, t5_num_layers=2, t5_dropout=0.1)
+    from rqvae_tpu_torch.data.schemas import TokenizedSeqBatch
+
+    r = np.random.RandomState(0)
+    B, n = 8, 6
+    mask = np.repeat(np.arange(n)[None, :] < r.randint(1, n + 1, B)[:, None], 4, axis=1)
+    sem = np.where(mask, r.randint(0, 16, (B, n * 4)), -1)
+    fields = dict(user_ids=np.zeros(B, np.int64), sem_ids=sem, sem_ids_fut=r.randint(0, 16, (B, 4)), seq_mask=mask,
+                  token_type_ids=np.zeros((B, n * 4), np.int64), token_type_ids_fut=np.zeros((B, 4), np.int64))
+    grads, losses = {}, {}
+    before = (t5_attention.launches, t5_attention.backward_launches)
+    for dev in ("cpu", cuda):
+        model = EncoderDecoderRetrievalModel(cfg, device=dev, seed=3)
+        batch = TokenizedSeqBatch(**{k: torch.as_tensor(v, device=dev) for k, v in fields.items()})
+        out = model(batch, training=True, generator=torch.Generator().manual_seed(5))
+        out.loss.backward()
+        losses[str(dev)] = out.loss.item()
+        grads[str(dev)] = {n_: p.grad.cpu() for n_, p in model.named_parameters()}
+    assert (t5_attention.launches, t5_attention.backward_launches) == (before[0] + 2, before[1] + 2)  # encoder layers
+    assert losses["cpu"] == pytest.approx(losses[str(cuda)], rel=1e-5)
+    for name, g in grads["cpu"].items():
+        assert (g - grads[str(cuda)][name]).abs().max() <= 1e-4 * g.abs().max() + 1e-8, name
 
 
 def _encoder_operands(t5_fields, dtype, B, L, device, seed=0):
