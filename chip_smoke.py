@@ -13,7 +13,7 @@ bf16, top-k 10, batches of 64 histories.
 
    1. card: name, count, power limit, torch/CUDA versions; builds the five
       CUDA kernels from rqvae_tpu_torch/csrc (one nvcc per source, in
-      parallel) and prints each one's ptxas register and spill lines;
+      parallel) and prints each kernel's ptxas registers and spills;
    2. rq_encode kernel against its plain version on the card (Amazon width):
       identical ids except rows at an argmin near-tie: a level whose top-2
       distance gap, in float64, is below 1e-5 of ||res||^2 + max ||c||^2,
@@ -32,11 +32,13 @@ bf16, top-k 10, batches of 64 histories.
       beams identical on >= 95% of the queries;
    6. rq_encode at the ML-32M width, 87,585 x 788, as in 2;
    7. attention kernel against its plain version at q, k, v [64, 6, 800, 64]
-      with ragged key masks and one row with every key masked, f32 and bf16,
-      dropout rate 0 and 0.1 (same seed on both sides), and a causal case at
-      L = 512: max abs error <= 2e-5 in f32 and <= 3.2e-2 in bf16 (one bf16
-      step, 2^-5, of an output between 4 and 8 whose f32 sum lands across a
-      rounding boundary; the two sides sum in another order);
+      (bf16: the tiled route) and at the Amazon training shape
+      [640, 6, 80, 64] (bf16: the whole-row route), with ragged key masks and
+      one row with every key masked, f32 and bf16, dropout rate 0 and 0.1
+      (same seed on both sides), and a causal case at L = 512: max abs error
+      <= 2e-5 in f32 and <= 3.2e-2 in bf16 (one bf16 step, 2^-5, of an output
+      between 4 and 8 whose f32 sum lands across a rounding boundary; the two
+      sides sum in another order); SDPA's time at both shapes;
    8. encoder_stack kernel against its plain version at x [64, 800, 384] with
       ragged history lengths: max abs error <= 1e-3 in f32; in bf16 <= 0.15 at
       the worst element and <= 4e-3 in the mean (flipped bf16 roundings of
@@ -65,8 +67,9 @@ bf16, top-k 10, batches of 64 histories.
       sums of up to 800 terms taken in another order) and within 2^-7 of it in
       bf16 (one bf16 step of the largest output, when an f32 sum lands across
       a rounding boundary; dbias, summed in f32, within 1e-4); two launches
-      bit-equal; the backward's p equal in bits to the forward's (read off
-      identity v and dout at Lq = Lk = dk = 64); times of the kernel, its plain version and the library's
+      bit-equal; the backward's p equal in bits to the forward's at L = 64,
+      80 and 800 in both dtypes, so on every route (read off 64-wide identity
+      blocks of v and dout); times of the kernel, its plain version and the library's
       backward (autograd through scaled_dot_product_attention, no dropout);
       the forward kernel's time at the Amazon training shape;
   12. stage-2 training at the ML-32M width through train_decoder.train, counts
@@ -104,6 +107,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -192,6 +196,26 @@ def nbytes_of(*tensors) -> int:
 
 def dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).split(".")[-1]
+
+
+def ptxas_summary(log: str) -> list:
+    """Each kernel of an `nvcc -Xptxas -v` log: [name, registers, spill stores
+    and spill loads in bytes], the name demangled enough to read."""
+    rows, name = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            # the kernel's own name follows its length, after the namespace
+            m = re.search(r"(?:_cu_[0-9a-f]{8}|4attn)(\d+)", name)
+            if m:
+                name = name[m.end():m.end() + int(m.group(1))] + name[m.end() + int(m.group(1)):][:12]
+        elif "spill stores" in ln and name:
+            words = ln.split()
+            rows.append([name[:60], None, int(words[words.index("spill") - 2]), int(words[-4])])
+        elif "Used" in ln and "registers" in ln and rows and rows[-1][1] is None:
+            words = ln.split()
+            rows[-1][1] = int(words[words.index("registers,") - 1])
+    return rows
 
 
 def make_corpus(n: int, dim: int, seed: int) -> torch.Tensor:
@@ -339,14 +363,17 @@ def attention_inputs(B, H, L, dk, dtype, dev, seed):
 
 
 def attention_phase(dev) -> dict:
-    """attention kernel against its plain version at the long-row shape;
-    returns the kernel's row of the `kernels` line (bf16, no dropout: what
-    the fused_encode="off" route launches)."""
-    from rqvae_tpu_torch.ops.cuda.attention import t5_attention, t5_attention_plain
+    """attention kernel against its plain version at the long-row shape and
+    at the Amazon training shape; returns the kernel's row of the `kernels`
+    line (bf16, no dropout at the long-row shape: what the fused_encode="off"
+    route launches; the Amazon shape's numbers beside it)."""
+    from rqvae_tpu_torch.ops.cuda.attention import attention_route, t5_attention, t5_attention_plain
 
     H, L, dk, seed = 6, ML32M["history"] * 4, 64, 77
-    rows, kernel_row = [], None
-    cases = [(dt, BATCH, L, False, rate) for dt in (torch.float32, torch.bfloat16) for rate in (0.0, 0.1)]
+    rows, kernel_row, amazon = [], None, {}
+    L_am = AMAZON["history"] * 4
+    cases = [(dt, B, Lc, False, rate) for B, Lc in ((BATCH, L), (TRAIN_AMAZON["batch"], L_am))
+             for dt in (torch.float32, torch.bfloat16) for rate in (0.0, 0.1)]
     cases.append((torch.bfloat16, 8, 512, True, 0.0))
     with torch.no_grad():
         for dt, B, Lc, causal, rate in cases:
@@ -364,8 +391,8 @@ def attention_phase(dev) -> dict:
             p_ms = cuda_ms(lambda: t5_attention_plain(q, k, v, bias, mask, seed, **kw), reps=2, warmup=1)
             b_ms, b_by = bound_ms(4 * B * H * Lc * Lc * dk, peak_flops(dt), nbytes_of(q, k, v, got, bias, mask))
             row = {"dtype": dtype_name(dt), "B": B, "L": Lc, "causal": causal, "dropout_rate": rate,
-                   "max_abs_err": err, "tol": ATTENTION_TOL[dt], "kernel_ms": k_ms, "plain_ms": p_ms,
-                   "bound_ms": b_ms, "bound_by": b_by}
+                   "route": attention_route(Lc, Lc, dk, dt), "max_abs_err": err, "tol": ATTENTION_TOL[dt],
+                   "kernel_ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}
             if not causal and rate == 0.0:
                 # the yardstick: one library call of the same function (timed here, used nowhere in the port)
                 add = (bias[None] + torch.where(mask != 0, 0.0, -1e9)[:, None, None, :]).to(dt)
@@ -374,16 +401,24 @@ def attention_phase(dev) -> dict:
                 lib_err = float((lib()[1:].float() - want[1:].float()).abs().max().item())
                 row.update(library_ms=cuda_ms(lib, reps=5, warmup=1), library_max_abs_err=lib_err)
                 del add
-                if dt == torch.bfloat16:
+                if dt == torch.bfloat16 and Lc == L:
                     kernel_row = {
                         "name": "attention", "route": "cuda", "source": "rqvae_tpu_torch/csrc/attention.cu",
                         "replaces": "rqvae_tpu/ops/pallas/attention.py:184", "max_abs_err": err,
                         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                        "library_ms": row["library_ms"],
+                        "library_ms": row["library_ms"], "ml32m_route": row["route"], "ml32m_ms": k_ms,
                     }
+            if dt == torch.bfloat16 and Lc == L_am:
+                amazon[rate] = row
             rows.append(row)
             del q, k, v, bias, mask, got, want
     emit({"phase": "attention", "H": H, "dk": dk, "rows": rows})
+    # the Amazon training shape: dropout 0.1, as the training forward runs it; the bound and the
+    # library's time there without dropout (the one library call has none)
+    kernel_row.update(amazon_route=amazon[0.1]["route"], amazon_ms=amazon[0.1]["kernel_ms"],
+                      amazon_plain_ms=amazon[0.1]["plain_ms"], amazon_max_abs_err=amazon[0.1]["max_abs_err"],
+                      amazon_bound_ms=amazon[0.1]["bound_ms"], amazon_bound_by=amazon[0.1]["bound_by"],
+                      amazon_no_dropout_ms=amazon[0.0]["kernel_ms"], amazon_library_ms=amazon[0.0]["library_ms"])
     return kernel_row
 
 
@@ -594,21 +629,35 @@ def attention_bwd_inputs(B, H, L, dk, dtype, dev, seed):
     return q, k, v, bias, mask, do
 
 
-def backward_p_equals_forward_p(dtype, dev, rate: float, causal: bool) -> bool:
-    """With v = dout = the identity at Lq = Lk = dk = 64, the forward's output
-    is its rounded (dropped) p and the backward's dv is the transpose of its
-    own: equal bits mean the backward rebuilt the forward's p exactly."""
+def backward_p_equals_forward_p(dtype, dev, rate: float, causal: bool, L: int, blocks) -> bool:
+    """With v the identity on keys 64j .. 64j + 63 and dout the identity on
+    queries 64i .. 64i + 63 (dk = 64), the forward's out[64i:] and the
+    backward's dv^T[:, 64j:] are the same 64 x 64 block of the rounded,
+    dropped p: equal bits mean the backward rebuilt the forward's p exactly.
+    L = 64 and 80 take the whole-row routes in bf16, L = 800 the tiled ones."""
     from rqvae_tpu_torch.ops.cuda import attention as A
 
-    B, H, L = 5, 3, 64
+    B, H = 3, 3
     g = torch.Generator().manual_seed(8)
-    q, k = (torch.randn(B, H, L, L, generator=g).to(dtype).to(dev) for _ in range(2))
-    eye = torch.eye(L).to(dtype).to(dev).expand(B, H, L, L).contiguous()
+    q, k = (torch.randn(B, H, L, 64, generator=g).to(dtype).to(dev) for _ in range(2))
     bias = torch.randn(H, L, L, generator=g).to(dev)
     mask = (torch.rand(B, L, generator=g) > 0.2).to(torch.int32).to(dev)
-    out, m, l = A._forward_cuda(q, k, eye, bias, mask, 9, causal, rate, True)
-    dv = A._backward_cuda(q, k, eye, bias, mask, 9, eye, m, l, causal, rate)[2]
-    return bool(torch.equal(dv.transpose(-1, -2), out))
+
+    def block_eye(j):
+        e = torch.zeros(L, 64)
+        idx = torch.arange(64 * j, min(L, 64 * j + 64))
+        e[idx, idx - 64 * j] = 1.0
+        return e.to(dtype).to(dev).expand(B, H, L, 64).contiguous()
+
+    same = True
+    for i, j in blocks:
+        v, do = block_eye(j), block_eye(i)
+        out, m, l, bits = A._forward_cuda(q, k, v, bias, mask, 9, causal, rate, True)
+        dv = A._backward_cuda(q, k, v, bias, mask, 9, do, m, l, causal, rate, keep_bits=bits)[2]
+        rows, cols = slice(64 * i, min(L, 64 * i + 64)), slice(64 * j, min(L, 64 * j + 64))
+        n_r, n_c = rows.stop - rows.start, cols.stop - cols.start
+        same &= bool(torch.equal(dv.transpose(-1, -2)[:, :, :n_r, cols], out[:, :, rows, :n_c]))
+    return same
 
 
 def attention_bwd_phase(dev):
@@ -629,11 +678,16 @@ def attention_bwd_phase(dev):
         kw = dict(causal=causal, dropout_rate=rate)
         what = f"attention_bwd {name} {dtype_name(dt)} causal={causal} rate={rate}"
         with torch.no_grad():
-            out, m, l = A._forward_cuda(q, k, v, bias, mask, seed, causal, rate, True)
-            run = lambda: A._backward_cuda(q, k, v, bias, mask, seed, do, m, l, causal, rate)
+            out, m, l, bits = A._forward_cuda(q, k, v, bias, mask, seed, causal, rate, True)
+            run = lambda: A._backward_cuda(q, k, v, bias, mask, seed, do, m, l, causal, rate, keep_bits=bits)
             got = run()
             sync()
             again = run()
+            if bits is not None:  # the forward's keep bits are the hash's: the same gradients, bit for bit
+                hashed = A._backward_cuda(q, k, v, bias, mask, seed, do, m, l, causal, rate)
+                check(all(torch.equal(a, b) for a, b in zip(got, hashed)),
+                      f"{what}: the backward with the forward's keep bits differs from the one that hashes them")
+                del hashed
             want = A.t5_attention_backward_plain(q, k, v, bias, mask, seed, do, **kw)
             check(bool(torch.equal(out, A.t5_attention(q, k, v, bias, mask, seed, **kw))),
                   f"{what}: the forward that writes its row statistics differs from the forward")
@@ -647,14 +701,18 @@ def attention_bwd_phase(dev):
                 check(err <= tol * top, f"{what}: {gname} max abs err {err} over {tol} x {top}")
                 errs[gname] = {"max_abs_err": err, "largest": top}
             k_ms = cuda_ms(run, reps=3, warmup=1)
+            # the same backward hashing its keep bits anew, where the forward wrote them
+            hash_ms = None if bits is None else cuda_ms(
+                lambda: A._backward_cuda(q, k, v, bias, mask, seed, do, m, l, causal, rate), reps=3, warmup=1)
             p_ms = cuda_ms(lambda: A.t5_attention_backward_plain(q, k, v, bias, mask, seed, do, **kw), reps=2, warmup=1)
             f_ms = cuda_ms(lambda: A._forward_cuda(q, k, v, bias, mask, seed, causal, rate, True), reps=5, warmup=1)
         # 5 products; q, k, v, dout, bias, mask read once, dq, dk, dv, dbias written once
         b_ms, b_by = bound_ms(10 * B * H * L * L * dk, peak_flops(dt), nbytes_of(q, k, v, do, bias, mask, *got))
         row = {"shape": name, "dtype": dtype_name(dt), "B": B, "L": L, "causal": causal, "dropout_rate": rate,
-               "errors": errs, "tol_rel": list(ATTENTION_BWD_TOL[dt]), "bit_equal": True, "kernel_ms": k_ms,
+               "route": A.attention_route(L, L, dk, dt, backward=True), "errors": errs, "tol_rel": list(ATTENTION_BWD_TOL[dt]), "bit_equal": True, "kernel_ms": k_ms,
                "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "forward_kernel_ms": f_ms,
-               "groups": A.backward_groups(B, H, L)}
+               "kernel_ms_hashing_keep_bits": hash_ms,
+               "groups": A.backward_groups(B, H, L, L, dk, dt)}
         if not causal and rate == 0.0:
             # the yardstick: the library's backward of the same function (timed here, used nowhere in the port)
             ql, kl, vl, bl = (t.detach().clone().requires_grad_() for t in (q, k, v, bias))
@@ -676,13 +734,20 @@ def attention_bwd_phase(dev):
                 "max_abs_err": max(e["max_abs_err"] for e in errs.values()), "ms": k_ms, "plain_ms": p_ms,
                 "bound_ms": b_ms, "bound_by": b_by,
             }
-        del q, k, v, bias, mask, do, got, again, want, out, m, l
+        del q, k, v, bias, mask, do, got, again, want, out, m, l, bits
         torch.cuda.empty_cache()
     by = {(r["shape"], r["dtype"], r["dropout_rate"], r["causal"]): r for r in rows}
-    kernel_row["library_ms"] = by[("amazon", "bfloat16", 0.0, False)]["library_ms"]
-    kernel_row["ml32m_ms"] = by[("ml32m", "bfloat16", 0.1, False)]["kernel_ms"]
-    p_bits = {f"{dtype_name(dt)}_rate{rate}_causal{causal}": backward_p_equals_forward_p(dt, dev, rate, causal)
-              for dt in (torch.float32, torch.bfloat16) for rate, causal in ((0.0, False), (0.2, True))}
+    am, ml = by[("amazon", "bfloat16", 0.1, False)], by[("ml32m", "bfloat16", 0.1, False)]
+    kernel_row.update(
+        library_ms=by[("amazon", "bfloat16", 0.0, False)]["library_ms"], amazon_route=am["route"],
+        amazon_ms=am["kernel_ms"], ml32m_route=ml["route"], ml32m_ms=ml["kernel_ms"], ml32m_plain_ms=ml["plain_ms"],
+        ml32m_bound_ms=ml["bound_ms"], ml32m_bound_by=ml["bound_by"],
+        ml32m_library_ms=by[("ml32m", "bfloat16", 0.0, False)]["library_ms"])
+    p_blocks = {64: [(0, 0)], 80: [(0, 0), (1, 0), (0, 1)], 800: [(0, 0), (12, 12), (5, 9)]}
+    p_bits = {f"{dtype_name(dt)}_L{L}_rate{rate}_causal{causal}":
+              backward_p_equals_forward_p(dt, dev, rate, causal, L, blocks)
+              for dt in (torch.float32, torch.bfloat16) for rate, causal in ((0.0, False), (0.2, True))
+              for L, blocks in p_blocks.items()}
     check(all(p_bits.values()), f"attention_bwd: the backward's p differs from the forward's: {p_bits}")
     emit({"phase": "attention_bwd", "H": H, "dk": dk, "backward_p_equals_forward_p": p_bits, "rows": rows})
     return kernel_row, {f"{d}_rate{r}": ms for (d, r), ms in fwd_amazon.items()}
@@ -898,8 +963,9 @@ def train_profile_phase(step, tables, dev, top: int = 12) -> None:
     rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
     device_ms = sum(e.self_device_time_total for e in rows) / 1e3
     share = lambda pick: sum(e.self_device_time_total for e in rows if pick(e.key.lower())) / 1e3 / device_ms
-    attention_fwd = lambda k: "attention_mma_kernel" in k or "attention_kernel" in k
-    attention_bwd = lambda k: any(s in k for s in ("delta_kernel", "dkv_kernel", "dq_dbias_kernel", "reduce_groups_kernel"))
+    attention_fwd = lambda k: any(s in k for s in ("attention_rows_kernel", "attention_tiled_kernel", "attention_kernel"))
+    attention_bwd = lambda k: any(s in k for s in ("bwd_", "delta_kernel", "dkv_kernel", "dq_dbias_kernel",
+                                                   "reduce_groups_kernel"))
     gemm = lambda k: "gemm" in k or "cutlass" in k or "cublas" in k
     # the masks of the encoder's dropout sites of one micro-batch: input, two
     # sublayer outputs per layer and the final output at [B * Le, d], the FFN's
@@ -939,8 +1005,7 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = _build.build_all()
     build_s = time.perf_counter() - t0
-    ptxas = {name: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-             for name, log in logs.items()}
+    ptxas = {name: ptxas_summary(log) for name, log in logs.items()}
     emit({"phase": "card", "name": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
           "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": build_s, "ptxas": ptxas,

@@ -7,15 +7,14 @@
 // (via _fwd_call / t5_attention). The device routine, its rounding points and
 // its design are in attention_core.cuh, which the encoder-stack kernel shares.
 //
-// Bound on the H100 at the long-row serving shape (B = 64, H = 6,
-// Lq = Lk = 800, dk = 64): 4 B H Lq Lk dk = 63 GFLOP against about 170 MB of
-// q, k, v, out and bias, so with bf16 tensor cores the two bounds are close
+// Bound on the H100 (4 B H Lq Lk dk operations; q, k, v, out, bias and mask
+// moved once): at the long-row serving shape [64, 6, 800, 64] 63 GFLOP against
+// about 170 MB, so with bf16 tensor cores the two bounds are close
 // (operations 0.064 ms, bytes 0.051 ms) and in float32 the CUDA-core rate
-// bounds it (0.94 ms). The kernel computes q k^T twice (two-pass softmax, to
-// round the normalised p as the reference does) and runs float32 on the CUDA
-// cores and bf16 at dk = 64 on the tensor cores through mma.sync, fed from
-// shared memory without TMA or wgmma, so it sits above either bound; it keeps
-// the [B, H, Lq, Lk] scores out of device memory, which is what the TPU
+// bounds it (0.94 ms); at the Amazon training shape [640, 6, 80, 64] bytes
+// bound it in bf16. bf16 at dk = 64 takes the tensor-core routes (whole rows
+// up to 128 keys, pipelined key tiles beyond); float32 runs on the CUDA cores.
+// The [B, H, Lq, Lk] scores never reach device memory, which is what the TPU
 // kernel is for.
 
 #include "attention_core.cuh"
@@ -35,6 +34,7 @@ int launch(void* const* ptrs, const int* dims, int seed, unsigned keep_thresh, f
   p.out = static_cast<T*>(ptrs[5]);
   p.row_max = static_cast<float*>(ptrs[6]);
   p.row_sum = static_cast<float*>(ptrs[7]);
+  p.keep_bits = static_cast<unsigned*>(ptrs[8]);
   p.B = dims[0]; p.H = dims[1]; p.Lq = dims[2]; p.Lk = dims[3]; p.dk = dims[4];
   p.causal = dims[5];
   p.dropout = dropout;
@@ -51,7 +51,9 @@ extern "C" {
 const char* kernel_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 // ptrs: q, k, v, bias [H, Lq, Lk] f32, mask [B, Lk] int32 (1 = attend), out,
-// then row_max and row_sum [B, H, Lq] f32 (both null: statistics not written).
+// then row_max and row_sum [B, H, Lq] f32 (both null: statistics not written),
+// then keep_bits [B, H, Lq, ceil(Lk / 64), 2] int32 (null: not written; only
+// the tiled route writes them, with dropout).
 // dims: B, H, Lq, Lk, dk, causal. With dropout != 0, keep iff the hash bits
 // >= keep_thresh and kept probabilities are scaled by keep_scale.
 int attention_forward(int is_bf16, void* const* ptrs, const int* dims, int seed,
@@ -59,5 +61,8 @@ int attention_forward(int is_bf16, void* const* ptrs, const int* dims, int seed,
   return is_bf16 ? launch<__nv_bfloat16>(ptrs, dims, seed, keep_thresh, keep_scale, dropout, stream)
                  : launch<float>(ptrs, dims, seed, keep_thresh, keep_scale, dropout, stream);
 }
+
+// The route attention_forward takes (0: CUDA cores, 1: whole rows, 2: tiled).
+int attention_route(int is_bf16, int Lk, int dk) { return attn::forward_route(is_bf16 != 0, Lk, dk); }
 
 }  // extern "C"

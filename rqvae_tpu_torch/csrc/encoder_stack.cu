@@ -274,7 +274,7 @@ int launch(void* const* ptrs, const int* dims, float eps, cudaStream_t stream) {
   ap.mask_add = static_cast<const float*>(ptrs[11]);
   ap.mask_keep = nullptr;
   ap.out = p.oh;
-  ap.row_max = nullptr; ap.row_sum = nullptr;
+  ap.row_max = nullptr; ap.row_sum = nullptr; ap.keep_bits = nullptr;
   ap.B = p.B; ap.H = p.H; ap.Lq = p.L; ap.Lk = p.L; ap.dk = p.dk;
   ap.causal = 0;
   ap.dropout = 0; ap.seed_mix = 0; ap.keep_thresh = 0; ap.keep_scale = 1.f;

@@ -3,7 +3,9 @@ versions and the autograd function around them.
 
 Port of rqvae_tpu/ops/pallas/attention.py. `t5_attention` is differentiable in
 q, k, v and bias. For CUDA tensors the forward launches csrc/attention.cu and
-the backward csrc/attention_bwd.cu (or raises: there is no fallback); CPU
+the backward csrc/attention_bwd.cu (or raises: there is no fallback); which
+routine they run is `attention_route`'s (bf16 at dk = 64 on the tensor cores,
+whole rows up to 128 keys, key tiles beyond; float32 on the CUDA cores). CPU
 tensors take `t5_attention_plain` and `t5_attention_backward_plain`, the same
 arithmetic in torch with the keep bits of ops/hash_dropout.py.
 
@@ -40,13 +42,22 @@ from rqvae_tpu_torch.ops.hash_dropout import attention_keep_mask, keep_threshold
 
 NEG_INF = -1e9
 MAX_DK = 128  # the kernels' widest head (csrc/attention_core.cuh, csrc/attention_bwd.cu)
-QUERY_TILE = 64  # query rows per block in both kernels
-BWD_TARGET_BLOCKS = 528  # the dq/dbias pass aims at about 4 blocks on each of an H100's 132 SMs
+TENSOR_CORE_DK = 64  # the bf16 tensor-core routes' head width
+WHOLE_ROW_MAX = 128  # the whole-row routes' longest rows (csrc/attention_core.cuh WR_MAX_KEYS)
+QUERY_TILE = 64  # query rows per block of the backward's batch-grouped dq/dbias pass (tiled, CUDA cores)
+# blocks the backward's batch-grouped pass aims at on an H100's 132 SMs: two
+# whole-row blocks (about 100 KB of shared memory each at 80 x 80) fit an SM;
+# the CUDA-core route aims at four
+GROUP_TARGET_BLOCKS = {"whole_row": 264, "cuda_cores": 528}
+# the tiled route's groups: their partial dbias regions, read and written once
+# per batch row, together within this much of the H100's 50 MB L2 (3 groups
+# at the ML-32M shape measured faster than 2, 5 or 8)
+TILED_PARTIAL_BYTES = 48 << 20
 _C = ctypes.c_void_p
 _ARGTYPES = [ctypes.c_int, ctypes.POINTER(_C), ctypes.POINTER(ctypes.c_int), ctypes.c_int,
              ctypes.c_uint, ctypes.c_float, ctypes.c_int, _C]
-_FUNCTIONS = {"attention_forward": _ARGTYPES}
-_BWD_FUNCTIONS = {"attention_backward": _ARGTYPES}
+_FUNCTIONS = {"attention_forward": _ARGTYPES, "attention_route": [ctypes.c_int] * 3}
+_BWD_FUNCTIONS = {"attention_backward": _ARGTYPES, "attention_backward_route": [ctypes.c_int] * 4}
 _PLAIN_CHUNK_ELEMS = 1 << 26  # score elements held at once by the plain versions
 
 
@@ -147,6 +158,20 @@ def t5_attention_backward_plain(q, k, v, bias, mask, seed, do, *, causal: bool =
     return dq, dk, dv, dbias
 
 
+def attention_route(Lq: int, Lk: int, dk: int, dtype: torch.dtype, backward: bool = False) -> str:
+    """The kernel routine that CUDA tensors of these shapes launch (the C
+    libraries' `attention_route` / `attention_backward_route` make the same
+    choice): "whole_row" (bf16 at dk = 64, Lk <= 128, and for the backward
+    Lq <= 128 too: whole score rows in registers), "tiled" (bf16 at dk = 64,
+    longer rows: key tiles, pipelined) or "cuda_cores" (float32, or bf16 at
+    another head width)."""
+    if dtype != torch.bfloat16 or dk != TENSOR_CORE_DK:
+        return "cuda_cores"
+    if Lk <= WHOLE_ROW_MAX and (not backward or Lq <= WHOLE_ROW_MAX):
+        return "whole_row"
+    return "tiled"
+
+
 def _check_cuda(q, dk, tensors):
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"attention computes in float32 or bfloat16, got {q.dtype}")
@@ -165,40 +190,61 @@ def _dropout_args(seed, dropout_rate):
 
 
 def _forward_cuda(q, k, v, bias, mask, seed, causal, dropout_rate, with_stats):
-    """Launch the forward kernel. Returns (out, row_max, row_sum); the two
-    statistics [B, H, Lq] f32 are None unless `with_stats`. `mask` is int32."""
+    """Launch the forward kernel. Returns (out, row_max, row_sum, keep_bits):
+    the two statistics [B, H, Lq] f32 are None unless `with_stats`; keep_bits
+    (the tiled route's dropout keep bits, [B, H, Lq, ceil(Lk / 64), 2] int32,
+    one 64-bit word per row and 64-key tile, for the backward) only with
+    `with_stats`, dropout and the tiled route, else None. `mask` is int32."""
     B, H, Lq, Lk, dk = _check(q, k, v, bias, mask, causal, dropout_rate)
     if Lk == 0:
         raise ValueError("attention over no keys")
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     stats = [torch.empty(B, H, Lq, dtype=torch.float32, device=q.device) for _ in range(2)] if with_stats else []
+    if with_stats and dropout_rate > 0.0 and attention_route(Lq, Lk, dk, q.dtype) == "tiled":
+        stats.append(torch.empty(B, H, Lq, -(-Lk // 64), 2, dtype=torch.int32, device=q.device))
+    results = (out, *stats, *([None] * (3 - len(stats))))
     if out.numel() == 0:
-        return (out, *stats) if with_stats else (out, None, None)
+        return results
     tensors = (q, k, v, bias, mask, out, *stats)
     _check_cuda(q, dk, tensors)
     lib = load_library("attention", _FUNCTIONS)
-    ptrs = (_C * 8)(*[t.data_ptr() for t in tensors], *([None] * (8 - len(tensors))))
+    ptrs = (_C * 9)(*[t.data_ptr() for t in tensors], *([None] * (9 - len(tensors))))
     dims = (ctypes.c_int * 6)(B, H, Lq, Lk, dk, int(bool(causal)))
     seed32, thresh, scale, on = _dropout_args(seed, dropout_rate)
-    rc = lib.attention_forward(int(q.dtype == torch.bfloat16), ptrs, dims, seed32, thresh, scale, on,
-                               torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(q.device):  # the kernel launches on the current device
+        rc = lib.attention_forward(int(q.dtype == torch.bfloat16), ptrs, dims, seed32, thresh, scale, on,
+                                   torch.cuda.current_stream(q.device).cuda_stream)
     t5_attention.launches += 1
     check_launch(lib, rc, "attention")
-    return (out, *stats) if with_stats else (out, None, None)
+    return results
 
 
-def backward_groups(B: int, H: int, Lq: int) -> int:
-    """Batch groups of the backward's dq/dbias pass: enough (query tile, head,
-    group) blocks to fill the card, at most B / 4 groups, none of them empty."""
-    q_tiles = -(-Lq // QUERY_TILE)
-    want = max(1, min(max(1, B // 4), BWD_TARGET_BLOCKS // max(1, q_tiles * H)))
+def backward_groups(B: int, H: int, Lq: int, Lk: int | None = None, dk: int = TENSOR_CORE_DK,
+                    dtype: torch.dtype = torch.bfloat16) -> int:
+    """Batch groups of the backward's batch-grouped pass (Lk defaults to Lq):
+    the whole-row route's (head, group) blocks or the CUDA-core route's
+    (query tile, head, group) blocks, enough of them to fill the card; on the
+    tiled route as many as keep the groups' partial dbias in L2. At most B / 4
+    groups, none of them empty. Group i holds batch rows i*r .. i*r + r - 1
+    with r = ceil(B / groups)."""
+    Lk = Lq if Lk is None else Lk
+    route = attention_route(Lq, Lk, dk, dtype, backward=True)
+    if route == "tiled":
+        want = TILED_PARTIAL_BYTES // (H * Lq * Lk * 4)
+    else:
+        want = GROUP_TARGET_BLOCKS[route] // (H if route == "whole_row" else H * -(-Lq // QUERY_TILE))
+    want = max(1, min(max(1, B // 4), want))
     rows = -(-B // want)
     return -(-B // rows)
 
 
-def _backward_cuda(q, k, v, bias, mask, seed, do, row_max, row_sum, causal, dropout_rate):
-    """Launch the backward kernel. `mask` is int32; row_max / row_sum are the
-    forward's statistics."""
+def _backward_cuda(q, k, v, bias, mask, seed, do, row_max, row_sum, causal, dropout_rate, groups=None,
+                   keep_bits=None):
+    """Launch the backward kernel. `mask` is int32; row_max / row_sum (and,
+    when the forward wrote them, keep_bits) are the forward's; without
+    keep_bits the kernels hash the keep bits anew (the same bits); `groups`
+    (default `backward_groups`) only changes the order in which dbias is
+    summed."""
     B, H, Lq, Lk, dk = _check(q, k, v, bias, mask, causal, dropout_rate)
     do = do.contiguous()
     if do.shape != q.shape or do.dtype != q.dtype:
@@ -208,17 +254,25 @@ def _backward_cuda(q, k, v, bias, mask, seed, do, row_max, row_sum, causal, drop
     dbias = torch.empty(H, Lq, Lk, dtype=torch.float32, device=dev)
     if q.numel() == 0:
         return dq, dk_, dv, dbias.zero_()
-    groups = backward_groups(B, H, Lq)
+    groups = backward_groups(B, H, Lq, Lk, dk, q.dtype) if groups is None else groups
+    if not 1 <= groups <= B or (groups - 1) * -(-B // groups) >= B:
+        raise ValueError(f"{groups} batch groups of {B} rows leave a group empty")
     delta = torch.empty(B, H, Lq, dtype=torch.float32, device=dev)
     part = torch.empty(groups, H, Lq, Lk, dtype=torch.float32, device=dev) if groups > 1 else dbias
-    tensors = (q, k, v, bias, mask, do, row_max, row_sum, delta, dq, dk_, dv, dbias, part)
+    if keep_bits is not None and (
+            tuple(keep_bits.shape) != (B, H, Lq, -(-Lk // 64), 2) or keep_bits.dtype != torch.int32
+            or attention_route(Lq, Lk, dk, q.dtype) != "tiled" or dropout_rate == 0.0):
+        raise ValueError("keep_bits are the tiled forward's, written with dropout")
+    tensors = (q, k, v, bias, mask, do, row_max, row_sum, delta, dq, dk_, dv, dbias, part,
+               *([] if keep_bits is None else [keep_bits]))
     _check_cuda(q, dk, tensors)
     lib = load_library("attention_bwd", _BWD_FUNCTIONS)
-    ptrs = (_C * len(tensors))(*[t.data_ptr() for t in tensors])
+    ptrs = (_C * 15)(*[t.data_ptr() for t in tensors], *([None] * (15 - len(tensors))))
     dims = (ctypes.c_int * 7)(B, H, Lq, Lk, dk, int(bool(causal)), groups)
     seed32, thresh, scale, on = _dropout_args(seed, dropout_rate)
-    rc = lib.attention_backward(int(q.dtype == torch.bfloat16), ptrs, dims, seed32, thresh, scale, on,
-                                torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):  # the kernels launch on the current device
+        rc = lib.attention_backward(int(q.dtype == torch.bfloat16), ptrs, dims, seed32, thresh, scale, on,
+                                    torch.cuda.current_stream(dev).cuda_stream)
     t5_attention.backward_launches += 1
     check_launch(lib, rc, "attention backward")
     return dq, dk_, dv, dbias
@@ -227,7 +281,8 @@ def _backward_cuda(q, k, v, bias, mask, seed, do, row_max, row_sum, causal, drop
 class _T5Attention(torch.autograd.Function):
     """Kernel 4 forward, kernel 5 backward (plain versions for CPU tensors).
     Saves q, k, v, bias, mask, the seed and, on the card, the forward's row
-    statistics; never the [B, H, Lq, Lk] probabilities."""
+    statistics (and on the tiled route with dropout its keep bits, 1 bit a
+    score); never the [B, H, Lq, Lk] probabilities."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, mask, seed, causal, dropout_rate):
@@ -235,8 +290,8 @@ class _T5Attention(torch.autograd.Function):
         if q.device.type == "cpu":
             ctx.save_for_backward(q, k, v, bias, mask)
             return t5_attention_plain(q, k, v, bias, mask, seed, causal=causal, dropout_rate=dropout_rate)
-        out, row_max, row_sum = _forward_cuda(q, k, v, bias, mask, seed, causal, dropout_rate, with_stats=True)
-        ctx.save_for_backward(q, k, v, bias, mask, row_max, row_sum)
+        out, *stats = _forward_cuda(q, k, v, bias, mask, seed, causal, dropout_rate, with_stats=True)
+        ctx.save_for_backward(q, k, v, bias, mask, *(t for t in stats if t is not None))
         return out
 
     @staticmethod
@@ -246,7 +301,9 @@ class _T5Attention(torch.autograd.Function):
         if q.device.type == "cpu":
             grads = t5_attention_backward_plain(q, k, v, bias, mask, ctx.seed, do, **kw)
         else:
-            grads = _backward_cuda(q, k, v, bias, mask, ctx.seed, do, *stats, **kw)
+            row_max, row_sum, *bits = stats
+            grads = _backward_cuda(q, k, v, bias, mask, ctx.seed, do, row_max, row_sum,
+                                   keep_bits=bits[0] if bits else None, **kw)
         return (*grads, None, None, None, None)
 
 

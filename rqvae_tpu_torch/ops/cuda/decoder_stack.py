@@ -143,10 +143,11 @@ def t5_decoder_stack_infer(
         return out
     ptrs = (_C * 18)(*[t.data_ptr() for t in args], out.data_ptr())
     dims = (ctypes.c_int * 8)(B, kT, d, NL, H, dk, dff, Le)
-    rc = lib.decoder_stack_forward(
-        int(x.dtype == torch.bfloat16), ptrs, dims, float(eps),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    with torch.cuda.device(x.device):  # the kernel launches on the current device
+        rc = lib.decoder_stack_forward(
+            int(x.dtype == torch.bfloat16), ptrs, dims, float(eps),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
     t5_decoder_stack_infer.launches += 1
     check_launch(lib, rc, "decoder_stack")
     return out

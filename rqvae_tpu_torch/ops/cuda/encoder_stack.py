@@ -132,10 +132,11 @@ def t5_encoder_stack_infer(
                          f"over the {MAX_SMEM_BYTES} B a block may use")
     ptrs = (_C * 18)(*[t.data_ptr() for t in tensors])
     dims = (ctypes.c_int * 7)(B, L, d, NL, H, dk, dff)
-    rc = lib.encoder_stack_forward(
-        int(x.dtype == torch.bfloat16), ptrs, dims, float(eps),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    with torch.cuda.device(x.device):  # the kernels launch on the current device
+        rc = lib.encoder_stack_forward(
+            int(x.dtype == torch.bfloat16), ptrs, dims, float(eps),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
     t5_encoder_stack_infer.launches += 1
     check_launch(lib, rc, "encoder_stack")
     return out

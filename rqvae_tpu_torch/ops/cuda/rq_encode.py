@@ -108,10 +108,11 @@ def fused_encode_quantize(
         return out
     cb2 = torch.sum(codebooks * codebooks, dim=-1).contiguous()
     w_ptrs = (_C * len(weights))(*[w.data_ptr() for w in weights])
-    rc = lib.rq_encode_forward(
-        x.data_ptr(), n, w_ptrs, c_dims, len(weights), codebooks.data_ptr(), cb2.data_ptr(),
-        n_levels, K, D, out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    with torch.cuda.device(x.device):  # the kernel launches on the current device
+        rc = lib.rq_encode_forward(
+            x.data_ptr(), n, w_ptrs, c_dims, len(weights), codebooks.data_ptr(), cb2.data_ptr(),
+            n_levels, K, D, out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
+        )
     fused_encode_quantize.launches += 1
     check_launch(lib, rc, "rq_encode")
     return out

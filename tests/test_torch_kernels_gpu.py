@@ -138,11 +138,20 @@ def _attention_inputs(B, H, Lq, Lk, dk, dtype, device, seed=0):
     return q, k, v, bias, mask.to(device)
 
 
+# bf16 at dk = 64 takes the whole-row routes up to 128 keys (the backward up
+# to 128 queries too) and the tiled routes beyond; the edges of both, odd
+# batches, Lq != Lk, causal and dropout
+ROUTE_CASES = [(5, 6, 80, 80, 64, False, 0.1), (3, 2, 16, 16, 64, True, 0.1), (7, 3, 100, 128, 64, False, 0.1),
+               (3, 2, 127, 127, 64, True, 0.0), (3, 2, 129, 129, 64, True, 0.1), (3, 2, 50, 800, 64, False, 0.1),
+               (3, 2, 200, 80, 64, False, 0.1), (5, 2, 80, 48, 64, False, 0.05)]
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 3.2e-2)])
 @pytest.mark.parametrize(
     "B,H,Lq,Lk,dk,causal,rate",
     [(3, 2, 24, 24, 8, False, 0.0), (2, 3, 70, 133, 16, False, 0.3), (2, 2, 65, 65, 128, True, 0.1),
-     (4, 6, 512, 512, 64, True, 0.0), (64, 6, 800, 800, 64, False, 0.0), (64, 6, 800, 800, 64, False, 0.1)],
+     (4, 6, 512, 512, 64, True, 0.0), (64, 6, 800, 800, 64, False, 0.0), (64, 6, 800, 800, 64, False, 0.1),
+     *ROUTE_CASES],
 )
 def test_attention_kernel_matches_plain(cuda, dtype, tol, B, H, Lq, Lk, dk, causal, rate):
     q, k, v, bias, mask = _attention_inputs(B, H, Lq, Lk, dk, dtype, cuda)
@@ -182,7 +191,8 @@ def _attention_grads(q, k, v, bias, mask, do, **kw):
 @pytest.mark.parametrize(
     "B,H,Lq,Lk,dk,causal,rate",
     [(3, 2, 24, 24, 8, False, 0.0), (2, 3, 70, 133, 16, False, 0.3), (2, 2, 65, 65, 128, True, 0.1),
-     (9, 2, 200, 200, 64, True, 0.2), (640, 6, 80, 80, 64, False, 0.1), (64, 6, 800, 800, 64, False, 0.1)],
+     (9, 2, 200, 200, 64, True, 0.2), (640, 6, 80, 80, 64, False, 0.1), (64, 6, 800, 800, 64, False, 0.1),
+     *ROUTE_CASES],
 )
 def test_attention_backward_kernel_matches_plain(cuda, dtype, tol, dbias_tol, B, H, Lq, Lk, dk, causal, rate):
     q, k, v, bias, mask = _attention_inputs(B, H, Lq, Lk, dk, dtype, cuda)
@@ -219,6 +229,102 @@ def test_attention_backward_rebuilds_the_forwards_p(cuda, dtype, L, rate, causal
     out = t5_attention(q, k, v, bias, mask, 9, causal=causal, dropout_rate=rate)
     out.backward(eye)
     assert torch.equal(v.grad.transpose(-1, -2), out.detach())
+
+
+@pytest.mark.parametrize("B,L,blocks", [(3, 80, [(0, 0), (1, 0), (0, 1)]), (2, 128, [(1, 1), (0, 1)]),
+                                          (2, 800, [(0, 0), (12, 12), (5, 9), (12, 0)])])
+@pytest.mark.parametrize("rate,causal", [(0.0, False), (0.2, True)])
+def test_attention_backward_p_equals_forward_p_on_both_routes(cuda, B, L, blocks, rate, causal):
+    """bf16 at dk = 64 (whole rows at 80 and 128, key tiles at 800): with v the
+    identity on keys 64j .. 64j + 63 and dout the identity on queries 64i ..
+    64i + 63, the forward's out[64i:] and the backward's dv^T[:, 64j:] are the
+    same 64 x 64 block of the rounded, dropped p: equal bits."""
+    from rqvae_tpu_torch.ops.cuda import attention as A
+
+    g = torch.Generator().manual_seed(8)
+    q, k = (torch.randn(B, 3, L, 64, generator=g).to(torch.bfloat16).to(cuda) for _ in range(2))
+    bias = torch.randn(3, L, L, generator=g).to(cuda)
+    mask = (torch.rand(B, L, generator=g) > 0.2).to(torch.int32).to(cuda)
+
+    def block_eye(j):
+        e = torch.zeros(L, 64)
+        idx = torch.arange(64 * j, min(L, 64 * j + 64))
+        e[idx, idx - 64 * j] = 1.0
+        return e.to(torch.bfloat16).to(cuda).expand(B, 3, L, 64).contiguous()
+
+    for i, j in blocks:
+        v, do = block_eye(j), block_eye(i)
+        out, m, l, bits = A._forward_cuda(q, k, v, bias, mask, 9, causal, rate, True)
+        assert (bits is not None) == (L > 128 and rate > 0)  # the tiled route with dropout keeps its bits
+        rows, cols = slice(64 * i, min(L, 64 * i + 64)), slice(64 * j, min(L, 64 * j + 64))
+        n_r, n_c = rows.stop - rows.start, cols.stop - cols.start
+        for keep_bits in {id(bits): bits, id(None): None}.values():  # the forward's bits, and hashed anew
+            dv = A._backward_cuda(q, k, v, bias, mask, 9, do, m, l, causal, rate, keep_bits=keep_bits)[2]
+            assert torch.equal(dv.transpose(-1, -2)[:, :, :n_r, cols], out[:, :, rows, :n_c]), (i, j)
+
+
+def test_attention_routes_match_the_libraries(cuda):
+    """The C libraries pick the route that attention_route names."""
+    from rqvae_tpu_torch.ops.cuda import attention as A
+    from rqvae_tpu_torch.ops.cuda._build import load_library
+
+    fwd = load_library("attention", A._FUNCTIONS)
+    bwd = load_library("attention_bwd", A._BWD_FUNCTIONS)
+    code = {"cuda_cores": 0, "whole_row": 1, "tiled": 2}
+    for dtype in (torch.float32, torch.bfloat16):
+        for dk in (8, 64, 128):
+            for Lq in (1, 80, 128, 129, 800):
+                for Lk in (1, 16, 127, 128, 129, 800):
+                    bf = int(dtype == torch.bfloat16)
+                    assert fwd.attention_route(bf, Lk, dk) == code[A.attention_route(Lq, Lk, dk, dtype)]
+                    assert bwd.attention_backward_route(bf, Lq, Lk, dk) == code[
+                        A.attention_route(Lq, Lk, dk, dtype, backward=True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Lq,Lk", [(80, 80), (200, 150)])
+def test_attention_backward_batch_groups(cuda, dtype, Lq, Lk):
+    """An odd batch in groups that do not divide it: dq, dk and dv do not
+    depend on the groups (bit-equal to one group); dbias is the same sum in
+    another order."""
+    from rqvae_tpu_torch.ops.cuda import attention as A
+
+    q, k, v, bias, mask = _attention_inputs(9, 2, Lq, Lk, 64, dtype, cuda)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)).to(dtype).to(cuda)
+    _, m, l, bits = A._forward_cuda(q, k, v, bias, mask, 77, False, 0.1, True)
+    one = A._backward_cuda(q, k, v, bias, mask, 77, do, m, l, False, 0.1, groups=1, keep_bits=bits)
+    for groups in (2, 3, 5):
+        got = A._backward_cuda(q, k, v, bias, mask, 77, do, m, l, False, 0.1, groups=groups, keep_bits=bits)
+        for a, b in zip(got[:3], one[:3]):
+            assert torch.equal(a, b), groups
+        assert (got[3] - one[3]).abs().max().item() <= 1e-5 * one[3].abs().max().item()
+
+
+def test_kernels_launch_on_the_tensors_device(cuda):
+    """Inputs on cuda:1 while cuda:0 is current: every wrapper launches on the
+    inputs' card and agrees with its plain version there."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    dev = torch.device("cuda:1")
+    torch.cuda.set_device(0)
+    q, k, v, bias, mask = _attention_inputs(3, 2, 80, 80, 64, torch.bfloat16, dev)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)).to(torch.bfloat16).to(dev)
+    out, *grads = _attention_grads(q, k, v, bias, mask, do, dropout_rate=0.1)
+    torch.cuda.synchronize(dev)
+    want = t5_attention_plain(q, k, v, bias, mask, 77, dropout_rate=0.1)
+    assert (out.float() - want.float()).abs().max().item() <= 3.2e-2
+    for g, w in zip(grads, t5_attention_backward_plain(q, k, v, bias, mask, 77, do, dropout_rate=0.1)):
+        assert g.device == dev and (g.float() - w.float()).abs().max().item() <= 2.0 ** -7 * w.float().abs().max().item()
+    rq, x = _rqvae(SMALL_VAE, 200, dev)
+    w, cb = rq.encoder.kernels(), rq.codebooks.detach()
+    ids = fused_encode_quantize(x, w, cb, 3)
+    differ = (ids != fused_encode_quantize_plain(x, w, cb, 3)).any(1)
+    assert not (differ & ~_near_ties(x, w, cb)).any()
+    ops, eps = _decoder_operands(SMALL_T5, "float32", 3, 2, 5, 7, dev)
+    assert (t5_decoder_stack_infer(*ops, eps=eps) - t5_decoder_stack_plain(*ops, eps=eps)).abs().max().item() <= 1e-3
+    ops, eps = _encoder_operands(SMALL_T5, "float32", 3, 11, dev)
+    assert (t5_encoder_stack_infer(*ops, eps=eps) - t5_encoder_stack_plain(*ops, eps=eps)).abs().max().item() <= 1e-3
+    assert torch.cuda.current_device() == 0
 
 
 def test_attention_backward_has_no_fallback(cuda, monkeypatch):
