@@ -13,7 +13,9 @@ bf16, top-k 10, batches of 64 histories.
 
    1. card: name, count, power limit, torch/CUDA versions; builds the five
       CUDA kernels from rqvae_tpu_torch/csrc (one nvcc per source, in
-      parallel) and prints each kernel's ptxas registers and spills;
+      parallel) and prints each kernel's ptxas registers and spills; the
+      tensor-core kernels of encoder_stack and decoder_stack must spill
+      nothing;
    2. rq_encode kernel against its plain version on the card (Amazon width):
       identical ids except rows at an argmin near-tie: a level whose top-2
       distance gap, in float64, is below 1e-5 of ||res||^2 + max ||c||^2,
@@ -22,7 +24,10 @@ bf16, top-k 10, batches of 64 histories.
       Le = 80, kT = 1, 20, 30): max abs error <= 1e-3 in f32 and <= 6e-2 in
       bf16 (bf16 rounding of the residual stream over 4 layers: a summation
       order that differs in the last f32 bit can flip a bf16 rounding, and the
-      flip carries through the later layers);
+      flip carries through the later layers); bf16 must take the tensor-core
+      route; each row prints its route, the shared memory a block asks for,
+      the error's mean and the count of entries above half the bound; two
+      launches must give the same bits;
    4. the Amazon main path with the launch counts zeroed first: index build
       (rq_encode), Retriever, 3 retrieve() calls; requires 1 rq_encode launch
       and 3 levels x 3 calls decoder_stack launches, corpus-valid beams and
@@ -42,7 +47,8 @@ bf16, top-k 10, batches of 64 histories.
    8. encoder_stack kernel against its plain version at x [64, 800, 384] with
       ragged history lengths: max abs error <= 1e-3 in f32; in bf16 <= 0.15 at
       the worst element and <= 4e-3 in the mean (flipped bf16 roundings of
-      the residual stream carry through 4 layers);
+      the residual stream carry through 4 layers); routes, shared memory,
+      error distribution and bit-equal repeats as in 3;
    9. the ML-32M main path, counts zeroed first: index build, Retriever in
       bf16, 3 retrieve() calls of 64 histories of 1..200 items; requires
       rq_encode >= 1, encoder_stack == 3, decoder_stack == 0 and attention == 0
@@ -196,6 +202,13 @@ def nbytes_of(*tensors) -> int:
 
 def dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).split(".")[-1]
+
+
+def error_distribution(got: torch.Tensor, want: torch.Tensor, tol: float) -> dict:
+    """max and mean abs error, and how many entries lie above half the bound."""
+    diff = (got - want).abs()
+    return {"max_abs_err": float(diff.max().item()), "mean_abs_err": float(diff.mean().item()),
+            "above_half_tol": int((diff > tol / 2).sum().item()), "entries": diff.numel()}
 
 
 def ptxas_summary(log: str) -> list:
@@ -424,9 +437,15 @@ def attention_phase(dev) -> dict:
 
 def encoder_stack_phase(models: dict, dev) -> dict:
     """encoder_stack kernel against its plain version at the ML-32M rows, with
-    each model's own encoder weights; returns the bf16 row of the `kernels` line."""
-    from rqvae_tpu_torch.ops.cuda.encoder_stack import t5_encoder_stack_infer, t5_encoder_stack_plain
+    each model's own encoder weights; two launches bit-equal; returns the bf16
+    row of the `kernels` line."""
+    from rqvae_tpu_torch.ops.cuda import encoder_stack as E
+    from rqvae_tpu_torch.ops.cuda._build import load_library
+    from rqvae_tpu_torch.ops.cuda.attention import attention_route
+    from rqvae_tpu_torch.ops.cuda.encoder_stack import (encoder_stack_route, t5_encoder_stack_infer,
+                                                        t5_encoder_stack_plain)
 
+    lib = load_library("encoder_stack", E._FUNCTIONS)  # the shared memory a rows block asks for
     L = ML32M["history"] * 4
     g = torch.Generator().manual_seed(6)
     x = torch.randn(BATCH, L, 384, generator=g).to(dev)  # the scale of the N(0, 1) id embeddings
@@ -437,42 +456,55 @@ def encoder_stack_phase(models: dict, dev) -> dict:
         for dt, model in models.items():
             enc = model.encoder
             cfg, eps = enc.cfg, enc.cfg.layer_norm_eps
+            NL, H, dk, d, dff = cfg.num_layers, cfg.num_heads, cfg.d_kv, cfg.d_model, cfg.d_ff
             ops = enc.encode_operands(x, mask)
             y = t5_encoder_stack_infer(*ops, eps=eps)
             sync()
+            y_again = t5_encoder_stack_infer(*ops, eps=eps)
+            sync()
             y_plain = t5_encoder_stack_plain(*ops, eps=eps)
-            diff = (y - y_plain).abs()
-            err, mean_err = float(diff.max().item()), float(diff.mean().item())
             tol, mean_tol = ENCODER_TOL[dt]
+            errs = error_distribution(y, y_plain, tol)
+            err, mean_err = errs["max_abs_err"], errs["mean_abs_err"]
             check(bool(torch.isfinite(y).all()), f"encoder_stack {dtype_name(dt)}: non-finite output")
             check(err <= tol and mean_err <= mean_tol,
                   f"encoder_stack {dtype_name(dt)}: max abs err {err}, mean {mean_err}")
+            check(torch.equal(y, y_again), f"encoder_stack {dtype_name(dt)}: two launches differ")
             k_ms = cuda_ms(lambda: t5_encoder_stack_infer(*ops, eps=eps), reps=3, warmup=1)
             p_ms = cuda_ms(lambda: t5_encoder_stack_plain(*ops, eps=eps), reps=2, warmup=1)
-            NL, H, dk, d, dff = cfg.num_layers, cfg.num_heads, cfg.d_kv, cfg.d_model, cfg.d_ff
             flops = 2 * BATCH * L * d * NL * (4 * H * dk + 2 * dff) + 2 * BATCH * NL * H * L * L * 2 * dk
             b_ms, b_by = bound_ms(flops, peak_flops(dt), nbytes_of(*ops, y))
-            rows.append({"dtype": dtype_name(dt), "max_abs_err": err, "mean_abs_err": mean_err, "tol": tol,
-                         "mean_tol": mean_tol, "kernel_ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                         "bound_by": b_by, "flops": flops})
+            route = encoder_stack_route(d, dk, H * dk, dff, dt)
+            rows.append({"dtype": dtype_name(dt), "route": route, "attention_route": attention_route(L, L, dk, dt),
+                         "smem_bytes": lib.encoder_stack_smem_bytes(int(dt == torch.bfloat16), d, dk, H * dk, dff),
+                         **errs, "tol": tol,
+                         "mean_tol": mean_tol, "bit_equal": True, "kernel_ms": k_ms, "plain_ms": p_ms,
+                         "bound_ms": b_ms, "bound_by": b_by, "flops": flops})
             if dt == torch.bfloat16:
+                check(route == "tensor_cores", f"encoder_stack bf16 at the ML-32M widths takes the {route} route")
                 kernel_row = {
                     "name": "encoder_stack", "route": "cuda", "source": "rqvae_tpu_torch/csrc/encoder_stack.cu",
                     "replaces": "rqvae_tpu/ops/pallas/encoder_stack.py:179", "max_abs_err": err,
                     "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                    "kernel_route": route,
                 }
-            del ops, y, y_plain, diff
+            del ops, y, y_again, y_plain
     emit({"phase": "encoder_stack", "B": BATCH, "L": L, "rows": rows})
     return kernel_row
 
 
 def decoder_stack_phase(models: dict, rq, x, hist, dev) -> dict:
     """decoder_stack kernel against its plain version at the Amazon path's
-    three levels; returns the kernel's row of the `kernels` line."""
+    three levels; two launches bit-equal; returns the kernel's row of the
+    `kernels` line."""
     from rqvae_tpu_torch.models.retrieval import strip_dedup_col
-    from rqvae_tpu_torch.ops.cuda.decoder_stack import t5_decoder_stack_infer, t5_decoder_stack_plain
+    from rqvae_tpu_torch.ops.cuda import decoder_stack as D
+    from rqvae_tpu_torch.ops.cuda._build import load_library
+    from rqvae_tpu_torch.ops.cuda.decoder_stack import (decoder_stack_route, t5_decoder_stack_infer,
+                                                        t5_decoder_stack_plain)
     from rqvae_tpu_torch.tokenizer.semids import SemanticIdTokenizer, _tokenize_from_cache
 
+    lib = load_library("decoder_stack", D._FUNCTIONS)  # the shared memory a block asks for
     tok_probe = SemanticIdTokenizer(rq, device=dev)
     tok_probe.precompute_corpus_ids(x)
     decoder_rows, kernel_row = [], None
@@ -494,26 +526,39 @@ def decoder_stack_phase(models: dict, rq, x, hist, dev) -> dict:
                 eps = dec.cfg.layer_norm_eps
                 y = t5_decoder_stack_infer(*ops, eps=eps)
                 sync()
+                y_again = t5_decoder_stack_infer(*ops, eps=eps)
+                sync()
                 y_plain = t5_decoder_stack_plain(*ops, eps=eps)
-                err = float((y - y_plain).abs().max().item())
+                errs = error_distribution(y, y_plain, DECODER_TOL[dt])
+                err = errs["max_abs_err"]
                 check(bool(torch.isfinite(y).all()), f"decoder_stack {dt} kT={beams * T}: non-finite output")
                 check(err <= DECODER_TOL[dt], f"decoder_stack {dt} kT={beams * T}: max abs err {err}")
+                check(torch.equal(y, y_again), f"decoder_stack {dt} kT={beams * T}: two launches differ")
                 k_ms = cuda_ms(lambda: t5_decoder_stack_infer(*ops, eps=eps), reps=10)
                 p_ms = cuda_ms(lambda: t5_decoder_stack_plain(*ops, eps=eps), reps=10)
                 kt, cfg = beams * T, dec.cfg
                 NL, H, dk, d, dff, Le = cfg.num_layers, cfg.num_heads, cfg.d_kv, cfg.d_model, cfg.d_ff, enc.shape[1]
                 flops = 2 * BATCH * kt * NL * (6 * d * H * dk + 2 * d * dff) + 4 * BATCH * NL * H * kt * (kt + Le) * dk
                 b_ms, b_by = bound_ms(flops, peak_flops(dt), nbytes_of(*ops, y))
-                decoder_rows.append({"dtype": dtype_name(dt), "kT": kt, "max_abs_err": err, "tol": DECODER_TOL[dt],
-                                     "kernel_ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by})
+                route = decoder_stack_route(kt, d, dk, H * dk, dff, Le, dt)
+                if dt == torch.bfloat16:
+                    check(route == "tensor_cores", f"decoder_stack bf16 kT={kt} takes the {route} route")
+                decoder_rows.append({"dtype": dtype_name(dt), "kT": kt, "route": route,
+                                     "blocks_per_row": 2 if route == "tensor_cores" else 1,
+                                     "smem_bytes": lib.decoder_stack_smem_bytes(int(dt == torch.bfloat16), kt, d, dk,
+                                                                                H * dk, dff, Le), **errs,
+                                     "tol": DECODER_TOL[dt], "bit_equal": True, "kernel_ms": k_ms, "plain_ms": p_ms,
+                                     "bound_ms": b_ms, "bound_by": b_by})
                 if dt == torch.bfloat16 and kt == 30:  # the main path's largest level
                     kernel_row = {
                         "name": "decoder_stack", "route": "cuda",
                         "source": "rqvae_tpu_torch/csrc/decoder_stack.cu",
                         "replaces": "rqvae_tpu/ops/pallas/decoder_stack.py:231",
                         "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                        "bound_by": b_by, "library_ms": None,
+                        "bound_by": b_by, "library_ms": None, "kernel_route": route,
+                        "ms_by_kT": {str(r["kT"]): r["kernel_ms"] for r in decoder_rows if r["dtype"] == "bfloat16"},
                     }
+                del ops, y, y_again, y_plain
     emit({"phase": "decoder_stack", "B": BATCH, "Le": int(enc.shape[1]), "rows": decoder_rows})
     return kernel_row
 
@@ -1006,6 +1051,10 @@ def main() -> int:
     logs = _build.build_all()
     build_s = time.perf_counter() - t0
     ptxas = {name: ptxas_summary(log) for name, log in logs.items()}
+    for name in ("encoder_stack", "decoder_stack"):  # the tensor-core stack kernels spill nothing
+        tc = [row for row in ptxas[name] if "tc_kernel" in row[0]]
+        check(bool(tc) and all(row[2] == 0 and row[3] == 0 for row in tc),
+              f"{name}: tensor-core kernel ptxas {tc}")
     emit({"phase": "card", "name": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
           "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": build_s, "ptxas": ptxas,

@@ -54,6 +54,8 @@
 
 #include <type_traits>
 
+#include "mma_core.cuh"
+
 namespace attn {
 
 constexpr float MASKED = -1e9f;
@@ -61,36 +63,6 @@ constexpr int QT = 64;        // query rows per block
 constexpr int KT = 64;        // keys per tile
 constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 scores each
 constexpr int MAX_DK = 128;   // two float4 output column groups per thread
-
-template <typename T> struct Num;
-template <> struct Num<float> {
-  static __device__ __forceinline__ float rnd(float v) { return v; }
-  static __device__ __forceinline__ float4 load4(const float* p) {
-    return __ldg(reinterpret_cast<const float4*>(p));
-  }
-  static __device__ __forceinline__ void store4(float* p, float4 v) {
-    *reinterpret_cast<float4*>(p) = v;
-  }
-};
-template <> struct Num<__nv_bfloat16> {
-  static __device__ __forceinline__ float rnd(float v) {
-    return __bfloat162float(__float2bfloat16(v));  // round to nearest even
-  }
-  static __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-    return make_float4(lo.x, lo.y, hi.x, hi.y);
-  }
-  static __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-    uint2 u;
-    u.x = *reinterpret_cast<const unsigned*>(&lo);
-    u.y = *reinterpret_cast<const unsigned*>(&hi);
-    *reinterpret_cast<uint2*>(p) = u;
-  }
-};
 
 template <typename T> struct Params {
   const T *q, *k, *v;       // [B, H, Lq, dk], [B, H, Lk, dk] x 2
@@ -372,31 +344,6 @@ __host__ __device__ inline int forward_route(bool is_bf16, int Lk, int dk) {
   return Lk <= WR_MAX_KEYS ? ROUTE_WHOLE_ROW : ROUTE_TILED;
 }
 
-// d += a (16 x 16, row) * b (16 x 8, col), bf16 operands, float32 sums
-__device__ __forceinline__ void mma_16816(float (&d)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats rounded to bf16 (nearest even), the first in the low half
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-
-// max / sum over the 4 lanes of a quad, which share a score row
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
 // exp(x) and p = exp(s - m) / l of the bf16 routes, forward and backward
 // alike: the hardware's exp2 (__expf, a few ulp) and one reciprocal per row.
 // Their error is far below the bf16 rounding of p that follows, and the
@@ -405,53 +352,6 @@ __device__ __forceinline__ float quad_sum(float v) {
 __device__ __forceinline__ float sm_exp(float x) { return __expf(x); }
 __device__ __forceinline__ float sm_p(float s, float m, float inv_l) { return __expf(s - m) * inv_l; }
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory, asynchronously; zeros when !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
-// all but the newest committed group have landed
-__device__ __forceinline__ void cp_async_wait_but_one() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
-
-// four 8 x 8 bf16 matrices from shared memory (lane l gives the address of
-// row l & 7 of matrix l >> 3), plain or transposed
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-// A lane's address offsets (row * MMA_LD-style stride is applied by the
-// caller) for the three x4 fragment loads of a row-major shared tile:
-//   a_row/a_col:   an A fragment (16 x 16) of a [m][k] tile (plain)
-//   bn_row/bn_col: B fragments of two 8-wide n-blocks of a [n][k] tile (plain),
-//                  and an A fragment of a [k][m] tile (transposed)
-//   bt_row/bt_col: B fragments of two 8-wide n-blocks of a [k][n] tile (transposed)
-__device__ __forceinline__ int a_row(int lane) { return lane & 15; }
-__device__ __forceinline__ int a_col(int lane) { return (lane >> 4) * 8; }
-__device__ __forceinline__ int bn_row(int lane) { return (lane & 7) + (lane >> 4) * 8; }
-__device__ __forceinline__ int bn_col(int lane) { return ((lane >> 3) & 1) * 8; }
-__device__ __forceinline__ int bt_row(int lane) { return (lane & 7) + ((lane >> 3) & 1) * 8; }
-__device__ __forceinline__ int bt_col(int lane) { return (lane >> 4) * 8; }
 
 // rows row0 .. row0 + rows - 1 of src [n_rows, 64] into dst [rows, MMA_LD]
 // by cp.async (the caller commits), zeros past n_rows

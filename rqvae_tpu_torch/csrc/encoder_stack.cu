@@ -7,10 +7,9 @@
 //
 // Bound on the H100 at the long-row serving shape (B = 64, L = 800, d = 384,
 // 6 heads of 64, dff = 1024, 4 layers): 0.82 TFLOP against about 135 MB that
-// must move, so operations bound it: 0.82 ms at the bf16 tensor-core rate,
-// 12.2 ms at the float32 CUDA-core rate. This first version runs the row
-// products (projections, FFN) on the CUDA cores in both dtypes and only the
-// bf16 attention on the tensor cores, so it is far from the bf16 bound.
+// must move, so operations bound it: 0.82 ms at the bf16 tensor-core rate
+// (0.57 ms of it the row products, 0.25 ms the attention), 12.2 ms at the
+// float32 CUDA-core rate.
 //
 // Design. The TPU kernel holds a batch block's whole residual stream, all
 // weights, the [H, L, L] bias and a [bb, L, L] score tensor in VMEM. One
@@ -24,16 +23,40 @@
 //                       residual, then RMSNorm + q/k/v of layer l + 1, or
 //                       after the last layer the final RMSNorm
 //
-// A rows block owns TM = 32 rows of the flattened [B*L, d] stream and keeps
-// them in shared memory through its whole chain; the FFN hidden is produced
-// FCHUNK columns at a time and consumed at once. So what the TPU kernel keeps
-// out of device memory stays out (scores, probabilities, FFN hidden, every
-// normalised copy of x); only q, k, v, the per-head attention output and the
-// residual stream pass through it between kernels, once per layer. Weights
-// stream from global memory (the 11 MB stack stays in L2) as 4-wide loads
-// into RB x 4 register tiles. Dropped from the TPU kernel: the rank-1 matmul
-// that materialises the mask, the per-head weight slicing workaround, the row
-// padding to 8.
+// A rows block owns a tile of the flattened [B*L, d] stream and keeps it in
+// shared memory through its whole chain; the FFN hidden is produced a chunk
+// of columns at a time and consumed at once, its sum over dff chunks kept as
+// one float32 sum. So what the TPU kernel keeps out of device memory stays
+// out (scores, probabilities, FFN hidden, every normalised copy of x); only
+// q, k, v, the per-head attention output and the residual stream pass through
+// it between kernels, once per layer. Rows past B*L (the last block's) are
+// computed on zeros and not stored. Dropped from the TPU kernel: the rank-1
+// matmul that materialises the mask, the per-head weight slicing workaround,
+// the row padding to 8.
+//
+// The rows kernel has two routes (encoder_stack_route):
+//   - bf16 at dk = 64 and widths that are multiples of 64 (every
+//     configuration in the repository): encoder_rows_tc_kernel, 64 rows a
+//     block, every product on the tensor cores (rows_core.cuh::mma_pass:
+//     mma.sync with weight K-tiles copied by cp.async three deep, the
+//     products of a launch one stream of tiles, the first ones loading with
+//     the block's rows). x and the A operand are bf16 in shared memory (205
+//     KB a block with the hidden chunk and the weight tiles at d = 384), one
+//     block per SM, 800 blocks at B*L = 51,200; q, k and v leave through
+//     shared memory as 16-byte stores. The out-projection is one
+//     [64, H*dk] @ [H*dk, d] product, so its sum over heads is one float32
+//     sum, rounded once; the FFN's sum over dff chunks stays in registers.
+//     What holds it back on the H100: each block streams a layer's 2.75 MB
+//     of weights from L2 (8.8 GB a call), and the copies and the mma.sync
+//     products each take a large part of the time and overlap only in part
+//     (development runs without the one or the other); the rows, q, k, v
+//     and head outputs that pass through device memory between the kernels
+//     (about 235 MB a launch) come on top, and 800 blocks make 7 waves of
+//     132 for 6.06 waves of work.
+//   - float32, and bf16 at other widths: encoder_rows_kernel<T>, 32 rows a
+//     block on the CUDA cores: each thread builds an 8 x 4 register tile from
+//     float4 reads of its A rows in shared memory and 4-wide weight loads from
+//     L2. float32 must not drop to TF32.
 //
 // Rounding points are the reference's: every value is held as float32 and, in
 // bf16 mode, rounded where the reference rounds: the RMSNorm output before and
@@ -43,6 +66,7 @@
 // x * (1 / sqrt(mean(x^2) + eps)) with correctly rounded sqrt and division.
 
 #include "attention_core.cuh"
+#include "rows_core.cuh"
 
 namespace {
 
@@ -114,29 +138,6 @@ __device__ __forceinline__ void tile_gemm(const float* __restrict__ A, int lda, 
   }
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// dst = rnd(rnd(x * (1 / sqrt(mean(x^2) + eps))) * w) over TM rows; with
-// final_out, dst is global float32 and the outer rounding is left out.
-template <typename T>
-__device__ void rmsnorm(const float* x, const float* __restrict__ w, float* dst, int d, float eps,
-                        bool final_out, int valid_rows) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  for (int i = warp; i < TM; i += nwarps) {
-    if (final_out && i >= valid_rows) continue;
-    float ss = 0.f;
-    for (int c = lane; c < d; c += 32) ss = fmaf(x[i * d + c], x[i * d + c], ss);
-    const float rs = 1.0f / sqrtf(warp_sum(ss) / d + eps);
-    for (int c = lane; c < d; c += 32) {
-      const float v = Num<T>::rnd(x[i * d + c] * rs) * __ldg(w + c);
-      dst[(size_t)i * d + c] = final_out ? v : Num<T>::rnd(v);
-    }
-  }
-}
-
 // layer = -1: x <- x_in; q/k/v of layer 0.
 // layer >= 0: x <- (layer == 0 ? x_in : xs); attention out-projection and
 // residual; FFN and residual; then q/k/v of layer + 1 with x -> xs, or after
@@ -191,7 +192,7 @@ __global__ void __launch_bounds__(RTHREADS) encoder_rows_kernel(Params<T> p, int
     __syncthreads();
 
     // FFN: x = rnd(x + rnd(relu(rnd(xn @ wi)) @ wo2)), dff in chunks
-    rmsnorm<T>(x, p.ln_f + (size_t)layer * d, a, d, p.eps, false, TM);
+    rows::rmsnorm_f32<T>(x, p.ln_f + (size_t)layer * d, a, TM, d, p.eps, false);
     for (int i = tid; i < TM * d; i += nt) acc[i] = 0.f;
     __syncthreads();
     for (int c0 = 0; c0 < dff; c0 += FCHUNK) {
@@ -217,7 +218,7 @@ __global__ void __launch_bounds__(RTHREADS) encoder_rows_kernel(Params<T> p, int
 
   const int next = layer + 1;
   if (next >= p.NL) {
-    rmsnorm<T>(x, p.ln_final, p.out + (size_t)row0 * d, d, p.eps, true, valid);
+    rows::rmsnorm_f32<T>(x, p.ln_final, p.out + (size_t)row0 * d, valid, d, p.eps, true);
     return;
   }
   if (layer >= 0) {
@@ -227,7 +228,7 @@ __global__ void __launch_bounds__(RTHREADS) encoder_rows_kernel(Params<T> p, int
         Num<T>::store4(p.xs + (size_t)(row0 + r) * d + c, *reinterpret_cast<const float4*>(x + r * d + c));
     }
   }
-  rmsnorm<T>(x, p.ln_s + (size_t)next * d, a, d, p.eps, false, TM);
+  rows::rmsnorm_f32<T>(x, p.ln_s + (size_t)next * d, a, TM, d, p.eps, false);
   __syncthreads();
   // q, k, v of the next layer: 3 * H products [TM, d] @ [d, dk], each rounded
   // and written to [B, H, L, dk]
@@ -242,6 +243,188 @@ __global__ void __launch_bounds__(RTHREADS) encoder_rows_kernel(Params<T> p, int
                  Num<T>::store4(dst[mat / H] + ((b * H + mat % H) * L + l) * dk + n0,
                                 make_float4(v[0], v[1], v[2], v[3]));
                });
+}
+
+// ---- bf16 on the tensor cores ----
+
+using bf16 = __nv_bfloat16;
+
+constexpr int TC_TM = 64;       // rows of [B*L, d] per block: 2 m16 tiles per warp
+constexpr int TC_STAGES = 3;    // weight K-tiles in flight
+constexpr int TC_FC = 256;      // FFN hidden columns per chunk
+constexpr int TC_WI_BN = 128;   // wi output columns per pass (the FFN's sum over chunks holds 96 registers)
+
+// The rows kernel's route; ops/cuda/encoder_stack.py::encoder_stack_route
+// mirrors it. bf16 at dk = 64, d and H*dk multiples of 64 up to MAX_BN (one
+// output pass), dff a multiple of 64.
+__host__ __device__ inline bool tensor_core_route(bool is_bf16, int d, int dk, int inner, int dff) {
+  return is_bf16 && dk == 64 && d >= 64 && d % 64 == 0 && d <= rows::MAX_BN && inner >= 64 && inner % 64 == 0 &&
+         inner <= rows::MAX_BN && dff >= 64 && dff % 64 == 0;
+}
+
+// bf16 offsets of the tensor-core rows kernel's shared regions
+struct TcLayout {
+  int ldx, lda, ldh;        // row strides of x, the A operand and the FFN hidden chunk
+  int x, a, hid, w, rowoff;  // x and A [TC_TM, max(d, inner)], hidden [TC_TM, TC_FC], weight tiles,
+                             // and each row's offset in [B, H, L, 64] (TC_TM long longs)
+  int total;
+};
+
+__host__ __device__ inline TcLayout tc_layout(int d, int inner) {
+  TcLayout S;
+  S.ldx = rows::row_ld(d > inner ? d : inner);  // x, and last the q, k, v rows on their way out
+  S.lda = S.ldx;
+  S.ldh = rows::row_ld(TC_FC);
+  S.x = 0;
+  S.a = S.x + TC_TM * S.ldx;
+  S.hid = S.a + TC_TM * S.lda;
+  S.w = S.hid + TC_TM * S.ldh;
+  S.rowoff = S.w + TC_STAGES * rows::W_TILE;
+  S.total = S.rowoff + TC_TM * 4;
+  return S;
+}
+
+// The same chain as encoder_rows_kernel, for 64 rows, every product on the
+// tensor cores and every row in shared memory as bf16 (in bf16 mode each is a
+// bf16 value: the residual stream after every add, the normalised rows, the
+// heads' outputs, the ReLU'd hidden). Its products are one stream of weight
+// K-tiles (rows_core.cuh::Pipe): wo, then wi and wo2 chunk by chunk, then
+// the next layer's wq, wk, wv.
+__global__ void __launch_bounds__(rows::THREADS, 1) encoder_rows_tc_kernel(Params<bf16> p, int layer) {
+  using rows::Weights;
+  extern __shared__ float4 tc_smem4[];
+  bf16* sm = reinterpret_cast<bf16*>(tc_smem4);
+  const int d = p.d, H = p.H, dff = p.dff, L = p.L;
+  const int inner = H * 64;
+  const TcLayout S = tc_layout(d, inner);
+  bf16 *x = sm + S.x, *a = sm + S.a, *hid = sm + S.hid;
+  long long* rowoff = reinterpret_cast<long long*>(sm + S.rowoff);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const long long n_rows = (long long)p.B * L;
+  const long long row0 = (long long)blockIdx.x * TC_TM;
+  const int valid = n_rows - row0 < TC_TM ? (int)(n_rows - row0) : TC_TM;
+  const size_t head_step = (size_t)L * 64;  // from head h to h + 1 in [B, H, L, 64]
+  rows::Pipe pipe{sm + S.w, 0, false};
+
+  // each row's offset in [B, H, L, 64] at head 0
+  if (tid < TC_TM) {
+    const long long g = row0 + tid;
+    rowoff[tid] = tid < valid ? ((g / L) * H * L + g % L) * 64 : 0;
+  }
+  __syncthreads();
+  const int next = layer + 1;
+  const bool more = next < p.NL;  // the next layer's q, k, v follow
+  const size_t wofs = (size_t)(more ? next : 0) * H * d * 64;
+  const Weights wqkv[3] = {rows::per_head(p.wq + wofs, d, inner), rows::per_head(p.wk + wofs, d, inner),
+                           rows::per_head(p.wv + wofs, d, inner)};
+  const Weights wo = rows::row_major(p.wo + (size_t)(layer >= 0 ? layer : 0) * inner * d, d, inner, d);
+
+  // x <- x_in or xs; with layer >= 0 also A <- the heads' outputs of these
+  // rows, concatenated: a[r, h*64 + c]. Zeros past B*L. The first product's
+  // weight tiles load meanwhile.
+  const bf16* src = layer <= 0 ? p.x_in : p.xs;
+  const int xc = d / 8;
+  for (int i = tid; i < TC_TM * xc; i += nt) {
+    const int r = i / xc, c = (i - r * xc) * 8;
+    const bool ok = r < valid;
+    attn::cp_async16(x + r * S.ldx + c, src + (ok ? (size_t)(row0 + r) * d + c : 0), ok);
+  }
+  if (layer >= 0) {
+    for (int i = tid; i < TC_TM * (inner / 8); i += nt) {
+      const int r = i / (inner / 8), col = (i - r * (inner / 8)) * 8;
+      const bool ok = r < valid;
+      attn::cp_async16(a + r * S.lda + col, p.oh + (ok ? rowoff[r] + (col >> 6) * head_step + (col & 63) : 0), ok);
+    }
+  }
+  attn::cp_async_commit();
+  rows::prime<TC_STAGES>(pipe, layer >= 0 ? wo : wqkv[0]);
+  attn::cp_async_wait<TC_STAGES - 1>();  // the rows have landed (the weight tiles may not have)
+  __syncthreads();
+
+  if (layer >= 0) {
+    const size_t wl = (size_t)layer;
+    const bf16 *wi = p.wi + wl * d * dff, *wo2 = p.wo2 + wl * dff * d;
+    // the wi product of chunk c0's columns n0 ..
+    const auto wi_part = [&](int c0, int n0) {
+      const int nc = dff - c0 < TC_FC ? dff - c0 : TC_FC;
+      return rows::row_major(wi + c0 + n0, dff, d, nc - n0 < TC_WI_BN ? nc - n0 : TC_WI_BN);
+    };
+    const auto residual = [&](int r, int c, float v0, float v1) { rows::residual_pair(x + r * S.ldx + c, v0, v1); };
+    {
+      // x = rnd(x + rnd(concat_h(oh_h) @ wo)): one float32 sum over all heads
+      float acc[2][12][4];
+      rows::zero(acc);
+      const Weights first = wi_part(0, 0);
+      rows::mma_pass<2, 12, TC_STAGES>(acc, a, S.lda, wo, &first, pipe);
+      rows::for_each_pair(acc, d, residual);
+    }
+    __syncthreads();
+
+    // FFN: x = rnd(x + rnd(relu(rnd(xn @ wi)) @ wo2)), dff in chunks, one sum
+    rows::rmsnorm_bf16<false>(x, S.ldx, p.ln_f + wl * d, a, S.lda, TC_TM, d, p.eps);
+    __syncthreads();
+    float acc2[2][12][4];
+    rows::zero(acc2);
+    for (int c0 = 0; c0 < dff; c0 += TC_FC) {
+      const int nc = dff - c0 < TC_FC ? dff - c0 : TC_FC;
+      const Weights w2 = rows::row_major(wo2 + (size_t)c0 * d, d, nc, d);
+      for (int n0 = 0; n0 < nc; n0 += TC_WI_BN) {
+        const Weights w1 = wi_part(c0, n0), after = n0 + TC_WI_BN < nc ? wi_part(c0, n0 + TC_WI_BN) : w2;
+        float acc1[2][4][4];
+        rows::zero(acc1);
+        rows::mma_pass<2, 4, TC_STAGES>(acc1, a, S.lda, w1, &after, pipe);
+        rows::for_each_pair(acc1, w1.bn, [&](int r, int c, float v0, float v1) {
+          rows::store_pair(hid + r * S.ldh + n0 + c, fmaxf(Num<bf16>::rnd(v0), 0.f), fmaxf(Num<bf16>::rnd(v1), 0.f));
+        });
+      }
+      __syncthreads();
+      const bool last = c0 + TC_FC >= dff;
+      const Weights after = last ? wqkv[0] : wi_part(c0 + TC_FC, 0);
+      rows::mma_pass<2, 12, TC_STAGES>(acc2, hid, S.ldh, w2, last && !more ? nullptr : &after, pipe);
+    }
+    rows::for_each_pair(acc2, d, residual);
+    __syncthreads();
+  }
+
+  if (!more) {
+    rows::rmsnorm_bf16<true>(x, S.ldx, p.ln_final, p.out + (size_t)row0 * d, 0, valid, d, p.eps);
+    return;
+  }
+  if (layer >= 0) {
+    for (int i = tid; i < valid * xc; i += nt) {
+      const int r = i / xc, c = (i - r * xc) * 8;
+      *reinterpret_cast<uint4*>(p.xs + (size_t)(row0 + r) * d + c) =
+          *reinterpret_cast<const uint4*>(x + r * S.ldx + c);
+    }
+  }
+  rows::rmsnorm_bf16<false>(x, S.ldx, p.ln_s + (size_t)next * d, a, S.lda, TC_TM, d, p.eps);
+  __syncthreads();
+  // q, k, v of the next layer: [TC_TM, d] @ [d, H*64] each (head h's columns
+  // are wq[next, h]), rounded once, gathered in x (dead now: it is in xs and,
+  // normalised, in A) and written to [B, H, L, 64] 16 bytes at a time
+  bf16* const dst[3] = {p.q, p.k, p.v};
+#pragma unroll 1
+  for (int m = 0; m < 3; ++m) {
+    float acc[2][12][4];
+    rows::zero(acc);
+    rows::mma_pass<2, 12, TC_STAGES>(acc, a, S.lda, wqkv[m], m < 2 ? &wqkv[m + 1] : nullptr, pipe);
+    rows::for_each_pair(acc, inner, [&](int r, int c, float v0, float v1) {
+      rows::store_pair(x + r * S.ldx + c, v0, v1);
+    });
+    __syncthreads();
+    bf16* out = dst[m];
+    for (int i = tid; i < valid * (inner / 8); i += nt) {
+      const int r = i / (inner / 8), col = (i - r * (inner / 8)) * 8;
+      *reinterpret_cast<uint4*>(out + rowoff[r] + (col >> 6) * head_step + (col & 63)) =
+          *reinterpret_cast<const uint4*>(x + r * S.ldx + col);
+    }
+  }
+}
+
+// the tensor-core rows kernel takes bf16 only (tensor_core_route)
+inline void launch_rows_tc(const Params<float>&, unsigned, size_t, cudaStream_t, int) {}
+inline void launch_rows_tc(const Params<bf16>& p, unsigned blocks, size_t smem, cudaStream_t stream, int layer) {
+  encoder_rows_tc_kernel<<<blocks, rows::THREADS, smem, stream>>>(p, layer);
 }
 
 template <typename T>
@@ -279,18 +462,26 @@ int launch(void* const* ptrs, const int* dims, float eps, cudaStream_t stream) {
   ap.causal = 0;
   ap.dropout = 0; ap.seed_mix = 0; ap.keep_thresh = 0; ap.keep_scale = 1.f;
 
-  const size_t smem = (size_t)rows_smem_floats(p.d, p.H * p.dk) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(encoder_rows_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long blocks = ((long long)p.B * p.L + TM - 1) / TM;
+  const bool tc = tensor_core_route(std::is_same<T, bf16>::value, p.d, p.dk, p.H * p.dk, p.dff);
+  const int tm = tc ? TC_TM : TM;
+  const size_t smem = tc ? (size_t)tc_layout(p.d, p.H * p.dk).total * sizeof(bf16)
+                         : (size_t)rows_smem_floats(p.d, p.H * p.dk) * sizeof(float);
+  const long long blocks = ((long long)p.B * p.L + tm - 1) / tm;
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  cudaError_t err = tc ? cudaFuncSetAttribute(encoder_rows_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                              (int)smem)
+                       : cudaFuncSetAttribute(encoder_rows_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                              (int)smem);
+  if (err != cudaSuccess) return (int)err;
   for (int layer = -1; layer < p.NL; ++layer) {
     if (layer >= 0) {
       err = attn::launch_attention<T>(ap, stream);
       if (err != cudaSuccess) return (int)err;
     }
-    encoder_rows_kernel<T><<<(unsigned)blocks, RTHREADS, smem, stream>>>(p, layer);
+    if (tc)
+      launch_rows_tc(p, (unsigned)blocks, smem, stream, layer);
+    else
+      encoder_rows_kernel<T><<<(unsigned)blocks, RTHREADS, smem, stream>>>(p, layer);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -303,10 +494,17 @@ extern "C" {
 
 const char* kernel_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-// Shared memory a block of the rows kernel needs; the host wrapper refuses
-// widths above the card's 227 KB per block.
-int encoder_stack_smem_bytes(int d, int inner) {
-  return rows_smem_floats(d, inner) * (int)sizeof(float);
+// The rows kernel's route: 1 = tensor cores (bf16 at widths that are
+// multiples of 64), 0 = CUDA cores.
+int encoder_stack_route(int is_bf16, int d, int dk, int inner, int dff) {
+  return tensor_core_route(is_bf16 != 0, d, dk, inner, dff) ? 1 : 0;
+}
+
+// Shared memory a block of the rows kernel needs on its route; the host
+// wrapper refuses widths above the card's 227 KB per block.
+int encoder_stack_smem_bytes(int is_bf16, int d, int dk, int inner, int dff) {
+  return tensor_core_route(is_bf16 != 0, d, dk, inner, dff) ? tc_layout(d, inner).total * (int)sizeof(bf16)
+                                                            : rows_smem_floats(d, inner) * (int)sizeof(float);
 }
 
 // ptrs: x, wq, wk, wv, wo, wi, wo2, ln_s, ln_f, ln_final, bias [H, L, L],

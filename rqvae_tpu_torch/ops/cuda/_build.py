@@ -67,11 +67,17 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
+def _log_path(lib: Path) -> Path:
+    """The compiler log kept beside a built library (ptxas register, spill
+    and shared-memory use of every kernel in it)."""
+    return lib.with_suffix(".log")
+
+
 def _start_build(name: str):
     """Start nvcc for one source; returns (process, tmp path, final path),
-    or None when the library is already built."""
+    or None when the library and its compiler log are already built."""
     out = _lib_path(name)
-    if out.exists():
+    if out.exists() and _log_path(out).exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -85,16 +91,21 @@ def _finish_build(name: str, job) -> str:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    log_tmp = _log_path(tmp)
+    log_tmp.write_text(log)
+    os.replace(log_tmp, _log_path(out))  # the log first: a library on disk always has its log
     os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
     return log
 
 
 def build_all() -> Dict[str, str]:
     """Build every kernel library, one nvcc per source, all at once.
-    Returns each source's compiler log (ptxas register/shared-memory use);
-    empty for a library that was already built."""
+    Returns each source's compiler log (ptxas register, spill and
+    shared-memory use), read back from beside the library when it was
+    already built."""
     jobs = {name: _start_build(name) for name in SOURCES}
-    return {name: _finish_build(name, job) if job else "" for name, job in jobs.items()}
+    return {name: _finish_build(name, job) if job else _log_path(_lib_path(name)).read_text()
+            for name, job in jobs.items()}
 
 
 def load_library(name: str, functions: Dict[str, List]) -> ctypes.CDLL:
@@ -114,6 +125,13 @@ def load_library(name: str, functions: Dict[str, List]) -> ctypes.CDLL:
         lib.kernel_error_string.restype = ctypes.c_char_p
         _loaded[name] = lib
     return lib
+
+
+def aligned16(t):
+    """t, or a copy of it in a fresh allocation when its data does not start
+    on a 16-byte boundary (a view at an odd offset): the kernels read their
+    operands 16 bytes at a time."""
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 def check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:

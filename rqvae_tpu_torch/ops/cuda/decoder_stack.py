@@ -5,7 +5,13 @@ Port of rqvae_tpu/ops/pallas/decoder_stack.py. One launch of
 csrc/decoder_stack.cu runs every decoder layer for one decode level.
 `t5_decoder_stack_infer` launches it for CUDA tensors and runs
 `t5_decoder_stack_plain` (the same arithmetic and rounding points in torch)
-for CPU tensors.
+for CPU tensors. The kernel has two routes (`decoder_stack_route`, the C
+library's `decoder_stack_route` makes the same choice): "tensor_cores"
+(bf16 at dk = 64, kT <= 32, Le <= 128 and widths that are multiples of 128,
+the published configurations: every product on mma.sync, on a cluster of
+two blocks per batch row) and "cuda_cores" (float32, and bf16 at other
+widths). The C library's `decoder_stack_smem_bytes` gives the shared memory
+a block of either route asks for.
 
 Shapes (cdt = compute dtype, float32 or bfloat16):
   x         [B, kT, d]         cdt  beam-folded input embeddings (kT = beams*T)
@@ -29,15 +35,30 @@ import ctypes
 
 import torch
 
-from rqvae_tpu_torch.ops.cuda._build import check_launch, load_library
+from rqvae_tpu_torch.ops.cuda._build import aligned16, check_launch, load_library
+from rqvae_tpu_torch.ops.cuda.rows_core import tensor_core_widths
 
 _C = ctypes.c_void_p
 _FUNCTIONS = {
     "decoder_stack_forward": [ctypes.c_int, ctypes.POINTER(_C), ctypes.POINTER(ctypes.c_int),
                               ctypes.c_float, _C],
-    "decoder_stack_smem_bytes": [ctypes.c_int] * 4,
+    "decoder_stack_route": [ctypes.c_int] * 7,
+    "decoder_stack_smem_bytes": [ctypes.c_int] * 7,
 }
 MAX_SMEM_BYTES = 232448  # 227 KB: the most one block may opt in to on Hopper
+TC_DK, TC_MAX_KT, TC_MAX_LE = 64, 32, 128  # the tensor-core route's head width, rows and keys
+
+
+def decoder_stack_route(kT: int, d: int, dk: int, inner: int, dff: int, Le: int, dtype: torch.dtype) -> str:
+    """The kernel route CUDA tensors of these widths launch: "tensor_cores"
+    (bf16 at dk = 64, 1 <= kT <= 32, 1 <= Le <= 128, d and inner = H*dk
+    multiples of 128 up to 384, dff a multiple of 128: every product halves
+    into 64-column blocks, one for each block of a batch row's pair) or
+    "cuda_cores"."""
+    if (dtype == torch.bfloat16 and dk == TC_DK and 1 <= kT <= TC_MAX_KT and 1 <= Le <= TC_MAX_LE
+            and tensor_core_widths(128, d, inner, dff)):
+        return "tensor_cores"
+    return "cuda_cores"
 
 
 def _rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float, cdt: torch.dtype) -> torch.Tensor:
@@ -112,6 +133,23 @@ def _check(x, wq, wk, wv, wo, cq, co, wi, wo2, ln_s, ln_c, ln_f, ln_final,
     return B, kT, d, NL, H, dk, dff, Le
 
 
+def _check_cuda(*args):
+    """What the kernel takes, checked before the library is loaded: shapes,
+    dtype, one device, contiguous tensors, widths the kernels read 4 at a
+    time. The shared memory of the shape's route is checked against the
+    library before launch."""
+    x = args[0]
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"decoder_stack computes in float32 or bfloat16, got {x.dtype}")
+    B, kT, d, NL, H, dk, dff, Le = _check(*args)
+    for t in args:
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError("decoder_stack takes contiguous tensors on one device")
+    if d % 4 or dk % 4 or dff % 4:
+        raise ValueError(f"decoder_stack needs d, dk, dff multiples of 4, got {d}, {dk}, {dff}")
+    return B, kT, d, NL, H, dk, dff, Le
+
+
 def t5_decoder_stack_infer(
     x, wq, wk, wv, wo, cq, co, wi, wo2, ln_s, ln_c, ln_f, ln_final,
     bias_fold, kc, vc, mask, *, eps: float,
@@ -125,27 +163,23 @@ def t5_decoder_stack_infer(
         return t5_decoder_stack_plain(*args, eps=eps)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"decoder_stack computes in float32 or bfloat16, got {x.dtype}")
-    B, kT, d, NL, H, dk, dff, Le = _check(*args)
-    for t in args:
-        if t.device != x.device or not t.is_contiguous():
-            raise ValueError("decoder_stack takes contiguous tensors on one CUDA device")
-    if d % 4 or dk % 4 or dff % 4:
-        raise ValueError(f"decoder_stack needs d, dk, dff multiples of 4, got {d}, {dk}, {dff}")
-    lib = load_library("decoder_stack", _FUNCTIONS)
-    smem = lib.decoder_stack_smem_bytes(kT, d, dk, Le)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"decoder_stack needs {smem} B of shared memory at kT={kT}, d={d}, "
-                         f"Le={Le}, over the {MAX_SMEM_BYTES} B a block may use")
+    B, kT, d, NL, H, dk, dff, Le = _check_cuda(*args)
     out = torch.empty((B, kT, d), dtype=torch.float32, device=x.device)
     if B == 0 or kT == 0:
         return out
+    lib = load_library("decoder_stack", _FUNCTIONS)
+    bf16 = int(x.dtype == torch.bfloat16)
+    smem = lib.decoder_stack_smem_bytes(bf16, kT, d, dk, H * dk, dff, Le)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"decoder_stack needs {smem} B of shared memory at kT={kT}, d={d}, Le={Le} on the "
+                         f"{decoder_stack_route(kT, d, dk, H * dk, dff, Le, x.dtype)} route, over the "
+                         f"{MAX_SMEM_BYTES} B a block may use")
+    args = tuple(aligned16(t) for t in args)  # held until the launch is queued on the stream
     ptrs = (_C * 18)(*[t.data_ptr() for t in args], out.data_ptr())
     dims = (ctypes.c_int * 8)(B, kT, d, NL, H, dk, dff, Le)
     with torch.cuda.device(x.device):  # the kernel launches on the current device
         rc = lib.decoder_stack_forward(
-            int(x.dtype == torch.bfloat16), ptrs, dims, float(eps),
+            bf16, ptrs, dims, float(eps),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     t5_decoder_stack_infer.launches += 1

@@ -8,6 +8,12 @@ launches on one stream (row-tile kernels and the attention core of
 csrc/attention_core.cuh), with the scores, probabilities and FFN hidden
 never written to device memory. CUDA tensors launch it; CPU tensors run
 `t5_encoder_stack_plain` (the same arithmetic and rounding points in torch).
+The row-tile kernel has two routes (`encoder_stack_route`; the C library's
+`encoder_stack_route` makes the same choice): "tensor_cores" (bf16 at
+dk = 64, d, H*dk and dff multiples of 64, d and H*dk up to 384: every
+product on mma.sync) and "cuda_cores" (float32, and bf16 at other widths).
+The C library's `encoder_stack_smem_bytes` gives the shared memory a rows
+block of either route asks for.
 
 Shapes (cdt = compute dtype, float32 or bfloat16):
   x         [B, L, d]       cdt  encoder input embeddings (any L, no padding)
@@ -28,16 +34,28 @@ import ctypes
 
 import torch
 
-from rqvae_tpu_torch.ops.cuda._build import check_launch, load_library
+from rqvae_tpu_torch.ops.cuda._build import aligned16, check_launch, load_library
 from rqvae_tpu_torch.ops.cuda.attention import MAX_DK
 from rqvae_tpu_torch.ops.cuda.decoder_stack import MAX_SMEM_BYTES, _rmsnorm
+from rqvae_tpu_torch.ops.cuda.rows_core import tensor_core_widths
 
 _C = ctypes.c_void_p
 _FUNCTIONS = {
     "encoder_stack_forward": [ctypes.c_int, ctypes.POINTER(_C), ctypes.POINTER(ctypes.c_int),
                               ctypes.c_float, _C],
-    "encoder_stack_smem_bytes": [ctypes.c_int] * 2,
+    "encoder_stack_route": [ctypes.c_int] * 5,
+    "encoder_stack_smem_bytes": [ctypes.c_int] * 5,
 }
+
+
+def encoder_stack_route(d: int, dk: int, inner: int, dff: int, dtype: torch.dtype) -> str:
+    """The rows kernel's route for CUDA tensors of these widths:
+    "tensor_cores" (bf16 at dk = 64, d and inner = H*dk multiples of 64 up
+    to 384, dff a multiple of 64) or "cuda_cores". The attention between the
+    rows kernels takes its own route (attention_route)."""
+    if dtype == torch.bfloat16 and dk == 64 and tensor_core_widths(64, d, inner, dff):
+        return "tensor_cores"
+    return "cuda_cores"
 
 
 def t5_encoder_stack_plain(
@@ -94,6 +112,24 @@ def _check(x, wq, wk, wv, wo, wi, wo2, ln_s, ln_f, ln_final, bias, mask):
     return B, L, d, NL, H, dk, dff
 
 
+def _check_cuda(*args):
+    """What the kernels take, checked before the library is loaded: shapes,
+    dtype, one device, contiguous tensors, widths the kernels read 4 at a
+    time. The shared memory of the rows kernel's route is checked against
+    the library before launch."""
+    x = args[0]
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"encoder_stack computes in float32 or bfloat16, got {x.dtype}")
+    B, L, d, NL, H, dk, dff = _check(*args)
+    if d % 4 or dff % 4 or dk % 4 or not 4 <= dk <= MAX_DK:
+        raise ValueError(f"encoder_stack needs d, dff multiples of 4 and dk a multiple of 4 in "
+                         f"4..{MAX_DK}, got {d}, {dff}, {dk}")
+    for t in args:
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError("encoder_stack takes contiguous tensors on one device")
+    return B, L, d, NL, H, dk, dff
+
+
 def t5_encoder_stack_infer(
     x, wq, wk, wv, wo, wi, wo2, ln_s, ln_f, ln_final, bias, mask, *, eps: float,
 ) -> torch.Tensor:
@@ -106,35 +142,29 @@ def t5_encoder_stack_infer(
         return t5_encoder_stack_plain(*args, eps=eps)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"encoder_stack computes in float32 or bfloat16, got {x.dtype}")
-    B, L, d, NL, H, dk, dff = _check(*args)
-    if d % 4 or dff % 4 or dk % 4 or not 4 <= dk <= MAX_DK:
-        raise ValueError(f"encoder_stack needs d, dff multiples of 4 and dk a multiple of 4 in "
-                         f"4..{MAX_DK}, got {d}, {dff}, {dk}")
+    B, L, d, NL, H, dk, dff = _check_cuda(*args)
     out = torch.empty((B, L, d), dtype=torch.float32, device=x.device)
     if B == 0 or L == 0:
         return out
     if NL == 0:
         raise ValueError("encoder_stack needs at least one layer")
+    lib = load_library("encoder_stack", _FUNCTIONS)
+    bf16 = int(x.dtype == torch.bfloat16)
+    smem = lib.encoder_stack_smem_bytes(bf16, d, dk, H * dk, dff)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"encoder_stack needs {smem} B of shared memory at d={d}, H*dk={H * dk} on the "
+                         f"{encoder_stack_route(d, dk, H * dk, dff, x.dtype)} route, over the "
+                         f"{MAX_SMEM_BYTES} B a block may use")
     # scratch between the kernels of the sequence: the residual stream, q, k, v
     # and the per-head attention output, at the compute dtype
     xs = torch.empty((B, L, d), dtype=x.dtype, device=x.device)
     q, k, v, oh = (torch.empty((B, H, L, dk), dtype=x.dtype, device=x.device) for _ in range(4))
-    tensors = (*args, out, xs, q, k, v, oh)
-    for t in tensors:
-        if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("encoder_stack takes contiguous, 16-byte aligned tensors on one CUDA device")
-    lib = load_library("encoder_stack", _FUNCTIONS)
-    smem = lib.encoder_stack_smem_bytes(d, H * dk)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"encoder_stack needs {smem} B of shared memory at d={d}, H*dk={H * dk}, "
-                         f"over the {MAX_SMEM_BYTES} B a block may use")
+    tensors = (*(aligned16(t) for t in args), out, xs, q, k, v, oh)  # held until the launches are queued
     ptrs = (_C * 18)(*[t.data_ptr() for t in tensors])
     dims = (ctypes.c_int * 7)(B, L, d, NL, H, dk, dff)
     with torch.cuda.device(x.device):  # the kernels launch on the current device
         rc = lib.encoder_stack_forward(
-            int(x.dtype == torch.bfloat16), ptrs, dims, float(eps),
+            bf16, ptrs, dims, float(eps),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     t5_encoder_stack_infer.launches += 1

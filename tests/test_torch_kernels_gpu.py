@@ -14,7 +14,15 @@ attention backward, against its plain version: dq, dk, dv and dbias within
 800 terms taken in another order) and within 2^-7 of it in bf16 (one bf16 step
 of the largest output: a sum that lands across a rounding boundary), dbias
 within 1e-4 of its largest entry in bf16 (it is summed in f32 from ds whose p
-differs in the 7th digit), two launches bit-equal.
+differs in the 7th digit), two launches bit-equal. The stack kernels take the
+same tolerances on both routes (bf16 at widths that are multiples of 64 for
+the encoder's rows and of 128 for the decoder, whose tensor-core kernel runs a
+cluster of two blocks per batch row: the tensor cores; float32 and other
+widths: the CUDA cores), give the same bits on two launches, and the C
+libraries' routes are the Python mirrors' own. The libraries compute the
+shared memory of each route: every tensor-core shape fits a block, and the
+wrappers refuse a shape that fits neither route. An operand that does not
+start on a 16-byte boundary is launched from a copy and gives the same bits.
 """
 
 import numpy as np
@@ -40,6 +48,7 @@ ML32M_VAE = dict(input_dim=788, embed_dim=64, hidden_dims=(512, 256, 128), codeb
 ODD_VAE = dict(input_dim=40, embed_dim=8, hidden_dims=(24,), codebook_size=16, n_layers=2)  # 2 products
 SMALL_T5 = dict(d_model=32, d_kv=8, num_heads=4, d_ff=64, num_layers=2)
 AMAZON_T5 = dict(d_model=384, d_kv=64, num_heads=6, d_ff=1024, num_layers=4)
+SYNTHETIC_T5 = dict(d_model=64, d_kv=64, num_heads=4, d_ff=128, num_layers=2)  # configs/decoder_synthetic.gin
 
 
 @pytest.fixture
@@ -115,7 +124,10 @@ def _decoder_operands(t5_fields, dtype, beams, T, B, Le, device, seed=0):
 @pytest.mark.parametrize(
     "t5_fields,beams,T,B,Le",
     [(SMALL_T5, 3, 2, 5, 7), (SMALL_T5, 1, 1, 3, 4), (AMAZON_T5, 1, 1, 64, 80),
-     (AMAZON_T5, 10, 2, 64, 80), (AMAZON_T5, 10, 3, 64, 80)],
+     (AMAZON_T5, 10, 2, 64, 80), (AMAZON_T5, 10, 3, 64, 80),
+     # the bf16 tensor-core route's edges: odd B, kT = 32 and 17, Le = 128 and 33, narrow widths
+     (AMAZON_T5, 10, 3, 7, 80), (AMAZON_T5, 4, 8, 3, 33), (AMAZON_T5, 1, 17, 2, 128), (AMAZON_T5, 1, 1, 5, 1),
+     (SYNTHETIC_T5, 3, 2, 4, 12)],
 )
 def test_decoder_stack_kernel_matches_plain(cuda, dtype, tol, t5_fields, beams, T, B, Le):
     ops, eps = _decoder_operands(t5_fields, dtype, beams, T, B, Le, cuda)
@@ -392,7 +404,10 @@ def _encoder_operands(t5_fields, dtype, B, L, device, seed=0):
 
 @pytest.mark.parametrize("dtype,tol,mean_tol", [("float32", 1e-3, 1e-5), ("bfloat16", 1.5e-1, 4e-3)])
 @pytest.mark.parametrize("t5_fields,B,L", [(SMALL_T5, 3, 11), (SMALL_T5, 5, 70), (AMAZON_T5, 2, 513),
-                                           (AMAZON_T5, 64, 800)])
+                                           (AMAZON_T5, 64, 800),
+                                           # bf16 tensor-core rows at ragged row counts (B*L not a
+                                           # multiple of 64), short rows, narrow widths
+                                           (AMAZON_T5, 3, 517), (AMAZON_T5, 5, 67), (SYNTHETIC_T5, 3, 45)])
 def test_encoder_stack_kernel_matches_plain(cuda, dtype, tol, mean_tol, t5_fields, B, L):
     ops, eps = _encoder_operands(t5_fields, dtype, B, L, cuda)
     before = t5_encoder_stack_infer.launches
@@ -403,6 +418,124 @@ def test_encoder_stack_kernel_matches_plain(cuda, dtype, tol, mean_tol, t5_field
     assert got.dtype == torch.float32 and torch.isfinite(got).all()
     err = (got - want).abs()
     assert err.max().item() <= tol and err.mean().item() <= mean_tol
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_stack_kernels_repeat_bit_equal(cuda, dtype):
+    """Two launches on the same inputs give the same bits (no float atomics),
+    on both routes of both stack kernels."""
+    ops, eps = _encoder_operands(AMAZON_T5, dtype, 3, 517, cuda)
+    first = t5_encoder_stack_infer(*ops, eps=eps)
+    assert torch.equal(first, t5_encoder_stack_infer(*ops, eps=eps))
+    for beams, T in ((1, 1), (10, 2), (10, 3)):
+        ops, eps = _decoder_operands(AMAZON_T5, dtype, beams, T, 64, 80, cuda)
+        first = t5_decoder_stack_infer(*ops, eps=eps)
+        assert torch.equal(first, t5_decoder_stack_infer(*ops, eps=eps))
+
+
+def _stack_libraries():
+    from rqvae_tpu_torch.ops.cuda import decoder_stack as D
+    from rqvae_tpu_torch.ops.cuda import encoder_stack as E
+    from rqvae_tpu_torch.ops.cuda._build import load_library
+
+    return load_library("encoder_stack", E._FUNCTIONS), load_library("decoder_stack", D._FUNCTIONS)
+
+
+def test_stack_routes_match_the_library(cuda):
+    """The Python routes are the C libraries' own."""
+    from rqvae_tpu_torch.ops.cuda import decoder_stack as D
+    from rqvae_tpu_torch.ops.cuda import encoder_stack as E
+
+    enc, dec = _stack_libraries()
+    for dt in (torch.bfloat16, torch.float32):
+        bf = int(dt == torch.bfloat16)
+        for d, dk, inner, dff in ((384, 64, 384, 1024), (64, 64, 256, 128), (32, 8, 32, 64), (384, 32, 384, 1024),
+                                  (448, 64, 448, 1024), (384, 64, 384, 1000), (128, 64, 64, 64),
+                                  (320, 64, 384, 1024), (256, 64, 256, 1088), (128, 64, 128, 128)):
+            want = E.encoder_stack_route(d, dk, inner, dff, dt)
+            assert enc.encoder_stack_route(bf, d, dk, inner, dff) == int(want == "tensor_cores")
+            for kT, Le in ((1, 80), (20, 80), (30, 80), (32, 128), (33, 80), (30, 129), (6, 7)):
+                want = D.decoder_stack_route(kT, d, dk, inner, dff, Le, dt)
+                assert dec.decoder_stack_route(bf, kT, d, dk, inner, dff, Le) == int(want == "tensor_cores")
+
+
+def test_stack_shared_memory_at_the_repo_widths(cuda):
+    """What a block asks for at d = 384, 6 heads of 64, dff = 1024 on each
+    route, and at the synthetic configuration's widths."""
+    from rqvae_tpu_torch.ops.cuda.decoder_stack import MAX_SMEM_BYTES
+
+    enc, dec = _stack_libraries()
+    assert enc.encoder_stack_smem_bytes(1, 384, 64, 384, 1024) == 209_920  # 64 bf16 rows, 3 weight tiles
+    assert enc.encoder_stack_smem_bytes(0, 384, 64, 384, 1024) == 212_992  # 32 float32 rows
+    for kt in (1, 20, 30):  # each block of the pair: half the heads and columns
+        assert dec.decoder_stack_smem_bytes(1, kt, 384, 64, 384, 1024, 80) == 189_952
+    assert dec.decoder_stack_smem_bytes(0, 30, 384, 64, 384, 1024, 80) == MAX_SMEM_BYTES  # split-K room filled
+    assert dec.decoder_stack_smem_bytes(1, 6, 64, 64, 256, 128, 12) <= MAX_SMEM_BYTES  # synthetic: CUDA cores
+
+
+@pytest.mark.parametrize("heads", [1, 2, 4, 6])
+def test_every_tensor_core_stack_shape_fits_a_block(cuda, heads):
+    """The tensor-core routes take only shapes whose shared memory fits: the
+    widest kT, Le and dff chunk at every width they take."""
+    from rqvae_tpu_torch.ops.cuda.decoder_stack import MAX_SMEM_BYTES, decoder_stack_route
+    from rqvae_tpu_torch.ops.cuda.encoder_stack import encoder_stack_route
+
+    enc, dec = _stack_libraries()
+    inner = 64 * heads
+    for d in (64, 128, 192, 256, 320, 384):
+        assert encoder_stack_route(d, 64, inner, 1024, torch.bfloat16) == "tensor_cores"
+        assert enc.encoder_stack_smem_bytes(1, d, 64, inner, 1024) <= MAX_SMEM_BYTES
+        for kt, le in ((1, 1), (32, 128), (17, 80)):
+            if decoder_stack_route(kt, d, 64, inner, 1024, le, torch.bfloat16) == "tensor_cores":
+                assert d % 128 == 0 and inner % 128 == 0
+                assert dec.decoder_stack_smem_bytes(1, kt, d, 64, inner, 1024, le) <= MAX_SMEM_BYTES
+
+
+def test_stack_wrappers_refuse_what_no_route_fits(cuda):
+    """Shapes whose shared memory fits neither route are refused before launch."""
+    before = (t5_encoder_stack_infer.launches, t5_decoder_stack_infer.launches)
+    for (B, L, d, NL, H, dk, dff), dt in (((1, 2, 512, 1, 8, 64, 2048), torch.float32),  # 262,144 B
+                                          ((1, 2, 448, 1, 7, 64, 1024), torch.bfloat16)):  # past both routes
+        z = lambda *shape, t=dt: torch.zeros(shape, dtype=t, device=cuda)
+        f = torch.float32
+        args = (z(B, L, d), z(NL, H, d, dk), z(NL, H, d, dk), z(NL, H, d, dk), z(NL, H, dk, d), z(NL, d, dff),
+                z(NL, dff, d), z(NL, d, t=f), z(NL, d, t=f), z(d, t=f), z(H, L, L, t=f), z(B, L, t=f))
+        with pytest.raises(ValueError, match="shared memory"):
+            t5_encoder_stack_infer(*args, eps=1e-6)
+    for (B, kT, d, NL, H, dk, dff, Le), dt in (((1, 64, 384, 1, 6, 64, 1024, 80), torch.bfloat16),  # kT = 64
+                                               ((1, 30, 384, 1, 6, 64, 1024, 256), torch.float32)):  # 256 keys
+        z = lambda *shape, t=dt: torch.zeros(shape, dtype=t, device=cuda)
+        f = torch.float32
+        args = (z(B, kT, d), z(NL, H, d, dk), z(NL, H, d, dk), z(NL, H, d, dk), z(NL, H, dk, d), z(NL, H, d, dk),
+                z(NL, H, dk, d), z(NL, d, dff), z(NL, dff, d), z(NL, d, t=f), z(NL, d, t=f), z(NL, d, t=f),
+                z(d, t=f), z(H, kT, kT, t=f), z(NL, B, H, Le, dk), z(NL, B, H, Le, dk), z(B, Le, t=f))
+        with pytest.raises(ValueError, match="shared memory"):
+            t5_decoder_stack_infer(*args, eps=1e-6)
+    assert (t5_encoder_stack_infer.launches, t5_decoder_stack_infer.launches) == before
+
+
+def _offset_copy(t):
+    """t's values in a contiguous view that starts 2 bytes past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    view = flat[1:1 + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_stack_kernels_take_unaligned_operands(cuda, dtype):
+    """A contiguous operand that does not start on a 16-byte boundary gives
+    the bits an aligned one gives (the wrapper launches on a copy)."""
+    ops, eps = _encoder_operands(AMAZON_T5, dtype, 2, 67, cuda)
+    want = t5_encoder_stack_infer(*ops, eps=eps)
+    moved = list(ops)
+    moved[0], moved[5] = _offset_copy(ops[0]), _offset_copy(ops[5])  # x and wi
+    assert moved[0].data_ptr() % 16 and torch.equal(t5_encoder_stack_infer(*moved, eps=eps), want)
+    ops, eps = _decoder_operands(AMAZON_T5, dtype, 10, 2, 3, 80, cuda)
+    want = t5_decoder_stack_infer(*ops, eps=eps)
+    moved = list(ops)
+    moved[0], moved[14] = _offset_copy(ops[0]), _offset_copy(ops[14])  # x and the K cache
+    assert moved[14].data_ptr() % 16 and torch.equal(t5_decoder_stack_infer(*moved, eps=eps), want)
 
 
 def test_retriever_on_card_matches_cpu(cuda):
