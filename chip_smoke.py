@@ -16,10 +16,16 @@ bf16, top-k 10, batches of 64 histories.
       parallel) and prints each kernel's ptxas registers and spills; the
       tensor-core kernels of encoder_stack and decoder_stack must spill
       nothing;
-   2. rq_encode kernel against its plain version on the card (Amazon width):
-      identical ids except rows at an argmin near-tie: a level whose top-2
-      distance gap, in float64, is below 1e-5 of ||res||^2 + max ||c||^2,
-      the size of the terms the f32 distances are summed from;
+   2. rq_encode kernel against its plain version on the card (Amazon width),
+      precision="f32": identical ids except rows at an argmin near-tie: a
+      level whose top-2 distance gap, in float64, is below 1e-5 of
+      ||res||^2 + max ||c||^2, the size of the terms the f32 distances are
+      summed from; then in bf16, the index build's default: identical ids
+      except rows in the bf16 near-tie set (a level whose top-2 gap along the
+      bf16 path is within what one bf16 step of every residual element can
+      move it), two integer-valued cases (every f32 sum exact, so the
+      rounding points alone decide) bit-equal, two launches bit-equal, and
+      the index build's time in bf16 beside f32;
    3. decoder_stack kernel against its plain version on the card (B = 64,
       Le = 80, kT = 1, 20, 30): max abs error <= 1e-3 in f32 and <= 6e-2 in
       bf16 (bf16 rounding of the residual stream over 4 layers: a summation
@@ -29,13 +35,13 @@ bf16, top-k 10, batches of 64 histories.
       the error's mean and the count of entries above half the bound; two
       launches must give the same bits;
    4. the Amazon main path with the launch counts zeroed first: index build
-      (rq_encode), Retriever, 3 retrieve() calls; requires 1 rq_encode launch
+      (rq_encode, bf16), Retriever, 3 retrieve() calls; requires 1 rq_encode launch
       and 3 levels x 3 calls decoder_stack launches, corpus-valid beams and
       sorted finite log-probs; then one more retrieve() under torch.profiler;
    5. that path in f32, card (kernels) against CPU (plain versions), each
-      building its own index: ids identical except near-tie rows, all 10
+      building its own index (the card's by rq_encode at precision="f32"): ids identical except near-tie rows, all 10
       beams identical on >= 95% of the queries;
-   6. rq_encode at the ML-32M width, 87,585 x 788, as in 2;
+   6. rq_encode at the ML-32M width, 87,585 x 788, as in 2, both precisions;
    7. attention kernel against its plain version at q, k, v [64, 6, 800, 64]
       (bf16: the tiled route) and at the Amazon training shape
       [640, 6, 80, 64] (bf16: the whole-row route), with ragged key masks and
@@ -101,7 +107,25 @@ bf16, top-k 10, batches of 64 histories.
   15. one Amazon training step under torch.profiler: device time by kernel,
       launches, the device's idle share, the shares of the attention kernels
       and of the cuBLAS products; beside it the CUDA-event time of the
-      hash-dropout masks at the encoder's dropout sites, forward and backward.
+      hash-dropout masks at the encoder's dropout sites, forward and backward;
+  16. stage-1 (RQ-VAE) training at the Amazon width through train_rqvae.train
+      at configs/rqvae_amazon.gin's settings (768 -> [512, 256, 128] -> 32,
+      3 x 256, STE, batch 640, LR 1e-3, weight decay 1e-4, k-means init on
+      20,000 samples) on 65,536 unit-norm items, counts zeroed first: 40
+      iterations unbroken, then the same run as 25 + a resumed 15, with
+      evaluations and dead-code restarts every 10; requires rq_encode
+      launches == evaluations (each one bf16 index build) and no other
+      kernel, finite losses, a falling reconstruction loss, the resumed
+      step's loss equal to the unbroken run's and the final parameters
+      bit-equal; prints the k-means init ms, each evaluation's index build
+      ms, the diversity metrics, 10 timed steps (host clock, synchronised)
+      and one step under torch.profiler;
+  17. the same at configs/rqvae_ml32m.gin's settings (788 = 768 dense + 20
+      binary genre features -> [512, 256, 128] -> 64, rotation trick, batch
+      64, LR 1e-4, weight decay 0.01) on 87,585 items;
+  18. one f32 stage-1 step at each of the two settings, the same weights and
+      batch, card against CPU: loss rtol 1e-5, every gradient within 2e-4 of
+      its largest entry (batch rows at an f32 argmin near-tie left out).
 
 Each phase prints one JSON line. Then the `kernels` line, the card's
 `nvidia-smi` name and power limit, and last `{"ok": true, "device": ...}`.
@@ -140,6 +164,9 @@ ATTENTION_BWD_TOL = {torch.float32: (4e-6, 4e-6), torch.bfloat16: (2.0 ** -7, 1e
 TRAIN_AMAZON = dict(users=22363, min_len=8, max_len=22, max_seq_len=20, batch=640)
 TRAIN_ML32M = dict(users=20000, min_len=10, max_len=202, max_seq_len=200, batch=64)
 TRAIN_CPU_BATCH = 32
+# stage 1: an unbroken run of `iterations` against `split` + a resume for the rest (the split
+# is off the restart cadence: the trainer skips a restart at a run's last iteration, as JAX's does)
+RQ_TRAIN = dict(iterations=40, split=25, eval_every=10, restart_every=10, timed_steps=10)
 TRAIN_GRAD_TOL = 2e-4  # card vs CPU in f32, relative to the gradient tensor's largest entry
 T5 = dict(t5_d_model=384, t5_num_heads=6, t5_d_ff=1024, t5_num_layers=4)
 ENCODER_TOL = {torch.float32: (1e-3, 1e-5), torch.bfloat16: (1.5e-1, 4e-3)}  # (max, mean) abs error
@@ -283,17 +310,18 @@ def histories(n_items: int, length: int, seed: int) -> np.ndarray:
     return np.where(np.arange(length)[None, :] < lengths[:, None], ids, -1).astype(np.int32)
 
 
-def profile_retrieve(retriever, hist, top: int = 8) -> dict:
-    """Device time of one retrieve() call by kernel (torch.profiler, CUPTI):
-    the call's host time, the summed device time and launch count, the
-    device's idle share of the call, and the `top` kernels by device time."""
+def profile_call(fn, top: int = 8) -> dict:
+    """Device time of one call of `fn` by kernel (torch.profiler, CUPTI),
+    after one warm call: the call's host time, the summed device time and
+    launch count, the device's idle share of the call, and the `top`
+    kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    retriever.retrieve(hist)  # warm
+    fn()  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        retriever.retrieve(hist)
+        fn()
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3
     rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -339,15 +367,15 @@ def rq_encode_phase(phase: str, rq, x: torch.Tensor):
     n = x.shape[0]
     with torch.no_grad():
         weights, cbs = rq.encoder.kernels(), rq.codebooks.detach()
-        got = fused_encode_quantize(x, weights, cbs, 3)
+        got = fused_encode_quantize(x, weights, cbs, 3, precision="f32")
         sync()
-        want = fused_encode_quantize_plain(x, weights, cbs, 3)
+        want = fused_encode_quantize_plain(x, weights, cbs, 3, precision="f32")
         near = f64_near_tie_rows(x, weights, cbs)
         differ = (got != want).any(1)
         outside = differ & ~near
         check(int(outside.sum()) == 0, f"{phase}: {int(outside.sum())} rows differ away from near-ties")
-        enc_ms = cuda_ms(lambda: fused_encode_quantize(x, weights, cbs, 3), reps=20)
-        enc_plain_ms = cuda_ms(lambda: fused_encode_quantize_plain(x, weights, cbs, 3), reps=20)
+        enc_ms = cuda_ms(lambda: fused_encode_quantize(x, weights, cbs, 3, precision="f32"), reps=20)
+        enc_plain_ms = cuda_ms(lambda: fused_encode_quantize_plain(x, weights, cbs, 3, precision="f32"), reps=20)
     K, D = cbs.shape[1], cbs.shape[2]
     macs = sum(w.shape[0] * w.shape[1] for w in weights) + 3 * K * D
     b_ms, b_by = bound_ms(2 * n * macs, H100_F32_FLOPS, nbytes_of(x, *weights, cbs, got))
@@ -362,6 +390,100 @@ def rq_encode_phase(phase: str, rq, x: torch.Tensor):
           "differ_outside_near_ties": int(outside.sum()),
           "kernel_ms": enc_ms, "plain_ms": enc_plain_ms, "bound_ms": b_ms, "bound_by": b_by})
     return row, near
+
+
+def bf16_ulp(v):
+    """One bf16 step at each value of v (float64): 2^(floor(log2 |v|) - 7); 0 at 0."""
+    return torch.exp2(torch.floor(torch.log2(v.abs())) - 7)
+
+
+def bf16_near_tie_rows(x, weights, codebooks):
+    """Rows where some level's top-2 distance gap, in float64 along the bf16
+    path (kernel 1's rounding points), is within the most that one bf16 step
+    of every element of the level's residual can move it,
+    2 sum_i ulp(res_i) |c1_i - c2_i|: a float32 sum taken in another order
+    can move a value across a bf16 rounding boundary, one bf16 step."""
+    r16 = lambda t: t.to(torch.bfloat16).double()
+    h = r16(x.double())
+    for i, w in enumerate(weights):
+        h = h @ r16(w.double())
+        h = r16(torch.relu(h) if i != len(weights) - 1 else h)
+    cb32 = codebooks.double()
+    cb, cb2 = r16(cb32), (cb32 ** 2).sum(-1)
+    near = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+    for level in range(cb.shape[0]):
+        top2 = torch.topk(cb2[level][None] - 2 * h @ cb[level].T, 2, dim=1, largest=False)
+        c1, c2 = cb[level][top2.indices[:, 0]], cb[level][top2.indices[:, 1]]
+        near |= top2.values[:, 1] - top2.values[:, 0] <= 2 * (bf16_ulp(h) * (c1 - c2).abs()).sum(1)
+        h = r16(h - c1)
+    return near
+
+
+def integer_bf16_case(seed: int, n: int = 512, k: int = 16, d: int = 8):
+    """Integer-valued x, weights and codebooks whose float32 sums are exact in
+    any order and whose bf16 roundings change values, so kernel 1's bf16 ids
+    are a function of its rounding points alone (odd codewords, mostly not
+    bf16 values; one duplicated, an exact tie the lower index takes)."""
+    from rqvae_tpu_torch.ops.cuda.rq_encode import round_bf16
+
+    r = np.random.RandomState(seed)
+    x = torch.from_numpy(r.randint(-3, 4, (n, 32)).astype(np.float32))
+    weights = [torch.from_numpy(r.randint(-a, a + 1, shape).astype(np.float32))
+               for a, shape in ((3, (32, 24)), (2, (24, 16)), (1, (16, d)))]
+    h = x
+    for i, w in enumerate(weights):
+        h = round_bf16(torch.relu(h @ w) if i < 2 else h @ w)
+    cbs = []
+    for _ in range(3):
+        cb = h[torch.from_numpy(r.choice(n, k, replace=False))] + torch.from_numpy(r.randint(-20, 21, (k, d))).float()
+        cb = torch.where(cb % 2 == 0, cb + 1, cb)
+        cb[k - 3] = cb[2]
+        cbs.append(cb)
+        dist = (cb * cb).sum(-1)[None] - 2 * h @ round_bf16(cb).T
+        h = round_bf16(h - round_bf16(cb)[dist.argmin(-1)])
+    return x, weights, torch.stack(cbs)
+
+
+def rq_encode_bf16_phase(phase: str, rq, x: torch.Tensor, dev) -> dict:
+    """rq_encode in bf16 (the index build's default) against its plain bf16
+    version over the corpus `x`, the integer-valued case bit for bit, two
+    launches bit-equal, and the index build in bf16 beside f32; returns the
+    numbers for the kernel's row of the `kernels` line."""
+    from rqvae_tpu_torch.ops.cuda.rq_encode import fused_encode_quantize, fused_encode_quantize_plain
+
+    n = x.shape[0]
+    with torch.no_grad():
+        weights, cbs = rq.encoder.kernels(), rq.codebooks.detach()
+        got = fused_encode_quantize(x, weights, cbs, 3, precision="bf16")
+        again = fused_encode_quantize(x, weights, cbs, 3, precision="bf16")
+        sync()
+        check(torch.equal(got, again), f"{phase}: two launches differ")
+        want = fused_encode_quantize_plain(x, weights, cbs, 3, precision="bf16")
+        near = bf16_near_tie_rows(x, weights, cbs)
+        differ = (got != want).any(1)
+        outside = differ & ~near
+        check(int(outside.sum()) == 0, f"{phase}: {int(outside.sum())} rows differ outside the bf16 near-ties")
+        f32_ids = fused_encode_quantize(x, weights, cbs, 3, precision="f32")
+        exact = {}
+        for seed in (0, 2):
+            xi, wi, ci = integer_bf16_case(seed)
+            k_ids = fused_encode_quantize(xi.to(dev), [w.to(dev) for w in wi], ci.to(dev), 3, precision="bf16")
+            exact[seed] = bool(torch.equal(k_ids.cpu(), fused_encode_quantize_plain(xi, wi, ci, 3, precision="bf16")))
+        check(all(exact.values()), f"{phase}: integer-valued inputs differ from the plain version: {exact}")
+        k_ms = cuda_ms(lambda: fused_encode_quantize(x, weights, cbs, 3, precision="bf16"), reps=20)
+        p_ms = cuda_ms(lambda: fused_encode_quantize_plain(x, weights, cbs, 3, precision="bf16"), reps=20)
+    K, D = cbs.shape[1], cbs.shape[2]
+    macs = sum(w.shape[0] * w.shape[1] for w in weights) + 3 * K * D
+    b_ms, b_by = bound_ms(2 * n * macs, H100_BF16_FLOPS, nbytes_of(x, *weights, cbs, got))
+    index_ms = {prec: build_index(rq, x, dev, precision=prec)[2] for prec in ("bf16", "f32", "bf16", "f32")}
+    emit({"phase": phase, "items": n, "widths": [x.shape[1], *(w.shape[1] for w in weights)],
+          "rows_differ": int(differ.sum()), "bf16_near_tie_rows": int(near.sum()),
+          "differ_outside_near_ties": int(outside.sum()),
+          "rows_differ_from_f32": int((got != f32_ids).any(1).sum()), "integer_case_bit_equal": exact,
+          "bit_equal_repeat": True, "kernel_ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+          "index_build_ms_bf16": index_ms["bf16"], "index_build_ms_f32": index_ms["f32"]})
+    return {"bf16_ms": k_ms, "bf16_plain_ms": p_ms, "bf16_bound_ms": b_ms, "bf16_bound_by": b_by,
+            "bf16_rows_differ": int(differ.sum()), "bf16_near_tie_rows": int(near.sum())}
 
 
 def attention_inputs(B, H, L, dk, dtype, dev, seed):
@@ -505,25 +627,35 @@ def decoder_stack_phase(models: dict, rq, x, hist, dev) -> dict:
     from rqvae_tpu_torch.tokenizer.semids import SemanticIdTokenizer, _tokenize_from_cache
 
     lib = load_library("decoder_stack", D._FUNCTIONS)  # the shared memory a block asks for
-    tok_probe = SemanticIdTokenizer(rq, device=dev)
-    tok_probe.precompute_corpus_ids(x)
+
+    def index(precision):
+        tok = SemanticIdTokenizer(rq, device=dev, precision=precision)
+        return tok.precompute_corpus_ids(x)
+
+    def levels(model, cached_ids, g):
+        """(beams, T, the decoder's operands) of the Amazon path's three levels."""
+        h = torch.from_numpy(hist).to(dev)
+        tok = _tokenize_from_cache(cached_ids, torch.zeros(BATCH, dtype=torch.int32, device=dev),
+                                   h, torch.zeros(BATCH, dtype=torch.int32, device=dev), h >= 0)
+        ids = strip_dedup_col(tok.sem_ids, 4, 3)
+        mask = strip_dedup_col(tok.seq_mask.to(torch.int32), 4, 3)
+        enc, enc_mask = model.encoder_forward(ids, mask)
+        dec = model.decoder
+        kv, w = dec.cross_kv(enc), dec.decode_weights()
+        for beams, T in ((1, 1), (10, 2), (10, 3)):
+            prefix = torch.randint(0, 256, (BATCH * beams, T - 1), generator=g).to(dev)
+            embs = model._decoder_embs(prefix, BATCH * beams).reshape(BATCH, beams * T, -1)
+            yield beams, T, dec.decode_operands(embs, kv, enc_mask, beams, w)
+
+    f32_ids = index("f32")  # the histories' tokens as in every earlier run
     decoder_rows, kernel_row = [], None
     g = torch.Generator().manual_seed(4)
     for dt, model in models.items():
         with torch.no_grad():
-            h = torch.from_numpy(hist).to(dev)
-            tok = _tokenize_from_cache(tok_probe.cached_ids, torch.zeros(BATCH, dtype=torch.int32, device=dev),
-                                       h, torch.zeros(BATCH, dtype=torch.int32, device=dev), h >= 0)
-            ids = strip_dedup_col(tok.sem_ids, 4, 3)
-            mask = strip_dedup_col(tok.seq_mask.to(torch.int32), 4, 3)
-            enc, enc_mask = model.encoder_forward(ids, mask)
             dec = model.decoder
-            kv, w = dec.cross_kv(enc), dec.decode_weights()
-            for beams, T in ((1, 1), (10, 2), (10, 3)):
-                prefix = torch.randint(0, 256, (BATCH * beams, T - 1), generator=g).to(dev)
-                embs = model._decoder_embs(prefix, BATCH * beams).reshape(BATCH, beams * T, -1)
-                ops = dec.decode_operands(embs, kv, enc_mask, beams, w)
-                eps = dec.cfg.layer_norm_eps
+            eps = dec.cfg.layer_norm_eps
+            for beams, T, ops in levels(model, f32_ids, g):
+                enc_rows = ops[14].shape[3]
                 y = t5_decoder_stack_infer(*ops, eps=eps)
                 sync()
                 y_again = t5_decoder_stack_infer(*ops, eps=eps)
@@ -537,7 +669,7 @@ def decoder_stack_phase(models: dict, rq, x, hist, dev) -> dict:
                 k_ms = cuda_ms(lambda: t5_decoder_stack_infer(*ops, eps=eps), reps=10)
                 p_ms = cuda_ms(lambda: t5_decoder_stack_plain(*ops, eps=eps), reps=10)
                 kt, cfg = beams * T, dec.cfg
-                NL, H, dk, d, dff, Le = cfg.num_layers, cfg.num_heads, cfg.d_kv, cfg.d_model, cfg.d_ff, enc.shape[1]
+                NL, H, dk, d, dff, Le = cfg.num_layers, cfg.num_heads, cfg.d_kv, cfg.d_model, cfg.d_ff, enc_rows
                 flops = 2 * BATCH * kt * NL * (6 * d * H * dk + 2 * d * dff) + 4 * BATCH * NL * H * kt * (kt + Le) * dk
                 b_ms, b_by = bound_ms(flops, peak_flops(dt), nbytes_of(*ops, y))
                 route = decoder_stack_route(kt, d, dk, H * dk, dff, Le, dt)
@@ -559,7 +691,19 @@ def decoder_stack_phase(models: dict, rq, x, hist, dev) -> dict:
                         "ms_by_kT": {str(r["kT"]): r["kernel_ms"] for r in decoder_rows if r["dtype"] == "bfloat16"},
                     }
                 del ops, y, y_again, y_plain
-    emit({"phase": "decoder_stack", "B": BATCH, "Le": int(enc.shape[1]), "rows": decoder_rows})
+    # the bf16 levels once more, the histories tokenized by the bf16 index (the tokenizer's
+    # default): reported beside the gate and not held to it (PERF.md section 7)
+    bf16_index_rows = []
+    model = models[torch.bfloat16]
+    with torch.no_grad():
+        for beams, T, ops in levels(model, index("bf16"), torch.Generator().manual_seed(4)):
+            eps = model.decoder.cfg.layer_norm_eps
+            y, y_plain = t5_decoder_stack_infer(*ops, eps=eps), t5_decoder_stack_plain(*ops, eps=eps)
+            errs = error_distribution(y, y_plain, DECODER_TOL[torch.bfloat16])
+            errs["above_tol"] = int(((y - y_plain).abs() > DECODER_TOL[torch.bfloat16]).sum())
+            bf16_index_rows.append({"kT": beams * T, **errs})
+    emit({"phase": "decoder_stack", "B": BATCH, "Le": enc_rows, "rows": decoder_rows,
+          "bf16_rows_with_bf16_index_tokens": bf16_index_rows})
     return kernel_row
 
 
@@ -613,13 +757,14 @@ def check_results(results, cached_np: np.ndarray, batch: int) -> None:
         check(bool((first == sem).all()), "repeated calls differ")
 
 
-def build_index(rq, x, dev):
-    """SemanticIdTokenizer over the corpus; the build's host-clock ms."""
+def build_index(rq, x, dev, precision: str = "bf16"):
+    """SemanticIdTokenizer over the corpus (its default precision, bf16, unless
+    told); the build's host-clock ms."""
     from rqvae_tpu_torch.tokenizer.semids import SemanticIdTokenizer
 
     sync()
     t0 = time.perf_counter()
-    tok = SemanticIdTokenizer(rq, device=dev)
+    tok = SemanticIdTokenizer(rq, device=dev, precision=precision)
     cached = tok.precompute_corpus_ids(x)
     sync()
     return tok, cached, (time.perf_counter() - t0) * 1e3
@@ -643,13 +788,16 @@ def route_agreement(a, b) -> dict:
             "top1_log_proba_max_abs_diff": float((a.log_probas[:, 0] - b.log_probas[:, 0]).abs().max().item())}
 
 
-def card_vs_cpu(phase: str, rq, x_cpu, tok, cached_np, near, model_card, hist, dev, **over) -> None:
+def card_vs_cpu(phase: str, rq, x_cpu, x, near, model_card, hist, dev, **over) -> None:
     """The path in f32: card (kernels) against CPU (plain versions), each with
-    its own index."""
+    its own index (the card's built by the kernel in f32; the CPU's takes the
+    model's f32 path)."""
     from rqvae_tpu_torch.models.rqvae import RqVae
     from rqvae_tpu_torch.serving.retriever import Retriever
     from rqvae_tpu_torch.tokenizer.semids import SemanticIdTokenizer
 
+    tok = SemanticIdTokenizer(rq, device=dev, precision="f32")
+    cached_np = tok.precompute_corpus_ids(x).cpu().numpy()
     rq_cpu = RqVae(rq.config, device="cpu")
     rq_cpu.load_state_dict({k: v.cpu() for k, v in rq.state_dict().items()})
     tok_cpu = SemanticIdTokenizer(rq_cpu, device="cpu")
@@ -993,6 +1141,175 @@ def train_card_vs_cpu_phase(data: dict, rq, x, dev) -> None:
           "worst_gradient": worst_name, "tol_rel": TRAIN_GRAD_TOL})
 
 
+def write_item_dataset(root: str, x_cpu: torch.Tensor, seed: int) -> str:
+    """The processed dataset file the stage-1 trainer reads: the corpus rows
+    and a seeded 95/5 train/eval item split. Returns the dataset folder."""
+    r = np.random.RandomState(seed)
+    os.makedirs(os.path.join(root, "processed"))
+    np.savez(os.path.join(root, "processed", "data.npz"), item_features=x_cpu.numpy(),
+             item_is_train=r.rand(x_cpu.shape[0]) > 0.05, dataset_name=np.asarray("synthetic"))
+    return root
+
+
+def read_log(log_dir: str) -> list:
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def rqvae_train_parts(gin: str, ckpt_path: str, dev):
+    """The stage-1 step function at a config file's settings, from a
+    checkpoint the trainer wrote: (model, step)."""
+    from rqvae_tpu_torch.models.rqvae import RqVae
+    from rqvae_tpu_torch.train.rqvae_steps import make_rqvae_index_train_step
+    from rqvae_tpu_torch.train.state import adamw
+    from rqvae_tpu_torch.utils.checkpoint import load_checkpoint
+    from rqvae_tpu_torch.utils.config import parse_config_file
+
+    settings = parse_config_file(gin)
+    restored = load_checkpoint(ckpt_path)
+    model = RqVae(restored["config"], device=dev)
+    model.load_state_dict(restored["params"])
+    opt = adamw(model.parameters(), settings["learning_rate"], weight_decay=settings["weight_decay"])
+    return model, make_rqvae_index_train_step(model, opt)
+
+
+def train_rqvae_phase(phase: str, gin: str, x_cpu: torch.Tensor, counts, dev) -> dict:
+    """Stage-1 training through train_rqvae.train at a config file's settings
+    (iterations and cadences cut): an unbroken run against the same run
+    split in two with a resume; returns the path's launch counts."""
+    from rqvae_tpu_torch.data.registry import RecDataset
+    from rqvae_tpu_torch.train import train_rqvae as T
+    from rqvae_tpu_torch.train.train_decoder import step_rows
+    from rqvae_tpu_torch.utils.checkpoint import load_checkpoint
+    from rqvae_tpu_torch.utils.config import apply_config, parse_config_file
+
+    it, split = RQ_TRAIN["iterations"], RQ_TRAIN["split"]
+    settings = parse_config_file(gin)
+    with tempfile.TemporaryDirectory() as root:
+        folder = write_item_dataset(os.path.join(root, "data"), x_cpu, seed=13)
+        common = dict(dataset=RecDataset.SYNTHETIC, dataset_folder=folder, eval_every=RQ_TRAIN["eval_every"],
+                      codebook_restart_every=RQ_TRAIN["restart_every"], save_model_every=10**6, log_every=1,
+                      device=dev)
+        run = lambda save, **kw: apply_config(T.train, gin, save_dir_root=os.path.join(root, save), **common, **kw)
+        counts.zero()
+        t0 = time.perf_counter()
+        whole = run("whole", iterations=it)
+        first = run("split", iterations=split)
+        rest = run("split", iterations=it - split, auto_resume=True)
+        sync()
+        train_s = time.perf_counter() - t0
+        got = counts.read()
+        logs = {name: read_log(os.path.join(root, name, "logs")) for name in ("whole", "split")}
+        a, b = load_checkpoint(whole["checkpoint_path"]), load_checkpoint(rest["checkpoint_path"])
+        same_params = all(torch.equal(a["params"][k], b["params"][k]) for k in a["params"])
+        # steady-state step time, with the step function the trainer is made of
+        is_train = np.load(os.path.join(folder, "processed", "data.npz"))["item_is_train"]
+        features = x_cpu[torch.from_numpy(is_train)].to(dev)
+        model, step = rqvae_train_parts(gin, whole["checkpoint_path"], dev)
+        batch = settings["batch_size"]
+        step_ms = []
+        for i in range(3 + RQ_TRAIN["timed_steps"]):
+            idx = torch.as_tensor(step_rows(0, 1000 + i, features.shape[0], batch).reshape(1, batch))
+            sync()
+            t1 = time.perf_counter()
+            step(features, idx.to(dev), None, 0.2)
+            sync()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+        step_ms = step_ms[3:]
+        profiled = profile_call(lambda: step(features, idx.to(dev), None, 0.2))
+        del model, step, features
+    steps = {name: {r["step"]: r for r in recs if "reconstruction_loss" in r} for name, recs in logs.items()}
+    evals = [r for recs in logs.values() for r in recs if "rqvae_entropy" in r]
+    evals_of = lambda a, b: sum((i + 1) % RQ_TRAIN["eval_every"] == 0 or i + 1 == b for i in range(a, b))
+    want_evals = evals_of(0, it) + evals_of(0, split) + evals_of(split, it)
+    check(len(evals) == want_evals, f"{phase}: {len(evals)} evaluations, want {want_evals}")
+    check(got["rq_encode"] == len(evals) and got["decoder_stack"] == got["encoder_stack"] == got["attention"] == 0,
+          f"{phase}: launches {got} for {len(evals)} evaluations")
+    losses = [r["total_loss"] for recs in steps.values() for r in recs.values()]
+    check(all(np.isfinite(losses)), f"{phase}: non-finite losses")
+    recon = [steps["whole"][i]["reconstruction_loss"] for i in range(it)]
+    recon_first, recon_last = float(np.mean(recon[:5])), float(np.mean(recon[-5:]))
+    check(recon_last < recon_first, f"{phase}: reconstruction loss, mean of 5 steps, {recon_first} -> {recon_last}")
+    first_resumed = (steps["split"][split]["total_loss"], steps["whole"][split]["total_loss"])
+    check(first_resumed[0] == first_resumed[1], f"{phase}: resumed step {split} loss {first_resumed}")
+    check(same_params, f"{phase}: the resumed run's parameters differ from the unbroken run's")
+    check(whole["checkpoint_path"] and rest["checkpoint_path"].endswith(f"checkpoint_{it - 1}.pt"),
+          f"{phase}: checkpoints {whole['checkpoint_path']}, {rest['checkpoint_path']}")
+    emit({"phase": phase, "config": gin, "items": int(x_cpu.shape[0]), "batch": settings["batch_size"],
+          "widths": [settings["vae_input_dim"], *settings["vae_hidden_dims"], settings["vae_embed_dim"]],
+          "mode": settings["vae_codebook_mode"].name, "n_cat_feats": settings["vae_n_cat_feats"],
+          "learning_rate": settings["learning_rate"], "weight_decay": settings["weight_decay"],
+          "iterations": [it, split, it - split], "eval_every": RQ_TRAIN["eval_every"],
+          "restart_every": RQ_TRAIN["restart_every"], "launches": got, "evaluations": len(evals),
+          "train_calls_s": train_s, "kmeans_init_ms": [whole["kmeans_init_ms"], first["kmeans_init_ms"]],
+          "index_build_ms": [r["index_build_ms"] for r in evals], "step_ms": step_ms, "step_profile": profiled,
+          "reconstruction_loss_first_last_5": [recon_first, recon_last], "resumed_step_loss_equal": first_resumed,
+          "resumed_params_bit_equal": same_params,
+          "diversity": {k: whole[k] for k in ("codebook_usage_0", "codebook_usage_1", "codebook_usage_2",
+                                              "rqvae_entropy", "max_id_duplicates", "p_unique_ids")},
+          "eval_total_loss": whole["eval_total_loss"]})
+    return got
+
+
+def train_rqvae_card_vs_cpu_phase(corpora: dict, dev) -> None:
+    """One f32 stage-1 step at each config file's widths and batch (Amazon:
+    STE; ML-32M: rotation trick, 20 categorical features), the same weights
+    and batch, card (plain torch on the card) against CPU: loss rtol 1e-5,
+    every gradient within 2e-4 of its largest entry. The batch leaves out
+    rows at an f32 argmin near-tie, where the two devices may pick another
+    codeword."""
+    from rqvae_tpu_torch.models.rqvae import RqVae, RqVaeConfig
+    from rqvae_tpu_torch.train.rqvae_steps import make_rqvae_train_step
+    from rqvae_tpu_torch.train.state import adamw
+    from rqvae_tpu_torch.utils.config import parse_config_file
+
+    rows = []
+    for name, (gin, x_cpu) in corpora.items():
+        st = parse_config_file(gin)
+        cfg = RqVaeConfig(input_dim=st["vae_input_dim"], embed_dim=st["vae_embed_dim"],
+                          hidden_dims=tuple(st["vae_hidden_dims"]), codebook_size=st["vae_codebook_size"],
+                          n_layers=st["vae_n_layers"], commitment_weight=st["commitment_weight"],
+                          n_cat_feats=st["vae_n_cat_feats"], codebook_mode=st["vae_codebook_mode"])
+        rq = RqVae(cfg, device="cpu", seed=5)
+        cand = x_cpu[-4 * st["batch_size"]:]  # the batch's candidates, apart from the codebooks' source rows
+        init_codebooks_from_data(rq, x_cpu[: min(20000, x_cpu.shape[0] - cand.shape[0])], seed=6)
+        with torch.no_grad():
+            near = f64_near_tie_rows(cand, rq.encoder.kernels(), rq.codebooks.detach())
+        batch = cand[~near][: st["batch_size"]]
+        result = {}
+        for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            model = RqVae(cfg, device=d)
+            model.load_state_dict(rq.state_dict())
+            step = make_rqvae_train_step(model, adamw(model.parameters(), st["learning_rate"],
+                                                      weight_decay=st["weight_decay"]))
+            m = step(batch[None].to(d), None, 0.2)
+            result[side] = (float(m["total_loss"]), {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+        loss_card, loss_cpu = result["card"][0], result["cpu"][0]
+        check(abs(loss_card - loss_cpu) <= 1e-5 * abs(loss_cpu), f"train_rqvae_card_vs_cpu {name}: loss {loss_card} vs {loss_cpu}")
+        worst, worst_name = 0.0, None
+        for n, g in result["cpu"][1].items():
+            rel = float((g - result["card"][1][n]).abs().max() / g.abs().max())
+            if rel > worst:
+                worst, worst_name = rel, n
+        check(worst <= TRAIN_GRAD_TOL, f"train_rqvae_card_vs_cpu {name}: gradient of {worst_name} differs by {worst}")
+        rows.append({"config": gin, "mode": cfg.codebook_mode.name, "batch": int(batch.shape[0]),
+                     "near_tie_rows_left_out": int(near.sum()), "loss_card": loss_card, "loss_cpu": loss_cpu,
+                     "worst_gradient_rel_diff": worst, "worst_gradient": worst_name})
+    emit({"phase": "train_rqvae_card_vs_cpu", "tol_rel": TRAIN_GRAD_TOL, "loss_rtol": 1e-5, "rows": rows})
+
+
+def item_corpus(n: int, dim: int, n_cat: int, seed: int) -> torch.Tensor:
+    """Stage-1 training rows: make_corpus rows with the dense columns at unit
+    norm, as sentence-T5 item embeddings are, and the last n_cat columns
+    binary and cluster-correlated (the ML-32M items' genre flags)."""
+    x = make_corpus(n, dim, seed)
+    dense = x[:, : dim - n_cat]
+    x[:, : dim - n_cat] = dense / dense.norm(dim=1, keepdim=True)
+    if n_cat:
+        x[:, -n_cat:] = (x[:, -n_cat:] > 1.0).float()
+    return x
+
+
 def train_profile_phase(step, tables, dev, top: int = 12) -> None:
     """One Amazon training step under torch.profiler (CUPTI), and the
     CUDA-event time of the hash-dropout masks at the encoder's sites."""
@@ -1067,6 +1384,7 @@ def main() -> int:
     rq, x_cpu, x = make_rqvae(AMAZON, dev)
     models = {dt: retrieval_model(dtype_name(dt), dev) for dt in (torch.bfloat16, torch.float32)}
     rq_amazon_row, near = rq_encode_phase("rq_encode", rq, x)
+    rq_amazon_bf16 = rq_encode_bf16_phase("rq_encode_bf16", rq, x, dev)
     hist = histories(AMAZON["items"], AMAZON["history"], seed=3)
     kernels["decoder_stack"] = decoder_stack_phase(models, rq, x, hist, dev)
 
@@ -1083,8 +1401,8 @@ def main() -> int:
           "max_dedup": int(cached_np[:, 3].max()), "index_build_ms": index_ms, "batch": BATCH,
           "retrieve_ms": call_ms, "valid_beams": float((results[-1].item_ids >= 0).float().mean()),
           "launches": launches["amazon"]})
-    emit({"phase": "retrieve_profile", **profile_retrieve(retriever, hist)})
-    card_vs_cpu("card_vs_cpu_f32", rq, x_cpu, tok, cached_np, near, models[torch.float32], hist, dev)
+    emit({"phase": "retrieve_profile", **profile_call(lambda: retriever.retrieve(hist))})
+    card_vs_cpu("card_vs_cpu_f32", rq, x_cpu, x, near, models[torch.float32], hist, dev)
     del rq, x, x_cpu, tok, cached, retriever, results, models
     torch.cuda.empty_cache()
 
@@ -1092,6 +1410,8 @@ def main() -> int:
     rq, x_cpu, x = make_rqvae(ML32M, dev)
     kernels["rq_encode"], near = rq_encode_phase("rq_encode_ml32m", rq, x)
     kernels["rq_encode"]["amazon_ms"] = rq_amazon_row["ms"]
+    kernels["rq_encode"].update(rq_encode_bf16_phase("rq_encode_bf16_ml32m", rq, x, dev))
+    kernels["rq_encode"].update({f"amazon_{k}": v for k, v in rq_amazon_bf16.items()})
     kernels["attention"] = attention_phase(dev)
     models = {dt: retrieval_model(dtype_name(dt), dev) for dt in (torch.bfloat16, torch.float32)}
     kernels["encoder_stack"] = encoder_stack_phase(models, dev)
@@ -1141,10 +1461,10 @@ def main() -> int:
           "valid_beams": float((results[-1].item_ids >= 0).float().mean()),
           "launches": launches["ml32m"], "launches_fused_encode_off": launches["ml32m_fused_encode_off"],
           "routes": agree})
-    emit({"phase": "retrieve_profile_ml32m", **profile_retrieve(retriever, hist)})
+    emit({"phase": "retrieve_profile_ml32m", **profile_call(lambda: retriever.retrieve(hist))})
 
     # ---- 10. the ML-32M path in f32, card against CPU ----
-    card_vs_cpu("card_vs_cpu_f32_ml32m", rq, x_cpu, tok, cached_np, near, models[torch.float32],
+    card_vs_cpu("card_vs_cpu_f32_ml32m", rq, x_cpu, x, near, models[torch.float32],
                 hist[:CPU_QUERIES_ML32M], dev)
 
     del retriever, retriever_off, results, results_off, models, tok, cached, f32_default
@@ -1164,6 +1484,16 @@ def main() -> int:
     launches["train_amazon"], (model, opt, step, tables, data) = train_amazon_phase(rq, x_cpu, x, counts, dev)
     train_card_vs_cpu_phase(data, rq, x, dev)
     train_profile_phase(step, tables, dev)
+    del rq, x, model, opt, step, tables, data
+    torch.cuda.empty_cache()
+
+    # ---- 16-18. stage-1 (RQ-VAE) training at both widths ----
+    del x_cpu
+    corpora = {"amazon": ("configs/rqvae_amazon.gin", item_corpus(AMAZON["items"], AMAZON["input_dim"], 0, seed=15)),
+               "ml32m": ("configs/rqvae_ml32m.gin", item_corpus(ML32M["items"], ML32M["input_dim"], 20, seed=14))}
+    for name, (gin, corpus) in corpora.items():
+        launches[f"train_rqvae_{name}"] = train_rqvae_phase(f"train_rqvae_{name}", gin, corpus, counts, dev)
+    train_rqvae_card_vs_cpu_phase(corpora, dev)
 
     # ---- kernels, card, result ----
     for name, row in kernels.items():

@@ -6,10 +6,24 @@
 // argmin_k(||cb_k||^2 - 2 res.cb_k) with the lowest index kept on exact ties,
 // then res -= cb[id]. Writes the [N, L] int32 ids.
 //
+// Two modes, as the reference's `precision`. float32: every value and sum in
+// float32. bf16: the values are rounded to bfloat16 where the reference casts
+// to its compute dtype (rq_encode.py::_kernel) and nowhere else: x on load;
+// each layer's output, after the ReLU between layers and also after the last
+// layer (no ReLU there), which gives the residual; the residual after each
+// level's subtraction. Sums stay float32 and a product of two bf16 values is
+// exact in float32, so the bf16 mode computes the reference's function up to
+// the order of its float32 sums. The wrapper hands this mode weights and
+// codebooks already rounded to bf16 (once per call, as the reference casts
+// them outside its kernel) and the squared norms of the UNROUNDED float32
+// codebooks (the reference's cb2). Storage stays float32 in both modes.
+//
 // Bound on the H100: compute. At the Amazon geometry (768 -> 512 -> 256 ->
-// 128 -> 32, 3 x 256 codebooks) a row costs ~1.2 MFLOP against 3 KB read,
-// and the arithmetic must be float32 (TF32 would move argmins), so the card's
-// float32 CUDA-core rate bounds it.
+// 128 -> 32, 3 x 256 codebooks) a row costs ~1.2 MFLOP against 3 KB read.
+// In float32 the arithmetic must stay float32 (TF32 would move argmins), so
+// the card's float32 CUDA-core rate bounds it; in bf16 the tensor cores'
+// bf16 rate would (bf16 products, f32 sums), but this kernel runs the bf16
+// mode on the same CUDA-core loops, so it costs what float32 costs.
 //
 // Design: one block per tile of ROWS rows. The activations ping-pong between
 // two shared-memory buffers; the weights stream from global memory, where the
@@ -29,6 +43,7 @@
 // (233,984 B) would pass the 232,448 B a Hopper block may use. The arithmetic
 // and its order are untouched, so the ids are too.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -50,9 +65,22 @@ struct Params {
   int* out;                  // [n_rows, n_levels]
 };
 
-// C[M, N] = A[M, Kd] @ W[Kd, N] (ReLU if relu), A and C in shared memory
-// with row strides Kd and N, W row-major in global memory. Kd and N are
-// multiples of 4 (checked on the host).
+// v rounded to the nearest bf16 value (ties to even) when BF16, else v.
+template <bool BF16>
+__device__ __forceinline__ float round_to(float v) {
+  if constexpr (BF16) return __bfloat162float(__float2bfloat16_rn(v));
+  return v;
+}
+
+template <bool BF16>
+__device__ __forceinline__ float4 round_to(float4 v) {
+  return make_float4(round_to<BF16>(v.x), round_to<BF16>(v.y), round_to<BF16>(v.z), round_to<BF16>(v.w));
+}
+
+// C[M, N] = A[M, Kd] @ W[Kd, N] (ReLU if relu; then rounded to bf16 if BF16),
+// A and C in shared memory with row strides Kd and N, W row-major in global
+// memory. Kd and N are multiples of 4 (checked on the host).
+template <bool BF16>
 __device__ void tile_gemm(const float* __restrict__ A, int M, int Kd,
                           const float* __restrict__ W, int N,
                           float* __restrict__ C, bool relu) {
@@ -93,7 +121,7 @@ __device__ void tile_gemm(const float* __restrict__ A, int M, int Kd,
           v.x = fmaxf(v.x, 0.f); v.y = fmaxf(v.y, 0.f);
           v.z = fmaxf(v.z, 0.f); v.w = fmaxf(v.w, 0.f);
         }
-        *reinterpret_cast<float4*>(C + (m0 + r) * N + n0) = v;
+        *reinterpret_cast<float4*>(C + (m0 + r) * N + n0) = round_to<BF16>(v);
       }
     }
   }
@@ -114,6 +142,7 @@ size_t smem_bytes(const int* dims, int n_weights, int K, int D) {
   return (mlp > quant ? mlp : quant) * sizeof(float);
 }
 
+template <bool BF16>
 __global__ void __launch_bounds__(THREADS) rq_encode_kernel(Params p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -133,12 +162,12 @@ __global__ void __launch_bounds__(THREADS) rq_encode_kernel(Params p) {
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (row0 + r < p.n_rows)
       v = __ldg(reinterpret_cast<const float4*>(p.x + (size_t)(row0 + r) * in_dim + c));
-    *reinterpret_cast<float4*>(in_buf + r * in_dim + c) = v;
+    *reinterpret_cast<float4*>(in_buf + r * in_dim + c) = round_to<BF16>(v);
   }
   __syncthreads();
 
   for (int i = 0; i < p.n_weights; ++i) {
-    tile_gemm(buf[(p.n_weights - i) & 1], ROWS, p.dims[i], p.w[i], p.dims[i + 1],
+    tile_gemm<BF16>(buf[(p.n_weights - i) & 1], ROWS, p.dims[i], p.w[i], p.dims[i + 1],
               buf[(p.n_weights - i - 1) & 1], i != p.n_weights - 1);
     __syncthreads();
   }
@@ -170,11 +199,22 @@ __global__ void __launch_bounds__(THREADS) rq_encode_kernel(Params p) {
         if (ob < best || (ob == best && oi < bi)) { best = ob; bi = oi; }
       }
       __syncwarp();
-      for (int c = lane; c < D; c += 32) res[r * D + c] -= cb_s[bi * (D + 1) + c];
+      for (int c = lane; c < D; c += 32)
+        res[r * D + c] = round_to<BF16>(res[r * D + c] - cb_s[bi * (D + 1) + c]);
       if (lane == 0 && row0 + r < p.n_rows) p.out[(size_t)(row0 + r) * p.n_levels + level] = bi;
     }
     __syncthreads();
   }
+}
+
+template <bool BF16>
+int launch(const Params& p, size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(rq_encode_kernel<BF16>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (p.n_rows + ROWS - 1) / ROWS;
+  rq_encode_kernel<BF16><<<blocks, THREADS, smem, stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -189,9 +229,11 @@ int rq_encode_smem_bytes(const int* dims, int n_weights, int K, int D) {
   return (int)smem_bytes(dims, n_weights, K, D);
 }
 
+// bf16 != 0: the bf16 mode (weights and codebooks already rounded to bf16,
+// cb2 the squared norms of the unrounded codebooks).
 int rq_encode_forward(const float* x, int n_rows, void* const* weights, const int* dims,
                       int n_weights, const float* codebooks, const float* cb2, int n_levels,
-                      int K, int D, int* out, void* stream) {
+                      int K, int D, int* out, int bf16, void* stream) {
   if (n_weights < 1 || n_weights > MAX_WEIGHTS) return (int)cudaErrorInvalidValue;
   Params p;
   p.x = x;
@@ -206,12 +248,8 @@ int rq_encode_forward(const float* x, int n_rows, void* const* weights, const in
   p.D = D;
   p.out = out;
   const size_t smem = smem_bytes(dims, n_weights, K, D);
-  cudaError_t err = cudaFuncSetAttribute(rq_encode_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (n_rows + ROWS - 1) / ROWS;
-  rq_encode_kernel<<<blocks, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch<true>(p, smem, s) : launch<false>(p, smem, s);
 }
 
 }  // extern "C"

@@ -1,15 +1,23 @@
-"""One residual-quantization level, eval mode (port of rqvae_tpu/models/quantize.py).
+"""One residual-quantization level (port of rqvae_tpu/models/quantize.py).
 
-Distances and the hard codebook lookup. The training estimators (Gumbel
-softmax, STE, rotation trick) belong to the training path.
+Distances, the argmin, and the three training estimators: Gumbel-softmax,
+straight-through (STE) and the rotation trick. Each `sg` of the reference is
+a `.detach()` at the same place. The hard codebook lookup is a one-hot
+matmul, exact in value (one term of 1 x the codeword) and, in the backward,
+a fixed-order sum over the batch, so a training step repeats bit for bit on
+the card (the gather's scatter-add backward would not).
 """
 
 from __future__ import annotations
 
 import enum
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
+
+from rqvae_tpu_torch.ops.gumbel import gumbel_softmax_sample
+from rqvae_tpu_torch.ops.losses import quantize_loss
+from rqvae_tpu_torch.ops.normalize import l2norm
 
 
 class QuantizeForwardMode(enum.Enum):
@@ -24,7 +32,7 @@ class QuantizeDistance(enum.Enum):
 
 
 class QuantizeOutput(NamedTuple):
-    embeddings: torch.Tensor  # [B, D] chosen codewords
+    embeddings: torch.Tensor  # [B, D] estimator output (feeds the decoder / next residual)
     ids: torch.Tensor  # [B] int32 codeword indices
     loss: torch.Tensor  # [B] VQ loss
 
@@ -44,17 +52,59 @@ def codebook_distances(
     raise ValueError(f"Unsupported distance: {distance}")
 
 
-def quantize_eval(
+def lookup(codebook: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """codebook[ids] as a one-hot matmul: [B, D]."""
+    return torch.nn.functional.one_hot(ids.long(), codebook.shape[0]).to(codebook.dtype) @ codebook
+
+
+def efficient_rotation_trick_transform(u: torch.Tensor, q: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """Section 4.2 of arXiv:2410.06424: e rotated by the reflection pair of
+    unit-ish u and q, which is held constant, so gradients reach `e` as
+    through a fixed rotation."""
+    w = l2norm(u + q, eps=1e-6).detach()
+    e_dot_w = torch.sum(e * w, dim=-1, keepdim=True)
+    e_dot_u = torch.sum(e * u.detach(), dim=-1, keepdim=True)
+    return e - 2.0 * e_dot_w * w + 2.0 * e_dot_u * q.detach()
+
+
+def quantize_forward(
     x: torch.Tensor,
     codebook: torch.Tensor,
+    *,
+    mode: QuantizeForwardMode,
     distance: QuantizeDistance = QuantizeDistance.L2,
     commitment_weight: float = 0.25,
+    training: bool = False,
+    temperature: float = 0.001,
+    generator: Optional[torch.Generator] = None,
+    noise: Optional[torch.Tensor] = None,
 ) -> QuantizeOutput:
-    """Hard lookup of the nearest codeword; argmin keeps the first index on
-    exact ties, as jnp.argmin does. The loss is the VQ loss
-    ||q - v||^2 (1 + commitment_weight), whose two terms are equal in value."""
+    """Quantize `x` [B, D] against the effective `codebook` [K, D]. Argmin
+    keeps the first index on exact ties, as jnp.argmin does. Training in
+    Gumbel mode draws its noise [B, K] from `generator`, or takes `noise`."""
     dist = codebook_distances(x, codebook, distance)
-    ids = torch.argmin(dist, dim=-1).to(torch.int32)
-    emb = codebook[ids.long()]
-    loss = (1.0 + commitment_weight) * torch.sum((x - emb) ** 2, dim=-1)
-    return QuantizeOutput(embeddings=emb, ids=ids, loss=loss)
+    ids = torch.argmin(dist.detach(), dim=-1).to(torch.int32)
+
+    if training:
+        if mode == QuantizeForwardMode.GUMBEL_SOFTMAX:
+            if generator is None and noise is None:
+                raise ValueError("GUMBEL_SOFTMAX mode needs a generator or the noise when training")
+            emb = gumbel_softmax_sample(-dist, temperature, generator=generator, noise=noise) @ codebook
+            emb_out = emb
+        elif mode == QuantizeForwardMode.STE:
+            emb = lookup(codebook, ids)
+            emb_out = x + (emb - x).detach()
+        elif mode == QuantizeForwardMode.ROTATION_TRICK:
+            emb = lookup(codebook, ids)
+            x_norm = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+            emb_norm = torch.linalg.vector_norm(emb, dim=-1, keepdim=True)
+            emb_out = efficient_rotation_trick_transform(x / (x_norm + 1e-8), emb / (emb_norm + 1e-8), x)
+            emb_out = emb_out * (emb_norm / (x_norm + 1e-6)).detach()
+        else:
+            raise ValueError(f"Unsupported forward mode: {mode}")
+        loss = quantize_loss(query=x, value=emb, commitment_weight=commitment_weight)
+    else:
+        emb_out = lookup(codebook, ids)
+        loss = quantize_loss(query=x, value=emb_out, commitment_weight=commitment_weight)
+
+    return QuantizeOutput(embeddings=emb_out, ids=ids, loss=loss)

@@ -134,6 +134,14 @@ def aligned16(t):
     return t.clone() if t.data_ptr() % 16 else t
 
 
+def launch_operand(t):
+    """t as a kernel reads it: contiguous and starting on a 16-byte boundary.
+    A strided view or one at an odd offset becomes a copy; any other tensor
+    is returned as it is. The wrappers call it on every operand, as the
+    reference computes on arrays of any layout."""
+    return aligned16(t.contiguous())
+
+
 def check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:
     """Raise if a launch returned a CUDA error (cudaGetLastError != 0)."""
     if rc != 0:

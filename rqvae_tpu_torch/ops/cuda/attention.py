@@ -37,7 +37,7 @@ import ctypes
 
 import torch
 
-from rqvae_tpu_torch.ops.cuda._build import check_launch, load_library
+from rqvae_tpu_torch.ops.cuda._build import check_launch, launch_operand, load_library
 from rqvae_tpu_torch.ops.hash_dropout import attention_keep_mask, keep_threshold
 
 NEG_INF = -1e9
@@ -173,6 +173,9 @@ def attention_route(Lq: int, Lk: int, dk: int, dtype: torch.dtype, backward: boo
 
 
 def _check_cuda(q, dk, tensors):
+    """dtype and head width the kernels take; every tensor on q's device,
+    contiguous and on a 16-byte boundary (`t5_attention` prepares its
+    operands so)."""
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"attention computes in float32 or bfloat16, got {q.dtype}")
     if dk % 4 or not 4 <= dk <= MAX_DK:
@@ -246,7 +249,7 @@ def _backward_cuda(q, k, v, bias, mask, seed, do, row_max, row_sum, causal, drop
     (default `backward_groups`) only changes the order in which dbias is
     summed."""
     B, H, Lq, Lk, dk = _check(q, k, v, bias, mask, causal, dropout_rate)
-    do = do.contiguous()
+    do = launch_operand(do)
     if do.shape != q.shape or do.dtype != q.dtype:
         raise ValueError(f"do: want {tuple(q.shape)} {q.dtype}, got {tuple(do.shape)} {do.dtype}")
     dev = q.device
@@ -312,12 +315,17 @@ def t5_attention(q, k, v, bias, mask, seed=0, *, causal: bool = False,
     """softmax(q k^T + bias + mask [+ causal]) [dropout] @ v, [B, H, Lq, dk]
     at q's dtype, differentiable in q, k, v and bias. CUDA tensors launch the
     kernels (forwards counted in `t5_attention.launches`, backwards in
-    `t5_attention.backward_launches`); CPU tensors take the plain versions."""
+    `t5_attention.backward_launches`) on operands of any layout and offset;
+    CPU tensors take the plain versions."""
     dropout_rate = float(dropout_rate)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {q.device}")
     if q.device.type == "cuda":
-        mask = mask.to(torch.int32).contiguous()
+        # the kernels read contiguous operands 16 bytes at a time: a strided or
+        # offset view is launched from a copy (differentiable, so gradients
+        # still reach the caller's tensors)
+        q, k, v, bias = (launch_operand(t) for t in (q, k, v, bias))
+        mask = launch_operand(mask.to(torch.int32))
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, bias)):
         if dropout_rate > 0.0:
             seed = _seed_value(seed)  # saved for the backward as a host int

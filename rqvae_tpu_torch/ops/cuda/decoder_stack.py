@@ -35,7 +35,7 @@ import ctypes
 
 import torch
 
-from rqvae_tpu_torch.ops.cuda._build import aligned16, check_launch, load_library
+from rqvae_tpu_torch.ops.cuda._build import check_launch, launch_operand, load_library
 from rqvae_tpu_torch.ops.cuda.rows_core import tensor_core_widths
 
 _C = ctypes.c_void_p
@@ -135,16 +135,15 @@ def _check(x, wq, wk, wv, wo, cq, co, wi, wo2, ln_s, ln_c, ln_f, ln_final,
 
 def _check_cuda(*args):
     """What the kernel takes, checked before the library is loaded: shapes,
-    dtype, one device, contiguous tensors, widths the kernels read 4 at a
-    time. The shared memory of the shape's route is checked against the
-    library before launch."""
+    dtype, one device, widths the kernels read 4 at a time. Any layout and
+    offset are taken (`_build.py::launch_operand`). The shared memory of the
+    shape's route is checked against the library before launch."""
     x = args[0]
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"decoder_stack computes in float32 or bfloat16, got {x.dtype}")
     B, kT, d, NL, H, dk, dff, Le = _check(*args)
-    for t in args:
-        if t.device != x.device or not t.is_contiguous():
-            raise ValueError("decoder_stack takes contiguous tensors on one device")
+    if any(t.device != x.device for t in args):
+        raise ValueError("decoder_stack takes tensors on one device")
     if d % 4 or dk % 4 or dff % 4:
         raise ValueError(f"decoder_stack needs d, dk, dff multiples of 4, got {d}, {dk}, {dff}")
     return B, kT, d, NL, H, dk, dff, Le
@@ -174,7 +173,7 @@ def t5_decoder_stack_infer(
         raise ValueError(f"decoder_stack needs {smem} B of shared memory at kT={kT}, d={d}, Le={Le} on the "
                          f"{decoder_stack_route(kT, d, dk, H * dk, dff, Le, x.dtype)} route, over the "
                          f"{MAX_SMEM_BYTES} B a block may use")
-    args = tuple(aligned16(t) for t in args)  # held until the launch is queued on the stream
+    args = tuple(launch_operand(t) for t in args)  # held until the launch is queued on the stream
     ptrs = (_C * 18)(*[t.data_ptr() for t in args], out.data_ptr())
     dims = (ctypes.c_int * 8)(B, kT, d, NL, H, dk, dff, Le)
     with torch.cuda.device(x.device):  # the kernel launches on the current device

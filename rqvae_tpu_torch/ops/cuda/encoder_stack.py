@@ -34,7 +34,7 @@ import ctypes
 
 import torch
 
-from rqvae_tpu_torch.ops.cuda._build import aligned16, check_launch, load_library
+from rqvae_tpu_torch.ops.cuda._build import check_launch, launch_operand, load_library
 from rqvae_tpu_torch.ops.cuda.attention import MAX_DK
 from rqvae_tpu_torch.ops.cuda.decoder_stack import MAX_SMEM_BYTES, _rmsnorm
 from rqvae_tpu_torch.ops.cuda.rows_core import tensor_core_widths
@@ -114,9 +114,9 @@ def _check(x, wq, wk, wv, wo, wi, wo2, ln_s, ln_f, ln_final, bias, mask):
 
 def _check_cuda(*args):
     """What the kernels take, checked before the library is loaded: shapes,
-    dtype, one device, contiguous tensors, widths the kernels read 4 at a
-    time. The shared memory of the rows kernel's route is checked against
-    the library before launch."""
+    dtype, one device, widths the kernels read 4 at a time. Any layout and
+    offset are taken (`_build.py::launch_operand`). The shared memory of the rows
+    kernel's route is checked against the library before launch."""
     x = args[0]
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"encoder_stack computes in float32 or bfloat16, got {x.dtype}")
@@ -124,9 +124,8 @@ def _check_cuda(*args):
     if d % 4 or dff % 4 or dk % 4 or not 4 <= dk <= MAX_DK:
         raise ValueError(f"encoder_stack needs d, dff multiples of 4 and dk a multiple of 4 in "
                          f"4..{MAX_DK}, got {d}, {dff}, {dk}")
-    for t in args:
-        if t.device != x.device or not t.is_contiguous():
-            raise ValueError("encoder_stack takes contiguous tensors on one device")
+    if any(t.device != x.device for t in args):
+        raise ValueError("encoder_stack takes tensors on one device")
     return B, L, d, NL, H, dk, dff
 
 
@@ -159,7 +158,7 @@ def t5_encoder_stack_infer(
     # and the per-head attention output, at the compute dtype
     xs = torch.empty((B, L, d), dtype=x.dtype, device=x.device)
     q, k, v, oh = (torch.empty((B, H, L, dk), dtype=x.dtype, device=x.device) for _ in range(4))
-    tensors = (*(aligned16(t) for t in args), out, xs, q, k, v, oh)  # held until the launches are queued
+    tensors = (*(launch_operand(t) for t in args), out, xs, q, k, v, oh)  # held until the launches are queued
     ptrs = (_C * 18)(*[t.data_ptr() for t in tensors])
     dims = (ctypes.c_int * 7)(B, L, d, NL, H, dk, dff)
     with torch.cuda.device(x.device):  # the kernels launch on the current device

@@ -3,7 +3,8 @@
 The dedup column for corpus item i is the number of EARLIER items (j < i)
 whose full L-level tuple is identical. Each tuple is packed into one integer
 key and the counts come from one stable sort, with corpus order as the
-tiebreaker, so they are exact.
+tiebreaker, so they are exact. The stage-1 trainer's id-diversity metrics
+(tuple entropy, codebook usage per level) read the same keys and ids.
 """
 
 from __future__ import annotations
@@ -52,3 +53,18 @@ def dedup_counts_from_keys(keys: torch.Tensor) -> torch.Tensor:
     rank_in_run = (idx - seg_start).to(torch.int32)
     inverse = torch.argsort(order)
     return rank_in_run[inverse]
+
+
+def tuple_entropy(keys: torch.Tensor) -> torch.Tensor:
+    """Entropy of the empirical distribution of packed tuple keys, -sum p log p."""
+    _, counts = torch.unique(keys, return_counts=True)
+    p = counts.to(torch.float32) / keys.shape[0]
+    return -torch.sum(p * torch.log(p))
+
+
+def codebook_usage(sem_ids: torch.Tensor, codebook_size: int) -> torch.Tensor:
+    """Fraction of the codebook entries used, per level -> [L] float32."""
+    return torch.stack([
+        torch.mean((torch.bincount(sem_ids[:, level].long(), minlength=codebook_size) > 0).to(torch.float32))
+        for level in range(sem_ids.shape[1])
+    ])

@@ -3,9 +3,12 @@
 
 `precompute_corpus_ids` tokenizes every corpus item with the frozen RQ-VAE
 and appends the dedup column (count of earlier items with an identical
-L-tuple). On the card, for configurations the kernel supports, the encode is
-one launch of the rq_encode kernel (ops/cuda/rq_encode.py); elsewhere it is
-RqVae.get_semantic_ids in chunks. Sequence tokenization is a table lookup.
+L-tuple). As in the JAX tokenizer, the index build alone takes the kernel
+route: on the card, for configurations the kernel supports, the encode is one
+launch of the rq_encode kernel (ops/cuda/rq_encode.py) at `precision`, bf16
+by default as the reference's `pallas_precision`; elsewhere, and in
+`encode_batch` on every device, it is RqVae.get_semantic_ids in chunks.
+Sequence tokenization is a table lookup.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import torch
 
 from rqvae_tpu_torch.data.schemas import SeqBatch, TokenizedSeqBatch
 from rqvae_tpu_torch.models.rqvae import RqVae
-from rqvae_tpu_torch.ops.cuda.rq_encode import fused_encode_quantize, pallas_supported
+from rqvae_tpu_torch.ops.cuda.rq_encode import PRECISIONS, fused_encode_quantize, pallas_supported
 from rqvae_tpu_torch.ops.dedup import dedup_counts_from_keys, pack_sem_id_tuples
 from rqvae_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -28,14 +31,19 @@ class SemanticIdTokenizer:
         self,
         model: RqVae,
         tokenize_batch_size: int = 8192,
-        precision: str = "f32",  # rq_encode kernel precision; only "f32" is ported
+        precision: str = "bf16",  # the index build's kernel precision, "bf16" or "f32"
         device: DeviceLike = None,
     ):
+        if precision not in PRECISIONS:
+            raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.tokenize_batch_size = tokenize_batch_size
         self.precision = precision
         self.cached_ids: Optional[torch.Tensor] = None  # [N, L+1] int32
+
+    def reset(self) -> None:
+        self.cached_ids = None
 
     @property
     def use_kernel(self) -> bool:
@@ -43,24 +51,27 @@ class SemanticIdTokenizer:
 
     @torch.no_grad()
     def encode_batch(self, x: torch.Tensor) -> torch.Tensor:
-        """[B, D] features -> [B, L] int32 semantic ids (no dedup column)."""
+        """[B, D] features -> [B, L] int32 semantic ids (no dedup column),
+        by the model's f32 path on every device, as the JAX tokenizer's."""
         x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
-        cfg = self.model.config
-        if self.use_kernel:
-            return fused_encode_quantize(
-                x.contiguous(), self.model.encoder.kernels(), self.model.codebooks.detach(),
-                n_levels=cfg.n_layers, precision=self.precision,
-            )
         b = max(1, self.tokenize_batch_size)
         chunks = [self.model.get_semantic_ids(x[i : i + b]).sem_ids for i in range(0, x.shape[0], b)]
         if not chunks:
-            return torch.empty((0, cfg.n_layers), dtype=torch.int32, device=self.device)
+            return torch.empty((0, self.model.config.n_layers), dtype=torch.int32, device=self.device)
         return torch.cat(chunks)
 
     @torch.no_grad()
     def precompute_corpus_ids(self, item_features) -> torch.Tensor:
-        """Tokenize the whole corpus: encode -> pack -> dedup -> concat."""
-        ids = self.encode_batch(item_features)
+        """Tokenize the whole corpus: encode -> pack -> dedup -> concat. The
+        encode is one rq_encode launch at `precision` where `use_kernel`."""
+        if self.use_kernel:
+            x = torch.as_tensor(item_features, dtype=torch.float32, device=self.device)
+            ids = fused_encode_quantize(
+                x, self.model.encoder.kernels(), self.model.codebooks.detach(),
+                n_levels=self.model.config.n_layers, precision=self.precision,
+            )
+        else:
+            ids = self.encode_batch(item_features)
         keys = pack_sem_id_tuples(ids, self.model.config.codebook_size)
         dedup = dedup_counts_from_keys(keys)
         self.cached_ids = torch.cat([ids, dedup[:, None].to(ids.dtype)], dim=1)

@@ -119,7 +119,8 @@ def test_port_never_imports_jax():
     rel = {str(f.relative_to(ROOT / "rqvae_tpu_torch")) for f in files[:-1]}
     assert {"train/train_decoder.py", "train/decoder_steps.py", "train/state.py", "data/sampling.py",
             "data/synthetic.py", "data/datasets.py", "data/registry.py", "utils/config.py", "utils/logging.py",
-            "utils/checkpoint.py", "ops/schedules.py", "ops/metrics.py", "ops/embedding.py"} <= rel
+            "utils/checkpoint.py", "ops/schedules.py", "ops/metrics.py", "ops/embedding.py",
+            "train/train_rqvae.py", "train/rqvae_steps.py", "ops/kmeans.py", "ops/losses.py", "ops/gumbel.py"} <= rel
     banned = {"jax", "flax", "rqvae_tpu", "jaxlib", "optax"}
     for path in files:
         for mod in _imports(path):

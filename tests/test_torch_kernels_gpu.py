@@ -21,8 +21,12 @@ cluster of two blocks per batch row: the tensor cores; float32 and other
 widths: the CUDA cores), give the same bits on two launches, and the C
 libraries' routes are the Python mirrors' own. The libraries compute the
 shared memory of each route: every tensor-core shape fits a block, and the
-wrappers refuse a shape that fits neither route. An operand that does not
-start on a 16-byte boundary is launched from a copy and gives the same bits.
+wrappers refuse a shape that fits neither route. An operand that is strided
+or does not start on a 16-byte boundary is launched from a copy and gives
+the same bits. rq_encode in bf16: ids equal the plain bf16 version's outside
+the bf16 near-tie set (a level whose top-2 distance gap along the bf16 path
+is within what one bf16 step of every residual element can move it), and on
+integer-valued inputs, whose float32 sums are exact, on every row.
 """
 
 import numpy as np
@@ -182,13 +186,20 @@ def test_attention_kernel_matches_plain(cuda, dtype, tol, B, H, Lq, Lk, dk, caus
 
 
 def test_attention_kernel_refuses_what_it_does_not_take(cuda):
+    """A head width or dtype the kernels lack is refused; a strided operand is
+    not: its result and gradients equal the contiguous operand's."""
     q, k, v, bias, mask = _attention_inputs(2, 2, 16, 16, 8, torch.float32, cuda)
     with pytest.raises(ValueError, match="dk"):
         t5_attention(q[..., :6].contiguous(), k[..., :6].contiguous(), v[..., :6].contiguous(), bias, mask)
-    with pytest.raises(ValueError, match="contiguous"):
-        t5_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, bias, mask)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         t5_attention(q.half(), k.half(), v.half(), bias, mask)
+    strided = q.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not strided.is_contiguous()
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(5)).to(cuda)
+    want = _attention_grads(q, k, v, bias, mask, do)
+    got = _attention_grads(strided, k, v, bias, mask, do)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def _attention_grads(q, k, v, bias, mask, do, **kw):
@@ -541,7 +552,7 @@ def test_stack_kernels_take_unaligned_operands(cuda, dtype):
 def test_retriever_on_card_matches_cpu(cuda):
     """The small slice end to end in f32: card (kernels) against CPU (plain)."""
     rq, x = _rqvae(SMALL_VAE, 600, cuda, seed=1)
-    tok = SemanticIdTokenizer(rq, device=cuda)
+    tok = SemanticIdTokenizer(rq, device=cuda, precision="f32")  # the CPU's model path is f32
     before = (fused_encode_quantize.launches, t5_decoder_stack_infer.launches)
     tok.precompute_corpus_ids(x)
     rq_cpu = RqVae(rq.config, device="cpu")
@@ -562,3 +573,168 @@ def test_retriever_on_card_matches_cpu(cuda):
     same = (card.sem_ids.cpu() == host.sem_ids).all(2).all(1).float().mean().item()
     assert same >= 0.95
     torch.testing.assert_close(card.log_probas.cpu(), host.log_probas, rtol=1e-4, atol=1e-4)
+
+
+SYNTHETIC_VAE = dict(input_dim=64, embed_dim=16, hidden_dims=(128, 64), codebook_size=64, n_layers=3)  # rqvae_synthetic.gin
+
+
+def bf16_ulp(v):
+    """One bf16 step at each value of v (float64): 2^(floor(log2 |v|) - 7); 0 at 0."""
+    return torch.exp2(torch.floor(torch.log2(v.abs())) - 7)
+
+
+def bf16_near_tie_rows(x, weights, codebooks):
+    """Rows where some level's top-2 distance gap, in float64 along the bf16
+    path (kernel 1's rounding points), is within the most that one bf16 step
+    of every element of the level's residual can move it,
+    2 sum_i ulp(res_i) |c1_i - c2_i|: a float32 sum taken in another order
+    can move a value across a bf16 rounding boundary, one bf16 step."""
+    r16 = lambda t: t.to(torch.bfloat16).double()
+    h = r16(x.double())
+    for i, w in enumerate(weights):
+        h = h @ r16(w.double())
+        h = r16(torch.relu(h) if i != len(weights) - 1 else h)
+    cb32 = codebooks.double()
+    cb, cb2 = r16(cb32), (cb32 ** 2).sum(-1)
+    near = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+    for level in range(cb.shape[0]):
+        top2 = torch.topk(cb2[level][None] - 2 * h @ cb[level].T, 2, dim=1, largest=False)
+        c1, c2 = cb[level][top2.indices[:, 0]], cb[level][top2.indices[:, 1]]
+        near |= top2.values[:, 1] - top2.values[:, 0] <= 2 * (bf16_ulp(h) * (c1 - c2).abs()).sum(1)
+        h = r16(h - c1)
+    return near
+
+
+def integer_bf16_case(seed, n=512, k=16, d=8):
+    """Integer-valued x, weights and codebooks whose float32 sums are all
+    exact, whatever their order, and whose bf16 roundings change values:
+    kernel 1's bf16 ids are then a function of its rounding points alone.
+    The codewords are odd (mostly not bf16 values) and one is duplicated
+    (an exact tie, which the lower index takes)."""
+    from rqvae_tpu_torch.ops.cuda.rq_encode import round_bf16
+
+    r = np.random.RandomState(seed)
+    x = torch.from_numpy(r.randint(-3, 4, (n, 32)).astype(np.float32))
+    weights = [torch.from_numpy(r.randint(-a, a + 1, shape).astype(np.float32))
+               for a, shape in ((3, (32, 24)), (2, (24, 16)), (1, (16, d)))]
+    h = x
+    for i, w in enumerate(weights):
+        h = round_bf16(torch.relu(h @ w) if i < 2 else h @ w)
+    cbs = []
+    for _ in range(3):  # each level's codewords: jittered residuals, made odd
+        cb = h[torch.from_numpy(r.choice(n, k, replace=False))] + torch.from_numpy(r.randint(-20, 21, (k, d))).float()
+        cb = torch.where(cb % 2 == 0, cb + 1, cb)
+        cb[k - 3] = cb[2]
+        cbs.append(cb)
+        dist = (cb * cb).sum(-1)[None] - 2 * h @ round_bf16(cb).T
+        h = round_bf16(h - round_bf16(cb)[dist.argmin(-1)])
+    return x, weights, torch.stack(cbs)
+
+
+@pytest.mark.parametrize("fields,n", [(AMAZON_VAE, 8192), (AMAZON_VAE, 31), (AMAZON_VAE, 1), (ML32M_VAE, 8191),
+                                      (ML32M_VAE, 33), (SYNTHETIC_VAE, 1000), (SYNTHETIC_VAE, 7), (ODD_VAE, 333)])
+def test_rq_encode_bf16_kernel_matches_plain(cuda, fields, n):
+    """bf16 ids equal the plain bf16 version's outside the bf16 near-tie
+    set, at odd row counts (below one 32-row block, one row); two launches
+    give the same bits."""
+    rq, x = _rqvae(fields, max(n, 1024), cuda)  # codebooks from 1024 rows at least
+    x = x[:n]
+    w, cb = rq.encoder.kernels(), rq.codebooks.detach()
+    before = fused_encode_quantize.launches
+    got = fused_encode_quantize(x, w, cb, fields["n_layers"], precision="bf16")
+    again = fused_encode_quantize(x, w, cb, fields["n_layers"], precision="bf16")
+    torch.cuda.synchronize()
+    assert fused_encode_quantize.launches == before + 2 and torch.equal(got, again)
+    want = fused_encode_quantize_plain(x, w, cb, fields["n_layers"], precision="bf16")
+    differ = (got != want).any(1)
+    assert not (differ & ~bf16_near_tie_rows(x, w, cb)).any()
+
+
+@pytest.mark.parametrize("seed", [0, 2])
+def test_rq_encode_bf16_integer_inputs_bit_equal(cuda, seed):
+    x, weights, cbs = integer_bf16_case(seed)
+    got = fused_encode_quantize(x.to(cuda), [w.to(cuda) for w in weights], cbs.to(cuda), 3, precision="bf16")
+    want = fused_encode_quantize_plain(x, weights, cbs, 3, precision="bf16")
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_rq_encode_takes_any_operand_layout(cuda, precision):
+    """A view at an odd offset, a transposed weight and a bf16 x give the ids
+    of the aligned float32 operands (bf16 x: the values x rounds to)."""
+    rq, x = _rqvae(AMAZON_VAE, 2000, cuda)
+    w, cb = list(rq.encoder.kernels()), rq.codebooks.detach()
+    x16 = x.to(torch.bfloat16)
+    want = fused_encode_quantize(x, w, cb, 3, precision=precision)
+    want16 = fused_encode_quantize(x16.float(), w, cb, 3, precision=precision)
+    flat = torch.empty(x.numel() + 1, device=cuda)
+    offset = flat[1:].view(x.shape)
+    offset.copy_(x)
+    assert offset.data_ptr() % 16
+    w_t = [w[0].T.contiguous().T, *w[1:]]  # the same values, column-major
+    assert not w_t[0].is_contiguous()
+    cb_offset = torch.empty(cb.numel() + 1, device=cuda)[1:].view(cb.shape)
+    cb_offset.copy_(cb)
+    assert torch.equal(fused_encode_quantize(offset, w, cb, 3, precision=precision), want)
+    assert torch.equal(fused_encode_quantize(x, w_t, cb_offset, 3, precision=precision), want)
+    assert torch.equal(fused_encode_quantize(x16, w, cb, 3, precision=precision), want16)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_stack_kernels_take_strided_operands(cuda, dtype):
+    """A transposed (non-contiguous) operand gives the bits of the contiguous one."""
+    ops, eps = _encoder_operands(AMAZON_T5, dtype, 2, 67, cuda)
+    want = t5_encoder_stack_infer(*ops, eps=eps)
+    moved = list(ops)
+    moved[0] = ops[0].transpose(1, 2).contiguous().transpose(1, 2)  # x
+    moved[5] = ops[5].transpose(1, 2).contiguous().transpose(1, 2)  # wi
+    assert not moved[0].is_contiguous() and torch.equal(t5_encoder_stack_infer(*moved, eps=eps), want)
+    ops, eps = _decoder_operands(AMAZON_T5, dtype, 10, 2, 3, 80, cuda)
+    want = t5_decoder_stack_infer(*ops, eps=eps)
+    moved = list(ops)
+    moved[0] = ops[0].transpose(1, 2).contiguous().transpose(1, 2)  # x
+    moved[14] = ops[14].transpose(3, 4).contiguous().transpose(3, 4)  # the K cache
+    assert not moved[14].is_contiguous() and torch.equal(t5_decoder_stack_infer(*moved, eps=eps), want)
+
+
+def test_tokenizer_runs_kernel_1_in_bf16_in_the_index_build_only(cuda):
+    """As the JAX tokenizer: encode_batch takes the model path, the index
+    build one kernel launch at the default precision, bf16."""
+    rq, x = _rqvae(AMAZON_VAE, 3000, cuda, seed=2)
+    tok = SemanticIdTokenizer(rq, device=cuda)
+    assert tok.precision == "bf16"
+    before = fused_encode_quantize.launches
+    ids = tok.encode_batch(x)
+    assert fused_encode_quantize.launches == before
+    cached = tok.precompute_corpus_ids(x)
+    assert fused_encode_quantize.launches == before + 1
+    w, cb = rq.encoder.kernels(), rq.codebooks.detach()
+    differ = (cached[:, :3] != fused_encode_quantize_plain(x, w, cb, 3, precision="bf16")).any(1)
+    assert not (differ & ~bf16_near_tie_rows(x, w, cb)).any()
+    model = rq.get_semantic_ids(x).sem_ids
+    assert torch.equal(ids, model)
+
+
+def test_rqvae_train_step_on_card_matches_cpu(cuda):
+    """One f32 stage-1 step (STE and rotation trick, categorical features),
+    card against CPU: loss rtol 1e-5, every gradient within 2e-4 of its
+    largest entry; a step repeats bit for bit on the card."""
+    from rqvae_tpu_torch.train.rqvae_steps import make_rqvae_train_step
+    from rqvae_tpu_torch.train.state import adamw
+
+    for mode, n_cat in ((QuantizeForwardMode.STE, 0), (QuantizeForwardMode.ROTATION_TRICK, 4)):
+        cfg = RqVaeConfig(**{**SMALL_VAE, "n_cat_feats": n_cat}, codebook_mode=mode)
+        g = torch.Generator().manual_seed(3)
+        x = torch.randn(2, 64, 32, generator=g)
+        if n_cat:
+            x[..., -n_cat:] = (x[..., -n_cat:] > 0).float()
+        res = {}
+        for name, dev in (("card", cuda), ("cpu", torch.device("cpu")), ("card_again", cuda)):
+            model = RqVae(cfg, device=dev, seed=4)
+            step = make_rqvae_train_step(model, adamw(model.parameters(), 1e-3))
+            m = step(x.to(dev), None, 0.2)
+            res[name] = (m["total_loss"].item(), {n: p.grad.cpu() for n, p in model.named_parameters()})
+        assert res["card"][0] == pytest.approx(res["cpu"][0], rel=1e-5)
+        for n, want in res["cpu"][1].items():
+            assert (res["card"][1][n] - want).abs().max() <= 2e-4 * want.abs().max(), n
+            assert torch.equal(res["card"][1][n], res["card_again"][1][n]), n

@@ -177,9 +177,17 @@ def test_rq_encode_plain_matches_xla_path(pair):
     # the wrapper takes the plain version for CPU tensors only
     wrapped = fused_encode_quantize(torch.from_numpy(x), tm.encoder.kernels(), tm.codebooks.detach(), 3)
     np.testing.assert_array_equal(wrapped.numpy(), want)
-    with pytest.raises(NotImplementedError):
+    # bf16 is computed, not refused: on CPU tensors by the plain bf16 version
+    # (held against the Pallas kernel in tests/test_torch_rq_encode_bf16.py)
+    wrapped16 = fused_encode_quantize(torch.from_numpy(x), tm.encoder.kernels(), tm.codebooks.detach(), 3,
+                                      precision="bf16")
+    want16 = fused_encode_quantize_plain(torch.from_numpy(x), tm.encoder.kernels(), tm.codebooks.detach(), 3,
+                                         precision="bf16")
+    assert wrapped16.dtype == torch.int32 and wrapped16.shape == (x.shape[0], 3)
+    np.testing.assert_array_equal(wrapped16.numpy(), want16.numpy())
+    with pytest.raises(ValueError, match="precision"):
         fused_encode_quantize(torch.from_numpy(x), tm.encoder.kernels(), tm.codebooks.detach(), 3,
-                              precision="bf16")
+                              precision="fp16")
 
 
 def test_rq_encode_plain_matches_pallas_interpret(pair):

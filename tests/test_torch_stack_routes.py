@@ -4,7 +4,8 @@ kernel, `decoder_stack_route` for the decoder; the C libraries make the same
 choice, checked against them in tests/test_torch_kernels_gpu.py, which also
 holds the shared memory each route asks for: the C libraries compute it),
 the wrappers' refusals, before the library is loaded, of what neither route
-takes, and the copy of an operand that does not start on a 16-byte boundary.
+takes, and the operand preparation: a copy of an operand that is strided or
+does not start on a 16-byte boundary.
 Nothing here compiles or launches a kernel."""
 
 import pytest
@@ -12,7 +13,7 @@ import torch
 
 from rqvae_tpu_torch.ops.cuda import decoder_stack as D
 from rqvae_tpu_torch.ops.cuda import encoder_stack as E
-from rqvae_tpu_torch.ops.cuda._build import aligned16
+from rqvae_tpu_torch.ops.cuda._build import aligned16, launch_operand
 from rqvae_tpu_torch.ops.cuda.decoder_stack import decoder_stack_route
 from rqvae_tpu_torch.ops.cuda.encoder_stack import encoder_stack_route
 from rqvae_tpu_torch.ops.cuda.rows_core import tensor_core_widths
@@ -139,14 +140,38 @@ def test_wrappers_copy_unaligned_tensors():
 
 
 def test_wrappers_refuse_strided_tensors():
+    """Strided operands are not refused: they pass the checks, and the
+    operand preparation both wrappers launch from (`launch_operand`) returns
+    contiguous tensors on a 16-byte boundary holding the same values, as the
+    reference computes on arrays of any layout."""
     enc = list(_encoder_args(1, 4, 64, 1, 1, 64, 128, BF16))
-    enc[0] = torch.zeros(1, 64, 4, dtype=BF16).transpose(1, 2)
-    with pytest.raises(ValueError, match="contiguous"):
-        E._check_cuda(*enc)
+    enc[0] = torch.arange(64 * 4, dtype=BF16).reshape(1, 64, 4).transpose(1, 2)
+    assert not enc[0].is_contiguous() and E._check_cuda(*enc) == (1, 4, 64, 1, 1, 64, 128)
     dec = list(_decoder_args(1, 4, 64, 1, 1, 64, 128, 8, BF16))
-    dec[7] = torch.zeros(1, 128, 64, dtype=BF16).transpose(1, 2)
-    with pytest.raises(ValueError, match="contiguous"):
-        D._check_cuda(*dec)
+    dec[7] = torch.arange(128 * 64, dtype=BF16).reshape(1, 128, 64).transpose(1, 2)
+    assert not dec[7].is_contiguous() and D._check_cuda(*dec) == (1, 4, 64, 1, 1, 64, 128, 8)
+    for t in (enc[0], dec[7]):
+        ready = launch_operand(t)
+        assert ready.is_contiguous() and ready.data_ptr() % 16 == 0 and torch.equal(ready, t)
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32, torch.int32])
+@pytest.mark.parametrize("layout", ["transposed", "offset", "transposed_and_offset", "sliced_rows"])
+def test_launch_operand_is_contiguous_aligned_and_equal(layout, dtype):
+    """Every layout a caller may hand a wrapper becomes a contiguous tensor
+    on a 16-byte boundary with the caller's values; a tensor already so is
+    passed through without a copy."""
+    base = torch.arange(1 + 6 * 10, dtype=torch.float32).to(dtype)
+    t = {
+        "transposed": base[:60].reshape(6, 10).T,
+        "offset": base[1:61].reshape(6, 10),
+        "transposed_and_offset": base[1:61].reshape(6, 10).T,
+        "sliced_rows": base[:60].reshape(6, 10)[:, 2:7],
+    }[layout]
+    ready = launch_operand(t)
+    assert ready.is_contiguous() and ready.data_ptr() % 16 == 0 and ready.dtype == dtype
+    assert torch.equal(ready, t)
+    assert launch_operand(ready) is ready
 
 
 @pytest.mark.parametrize("dtype", [BF16, F32])
