@@ -7,25 +7,31 @@ Two published geometries, served and trained, weights made from seeds. Amazon Be
 RQ-VAE 768 -> [512, 256, 128] -> 32, 20-item histories (encoder rows
 Le = 80), 65,536 synthetic items. MovieLens-32M: RQ-VAE 788 -> [512, 256,
 128] -> 64, 200-item histories (Le = 800), 87,585 synthetic items (the
-dataset's movie count, no multiple of the 32 rows of an rq_encode block). Both:
+dataset's movie count, no multiple of the 64 rows of an rq_encode block). Both:
 3 x 256 codebooks; T5 d_model 384, 6 heads, d_kv 64, d_ff 1024, 4+4 layers,
 bf16, top-k 10, batches of 64 histories.
 
    1. card: name, count, power limit, torch/CUDA versions; builds the five
       CUDA kernels from rqvae_tpu_torch/csrc (one nvcc per source, in
       parallel) and prints each kernel's ptxas registers and spills; the
-      tensor-core kernels of encoder_stack and decoder_stack must spill
-      nothing;
-   2. rq_encode kernel against its plain version on the card (Amazon width),
-      precision="f32": identical ids except rows at an argmin near-tie: a
+      tensor-core kernels of encoder_stack, decoder_stack and rq_encode must
+      spill nothing;
+   2. rq_encode kernel against its plain version on the card (Amazon width;
+      each rq_encode phase prints its route, which must be "cuda_cores" in
+      f32 and "tensor_cores" in bf16, the rows per block, the shared memory
+      a block asks for and ptxas's registers and spills of each kernel-1
+      kernel), precision="f32": identical ids except rows at an argmin near-tie: a
       level whose top-2 distance gap, in float64, is below 1e-5 of
       ||res||^2 + max ||c||^2, the size of the terms the f32 distances are
       summed from; then in bf16, the index build's default: identical ids
       except rows in the bf16 near-tie set (a level whose top-2 gap along the
       bf16 path is within what one bf16 step of every residual element can
-      move it), two integer-valued cases (every f32 sum exact, so the
-      rounding points alone decide) bit-equal, two launches bit-equal, and
-      the index build's time in bf16 beside f32;
+      move it), integer-valued cases (every f32 sum exact, so the rounding
+      points alone decide) bit-equal: two at small widths and two at the
+      Amazon widths, which take the tensor-core route; two launches
+      bit-equal; the rows whose ids differ from a float64 model of the
+      tensor-core route's sums (tc_sum_model_ids), reported; and the index
+      build's time in bf16 beside f32;
    3. decoder_stack kernel against its plain version on the card (B = 64,
       Le = 80, kT = 1, 20, 30): max abs error <= 1e-3 in f32 and <= 6e-2 in
       bf16 (bf16 rounding of the residual stream over 4 layers: a summation
@@ -42,6 +48,8 @@ bf16, top-k 10, batches of 64 histories.
       building its own index (the card's by rq_encode at precision="f32"): ids identical except near-tie rows, all 10
       beams identical on >= 95% of the queries;
    6. rq_encode at the ML-32M width, 87,585 x 788, as in 2, both precisions;
+      then at the ML-1M width (configs/rqvae_ml1m.gin: 786 inputs, not a
+      multiple of 4, on 3,883 items, the dataset's movie count), as in 2;
    7. attention kernel against its plain version at q, k, v [64, 6, 800, 64]
       (bf16: the tiled route) and at the Amazon training shape
       [640, 6, 80, 64] (bf16: the whole-row route), with ragged key masks and
@@ -155,6 +163,7 @@ BATCH = 64
 CALLS = 3
 AMAZON = dict(items=65536, history=20, input_dim=768, embed_dim=32)
 ML32M = dict(items=87585, history=200, input_dim=788, embed_dim=64)
+ML1M = dict(items=3883, input_dim=786, embed_dim=32)  # configs/rqvae_ml1m.gin; MovieLens-1M's movie count
 CPU_QUERIES_ML32M = 8
 ID_NEAR_TIE = 1e-5  # top-2 gap relative to ||res||^2 + max ||c||^2
 DECODER_TOL = {torch.float32: 1e-3, torch.bfloat16: 6e-2}
@@ -173,6 +182,7 @@ ENCODER_TOL = {torch.float32: (1e-3, 1e-5), torch.bfloat16: (1.5e-1, 4e-3)}  # (
 BEAMS_SAME_MIN = 0.95
 BF16_TOP1_MIN, BF16_OVERLAP_MIN = 0.8, 0.9  # two bf16 routes: first beam equal; beams in common
 DEVICE = "cuda"  # the card; a CPU rehearsal of the control flow may set "cpu"
+PTXAS = {}  # each source's ptxas rows, from phase 1
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
                "bound_ms", "bound_by", "library_ms")
 
@@ -359,6 +369,23 @@ def retrieval_model(dtype: str, dev, **over):
     return EncoderDecoderRetrievalModel(cfg, device=dev, seed=2)
 
 
+def rq_encode_layout(x: torch.Tensor, weights, cbs, precision: str) -> dict:
+    """Kernel 1's route for these operands, its rows per block and the shared
+    memory a block asks for (from the library), and ptxas's registers and
+    spills for each kernel-1 kernel."""
+    import ctypes
+
+    from rqvae_tpu_torch.ops.cuda import rq_encode as R
+
+    dims, K = [x.shape[1], *(w.shape[1] for w in weights)], cbs.shape[1]
+    route = R.rq_encode_route(dims, K, dims[-1], precision)
+    widths, kp = R.prepared_widths(dims, K)
+    lib = R._library()
+    smem = lib.rq_encode_smem_bytes((ctypes.c_int * len(widths))(*widths), len(weights), kp, R.ROUTES.index(route))
+    return {"route": route, "rows_per_block": lib.rq_encode_rows_per_block(), "smem_bytes": smem,
+            "ptxas": PTXAS.get("rq_encode")}
+
+
 def rq_encode_phase(phase: str, rq, x: torch.Tensor):
     """rq_encode kernel against its plain version over the corpus `x`; returns
     the kernel's row of the `kernels` line and the near-tie rows."""
@@ -385,7 +412,9 @@ def rq_encode_phase(phase: str, rq, x: torch.Tensor):
         "max_abs_err": float((got - want)[~near].abs().max().item()) if (~near).any() else 0.0,
         "ms": enc_ms, "plain_ms": enc_plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     }
-    emit({"phase": phase, "items": n, "widths": [x.shape[1], *(w.shape[1] for w in weights)],
+    layout = rq_encode_layout(x, weights, cbs, "f32")
+    check(layout["route"] == "cuda_cores", f"{phase}: float32 took {layout['route']}")
+    emit({"phase": phase, "items": n, "widths": [x.shape[1], *(w.shape[1] for w in weights)], **layout,
           "rows_differ": int(differ.sum()), "near_tie_rows": int(near.sum()),
           "differ_outside_near_ties": int(outside.sum()),
           "kernel_ms": enc_ms, "plain_ms": enc_plain_ms, "bound_ms": b_ms, "bound_by": b_by})
@@ -419,6 +448,37 @@ def bf16_near_tie_rows(x, weights, codebooks):
     return near
 
 
+def tc_sum_model_ids(x, weights, codebooks) -> torch.Tensor:
+    """Kernel 1's bf16 ids as its tensor-core route sums them, modelled in
+    float64: each k step's products (8 deep in the first layer, 16 after)
+    summed exactly and rounded toward zero to float32, as the tensor cores
+    round their sums, and the steps added in float32 in ascending k."""
+    r16 = lambda t: t.to(torch.bfloat16).float()
+
+    def rz(v):
+        f = v.float()
+        return torch.where(f.double().abs() > v.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
+
+    def mm(a, b, step):
+        acc = torch.zeros(a.shape[0], b.shape[1], device=a.device)
+        for k0 in range(0, a.shape[1], step):
+            acc = acc + rz(a[:, k0:k0 + step].double() @ b[k0:k0 + step].double())
+        return acc
+
+    h = r16(x)
+    for i, w in enumerate(weights):
+        h = mm(h, r16(w), 8 if i == 0 else 16)
+        h = r16(torch.relu(h) if i != len(weights) - 1 else h)
+    cb32 = codebooks.float()
+    cb2, cb = (cb32 * cb32).sum(-1), r16(cb32)
+    ids = []
+    for level in range(cb.shape[0]):
+        idx = (cb2[level][None] - 2.0 * mm(h, cb[level].T.contiguous(), 16)).argmin(-1)
+        h = r16(h - cb[level][idx])
+        ids.append(idx.to(torch.int32))
+    return torch.stack(ids, 1)
+
+
 def integer_bf16_case(seed: int, n: int = 512, k: int = 16, d: int = 8):
     """Integer-valued x, weights and codebooks whose float32 sums are exact in
     any order and whose bf16 roundings change values, so kernel 1's bf16 ids
@@ -436,6 +496,35 @@ def integer_bf16_case(seed: int, n: int = 512, k: int = 16, d: int = 8):
     cbs = []
     for _ in range(3):
         cb = h[torch.from_numpy(r.choice(n, k, replace=False))] + torch.from_numpy(r.randint(-20, 21, (k, d))).float()
+        cb = torch.where(cb % 2 == 0, cb + 1, cb)
+        cb[k - 3] = cb[2]
+        cbs.append(cb)
+        dist = (cb * cb).sum(-1)[None] - 2 * h @ round_bf16(cb).T
+        h = round_bf16(h - round_bf16(cb)[dist.argmin(-1)])
+    return x, weights, torch.stack(cbs)
+
+
+def integer_bf16_case_wide(seed: int, n: int = 1024, widths=(768, 512, 256, 128, 32), k: int = 256):
+    """integer_bf16_case at the Amazon widths, which take the tensor-core
+    route: x in {-1, 0, 1}, sparse weights in {-1, 0, 1} (one entry in 4, 16,
+    16 and 32 nonzero, so every float32 sum stays below 2^24 and is exact in
+    any order and alignment, while layer outputs pass 256 and bf16 rounds
+    them), codewords odd integers near residuals (one duplicated)."""
+    from rqvae_tpu_torch.ops.cuda.rq_encode import round_bf16
+
+    r = np.random.RandomState(seed)
+    x = torch.from_numpy(r.randint(-1, 2, (n, widths[0])).astype(np.float32))
+    weights = []
+    for (a, b), every in zip(zip(widths[:-1], widths[1:]), (4, 16, 16, 32)):
+        w = r.randint(-1, 2, (a, b)) * (r.randint(0, every, (a, b)) == 0)
+        weights.append(torch.from_numpy(w.astype(np.float32)))
+    h = x
+    for i, w in enumerate(weights):
+        h = round_bf16(torch.relu(h @ w) if i < len(weights) - 1 else h @ w)
+    cbs = []
+    for _ in range(3):
+        cb = h[torch.from_numpy(r.choice(n, k, replace=False))]
+        cb = cb + torch.from_numpy(r.randint(-200, 201, (k, widths[-1]))).float()
         cb = torch.where(cb % 2 == 0, cb + 1, cb)
         cb[k - 3] = cb[2]
         cbs.append(cb)
@@ -463,23 +552,31 @@ def rq_encode_bf16_phase(phase: str, rq, x: torch.Tensor, dev) -> dict:
         differ = (got != want).any(1)
         outside = differ & ~near
         check(int(outside.sum()) == 0, f"{phase}: {int(outside.sum())} rows differ outside the bf16 near-ties")
+        model_differ = int((got != tc_sum_model_ids(x, weights, cbs)).any(1).sum())  # reported, not gated
         f32_ids = fused_encode_quantize(x, weights, cbs, 3, precision="f32")
         exact = {}
-        for seed in (0, 2):
-            xi, wi, ci = integer_bf16_case(seed)
-            k_ids = fused_encode_quantize(xi.to(dev), [w.to(dev) for w in wi], ci.to(dev), 3, precision="bf16")
-            exact[seed] = bool(torch.equal(k_ids.cpu(), fused_encode_quantize_plain(xi, wi, ci, 3, precision="bf16")))
+        for case, make in (("", integer_bf16_case), ("amazon_widths_", integer_bf16_case_wide)):
+            for seed in (0, 2):
+                xi, wi, ci = make(seed)
+                k_ids = fused_encode_quantize(xi.to(dev), [w.to(dev) for w in wi], ci.to(dev), 3, precision="bf16")
+                want_i = fused_encode_quantize_plain(xi, wi, ci, 3, precision="bf16")
+                exact[f"{case}{seed}"] = bool(torch.equal(k_ids.cpu(), want_i))
         check(all(exact.values()), f"{phase}: integer-valued inputs differ from the plain version: {exact}")
+        wide = rq_encode_layout(xi, wi, ci, "bf16")["route"]
+        check(wide == "tensor_cores", f"{phase}: the Amazon-width integer case took {wide}")
         k_ms = cuda_ms(lambda: fused_encode_quantize(x, weights, cbs, 3, precision="bf16"), reps=20)
         p_ms = cuda_ms(lambda: fused_encode_quantize_plain(x, weights, cbs, 3, precision="bf16"), reps=20)
     K, D = cbs.shape[1], cbs.shape[2]
     macs = sum(w.shape[0] * w.shape[1] for w in weights) + 3 * K * D
     b_ms, b_by = bound_ms(2 * n * macs, H100_BF16_FLOPS, nbytes_of(x, *weights, cbs, got))
     index_ms = {prec: build_index(rq, x, dev, precision=prec)[2] for prec in ("bf16", "f32", "bf16", "f32")}
-    emit({"phase": phase, "items": n, "widths": [x.shape[1], *(w.shape[1] for w in weights)],
+    layout = rq_encode_layout(x, weights, cbs, "bf16")
+    check(layout["route"] == "tensor_cores", f"{phase}: bf16 took {layout['route']}")
+    emit({"phase": phase, "items": n, "widths": [x.shape[1], *(w.shape[1] for w in weights)], **layout,
           "rows_differ": int(differ.sum()), "bf16_near_tie_rows": int(near.sum()),
           "differ_outside_near_ties": int(outside.sum()),
-          "rows_differ_from_f32": int((got != f32_ids).any(1).sum()), "integer_case_bit_equal": exact,
+          "rows_differ_from_f32": int((got != f32_ids).any(1).sum()), "rows_differ_from_sum_model": model_differ,
+          "integer_case_bit_equal": exact,
           "bit_equal_repeat": True, "kernel_ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
           "index_build_ms_bf16": index_ms["bf16"], "index_build_ms_f32": index_ms["f32"]})
     return {"bf16_ms": k_ms, "bf16_plain_ms": p_ms, "bf16_bound_ms": b_ms, "bf16_bound_by": b_by,
@@ -1368,7 +1465,8 @@ def main() -> int:
     logs = _build.build_all()
     build_s = time.perf_counter() - t0
     ptxas = {name: ptxas_summary(log) for name, log in logs.items()}
-    for name in ("encoder_stack", "decoder_stack"):  # the tensor-core stack kernels spill nothing
+    PTXAS.update(ptxas)
+    for name in ("encoder_stack", "decoder_stack", "rq_encode"):  # the tensor-core kernels spill nothing
         tc = [row for row in ptxas[name] if "tc_kernel" in row[0]]
         check(bool(tc) and all(row[2] == 0 and row[3] == 0 for row in tc),
               f"{name}: tensor-core kernel ptxas {tc}")
@@ -1412,6 +1510,11 @@ def main() -> int:
     kernels["rq_encode"]["amazon_ms"] = rq_amazon_row["ms"]
     kernels["rq_encode"].update(rq_encode_bf16_phase("rq_encode_bf16_ml32m", rq, x, dev))
     kernels["rq_encode"].update({f"amazon_{k}": v for k, v in rq_amazon_bf16.items()})
+    kernels["rq_encode"]["kernel_routes"] = {"bf16": "tensor_cores", "f32": "cuda_cores"}
+    rq1m, _, x1m = make_rqvae(ML1M, dev)  # ML-1M's 786 inputs: the width the wrapper used to refuse
+    kernels["rq_encode"]["ml1m_ms"] = rq_encode_phase("rq_encode_ml1m", rq1m, x1m)[0]["ms"]
+    kernels["rq_encode"]["ml1m_bf16_ms"] = rq_encode_bf16_phase("rq_encode_bf16_ml1m", rq1m, x1m, dev)["bf16_ms"]
+    del rq1m, x1m
     kernels["attention"] = attention_phase(dev)
     models = {dt: retrieval_model(dtype_name(dt), dev) for dt in (torch.bfloat16, torch.float32)}
     kernels["encoder_stack"] = encoder_stack_phase(models, dev)

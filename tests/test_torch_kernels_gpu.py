@@ -631,6 +631,35 @@ def integer_bf16_case(seed, n=512, k=16, d=8):
     return x, weights, torch.stack(cbs)
 
 
+def integer_bf16_case_wide(seed, n=1024, widths=(768, 512, 256, 128, 32), k=256):
+    """integer_bf16_case at the Amazon widths, which take the tensor-core
+    route: x in {-1, 0, 1}, sparse weights in {-1, 0, 1} (one entry in 4, 16,
+    16 and 32 nonzero, so every float32 sum stays below 2^24 and is exact in
+    any order and alignment, while layer outputs pass 256 and bf16 rounds
+    them), codewords odd integers near residuals (one duplicated)."""
+    from rqvae_tpu_torch.ops.cuda.rq_encode import round_bf16
+
+    r = np.random.RandomState(seed)
+    x = torch.from_numpy(r.randint(-1, 2, (n, widths[0])).astype(np.float32))
+    weights = []
+    for (a, b), every in zip(zip(widths[:-1], widths[1:]), (4, 16, 16, 32)):
+        w = r.randint(-1, 2, (a, b)) * (r.randint(0, every, (a, b)) == 0)
+        weights.append(torch.from_numpy(w.astype(np.float32)))
+    h = x
+    for i, w in enumerate(weights):
+        h = round_bf16(torch.relu(h @ w) if i < len(weights) - 1 else h @ w)
+    cbs = []
+    for _ in range(3):
+        cb = h[torch.from_numpy(r.choice(n, k, replace=False))]
+        cb = cb + torch.from_numpy(r.randint(-200, 201, (k, widths[-1]))).float()
+        cb = torch.where(cb % 2 == 0, cb + 1, cb)
+        cb[k - 3] = cb[2]
+        cbs.append(cb)
+        dist = (cb * cb).sum(-1)[None] - 2 * h @ round_bf16(cb).T
+        h = round_bf16(h - round_bf16(cb)[dist.argmin(-1)])
+    return x, weights, torch.stack(cbs)
+
+
 @pytest.mark.parametrize("fields,n", [(AMAZON_VAE, 8192), (AMAZON_VAE, 31), (AMAZON_VAE, 1), (ML32M_VAE, 8191),
                                       (ML32M_VAE, 33), (SYNTHETIC_VAE, 1000), (SYNTHETIC_VAE, 7), (ODD_VAE, 333)])
 def test_rq_encode_bf16_kernel_matches_plain(cuda, fields, n):
@@ -738,3 +767,108 @@ def test_rqvae_train_step_on_card_matches_cpu(cuda):
         for n, want in res["cpu"][1].items():
             assert (res["card"][1][n] - want).abs().max() <= 2e-4 * want.abs().max(), n
             assert torch.equal(res["card"][1][n], res["card_again"][1][n]), n
+
+
+ML1M_VAE = dict(input_dim=786, embed_dim=32, hidden_dims=(512, 256, 128), codebook_size=256, n_layers=3)
+
+
+def _route(fields, precision):
+    from rqvae_tpu_torch.ops.cuda.rq_encode import rq_encode_route
+
+    dims = (fields["input_dim"], *fields["hidden_dims"], fields["embed_dim"])
+    return rq_encode_route(dims, fields["codebook_size"], fields["embed_dim"], precision)
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_rq_encode_at_the_ml1m_width(cuda, precision):
+    """786 inputs (configs/rqvae_ml1m.gin), which the wrapper refused: both
+    precisions compute, equal to the plain version outside near-ties, and the
+    tokenizer's index build runs the kernel."""
+    rq, x = _rqvae(ML1M_VAE, 3883, cuda)  # ML-1M's movie count
+    w, cb = rq.encoder.kernels(), rq.codebooks.detach()
+    assert _route(ML1M_VAE, precision) == ("tensor_cores" if precision == "bf16" else "cuda_cores")
+    got = fused_encode_quantize(x, w, cb, 3, precision=precision)
+    want = fused_encode_quantize_plain(x, w, cb, 3, precision=precision)
+    near = bf16_near_tie_rows(x, w, cb) if precision == "bf16" else _near_ties(x, w, cb)
+    assert not ((got != want).any(1) & ~near).any()
+    before = fused_encode_quantize.launches
+    cached = SemanticIdTokenizer(rq, device=cuda, precision=precision).precompute_corpus_ids(x)
+    assert fused_encode_quantize.launches == before + 1 and torch.equal(cached[:, :3], got)
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 129, 87585])
+def test_rq_encode_at_tile_boundaries(cuda, precision, n):
+    """Row counts around the 64-row block of both routes, and ML-32M's 87,585
+    (a ragged last tile of 33 rows): the route by precision, ids equal to the
+    plain version's outside near-ties, and rows past n never written."""
+    from rqvae_tpu_torch.ops.cuda.rq_encode import ROWS_PER_BLOCK
+
+    assert ROWS_PER_BLOCK == 64
+    rq, x = _rqvae(ML32M_VAE, max(n, 1024), cuda, seed=3)
+    x = x[:n]
+    w, cb = rq.encoder.kernels(), rq.codebooks.detach()
+    assert _route(ML32M_VAE, precision) == ("tensor_cores" if precision == "bf16" else "cuda_cores")
+    got = fused_encode_quantize(x, w, cb, 3, precision=precision)
+    assert got.shape == (n, 3) and got.dtype == torch.int32
+    want = fused_encode_quantize_plain(x, w, cb, 3, precision=precision)
+    near = bf16_near_tie_rows(x, w, cb) if precision == "bf16" else _near_ties(x, w, cb)
+    assert not ((got != want).any(1) & ~near).any()
+    assert int(got.min()) >= 0 and int(got.max()) < 256
+
+
+@pytest.mark.parametrize("seed", [0, 2])
+def test_rq_encode_tensor_cores_integer_inputs_bit_equal(cuda, seed):
+    """The integer case at the Amazon widths, on the tensor-core route: every
+    float32 sum is exact, so the ids equal the plain version's on every row."""
+    x, weights, cbs = integer_bf16_case_wide(seed)
+    assert _route(AMAZON_VAE, "bf16") == "tensor_cores"
+    got = fused_encode_quantize(x.to(cuda), [w.to(cuda) for w in weights], cbs.to(cuda), 3, precision="bf16")
+    assert torch.equal(got.cpu(), fused_encode_quantize_plain(x, weights, cbs, 3, precision="bf16"))
+
+
+@pytest.mark.parametrize("fields,precision", [(AMAZON_VAE, "bf16"), (AMAZON_VAE, "f32"), (ML1M_VAE, "bf16"),
+                                              (SMALL_VAE, "bf16")])
+def test_rq_encode_repeats_bit_equal_on_each_route(cuda, fields, precision):
+    rq, x = _rqvae(fields, 5000, cuda, seed=4)
+    w, cb = rq.encoder.kernels(), rq.codebooks.detach()
+    runs = [fused_encode_quantize(x, w, cb, fields["n_layers"], precision=precision) for _ in range(3)]
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+
+
+def test_rq_encode_shared_memory_matches_the_library(cuda):
+    """The Python estimate of each route's shared memory is the C library's,
+    at every shipped stage-1 width and at a few others."""
+    import ctypes
+    import glob
+
+    from rqvae_tpu_torch.ops.cuda import rq_encode as R
+    from rqvae_tpu_torch.utils.config import parse_config_file
+
+    lib = R._library()
+    assert lib.rq_encode_rows_per_block() == R.ROWS_PER_BLOCK
+    shapes = []
+    for path in glob.glob("configs/rqvae_*.gin"):
+        cfg = parse_config_file(path)
+        shapes.append(((cfg["vae_input_dim"], *cfg["vae_hidden_dims"], cfg["vae_embed_dim"]), cfg["vae_codebook_size"]))
+    shapes += [((40, 24, 8), 16), ((100, 64), 512), ((2048, 512, 16), 64)]
+    for dims, K in shapes:
+        widths, kp = R.prepared_widths(dims, K)
+        c_dims = (ctypes.c_int * len(widths))(*widths)
+        for code, route in enumerate(R.ROUTES):
+            assert lib.rq_encode_smem_bytes(c_dims, len(widths) - 1, kp, code) == R.rq_encode_smem_bytes(
+                widths, kp, route), (dims, K, route)
+
+
+def test_rq_encode_library_refuses_a_route_that_does_not_take_the_shape(cuda, monkeypatch):
+    """The library launches the route it is given or refuses: float32 sent to
+    the tensor-core route raises, and nothing falls back."""
+    from rqvae_tpu_torch.ops.cuda import rq_encode as R
+
+    rq, x = _rqvae(AMAZON_VAE, 256, cuda)
+    w, cb = rq.encoder.kernels(), rq.codebooks.detach()
+    monkeypatch.setattr(R, "rq_encode_route", lambda *a: "tensor_cores")
+    with pytest.raises(RuntimeError, match="rq_encode"):
+        fused_encode_quantize(x, w, cb, 3, precision="f32")
+    with pytest.raises(ValueError, match="up to 512"):
+        fused_encode_quantize(x, [torch.randn(768, 1024, device=cuda), torch.randn(1024, 32, device=cuda)], cb, 3)
