@@ -135,6 +135,39 @@ bf16, top-k 10, batches of 64 histories.
       batch, card against CPU: loss rtol 1e-5, every gradient within 2e-4 of
       its largest entry (batch rows at an f32 argmin near-tie left out).
 
+  19. rq_encode_packed: kernel 1's emit_packed epilogue at the Amazon width,
+      f32 and bf16: ids equal to an unpacked launch's, the key column equal
+      to pack_sem_id_tuples of them; the epilogue's extra ms;
+  20. checkpoint_interop: the committed checkpoints that flax wrote
+      (tests/fixtures/jax_synthetic/) served on the card through
+      Retriever.from_checkpoints in f32: item ids and beams equal to the JAX
+      package's stored results, log-probas within 1e-4;
+  21. sampled_candidates: sample_candidates=True over the fixture's weights,
+      card against CPU in f32, both fed the same Gumbel noise: all beams
+      equal on >= 95% of the queries;
+  22. serve_amazon and serve_ml32m: seeded full-width weights written as
+      JAX-format checkpoints; a first from_checkpoints start builds and saves
+      the index (rq_encode launched once), a second loads it (no time);
+      RetrievalEngine.warmup() captures one CUDA graph per (batch, items)
+      bucket (Amazon 4 x 3, ML-32M 4 x 6); per bucket the encoder and decoder
+      routes, the replay equal to eager bit for bit, each launch of kernels 2
+      and 3 in the bucket's eager call held against its plain version on the
+      same operands (the gates of phases 3 and 8; the bf16 decoder, whose
+      tokens come from the bf16 index, to phase 8's bf16 pair), the nodes of
+      the engine's graph (its debug dump, kernels demangled) equal by name to
+      one eager call's launches (profiler), eager and replayed ms (CUDA events
+      and host clock) and one profiled replay's device ms and idle share;
+      retrieve_many over 256 mixed-length
+      histories equal to the eager engine's; the graph pool's memory;
+  23. corpus_growth: at the Amazon width with capacity n + 4,096, the 4,096
+      items admitted after capture (kernel 1 once, no corpus tensor moved),
+      the ids and dedup column equal to a full rebuild's, and the replays
+      equal to an engine over the rebuilt corpus, admitted items returned;
+  24. queue: an AsyncRetrievalEngine over the Amazon engine at two offered
+      rates (every future equal to its flush's retrieve_many row; p50 / p99
+      latency and flush sizes printed), then past saturation with a bounded
+      queue and deadlines (rejects and sheds printed, not gated).
+
 Each phase prints one JSON line. Then the `kernels` line, the card's
 `nvidia-smi` name and power limit, and last `{"ok": true, "device": ...}`.
 Any failed check raises: the script exits non-zero and prints no last line.
@@ -146,6 +179,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -183,6 +217,7 @@ BEAMS_SAME_MIN = 0.95
 BF16_TOP1_MIN, BF16_OVERLAP_MIN = 0.8, 0.9  # two bf16 routes: first beam equal; beams in common
 DEVICE = "cuda"  # the card; a CPU rehearsal of the control flow may set "cpu"
 PTXAS = {}  # each source's ptxas rows, from phase 1
+DEVICE_COPY = "device copy or memset"  # profile_call's one name for them
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
                "bound_ms", "bound_by", "library_ms")
 
@@ -320,29 +355,49 @@ def histories(n_items: int, length: int, seed: int) -> np.ndarray:
     return np.where(np.arange(length)[None, :] < lengths[:, None], ids, -1).astype(np.int32)
 
 
-def profile_call(fn, top: int = 8) -> dict:
+def profile_call(fn, top: int = 8, by_name: bool = False) -> dict:
     """Device time of one call of `fn` by kernel (torch.profiler, CUPTI),
-    after one warm call: the call's host time, the summed device time and
-    launch count, the device's idle share of the call, and the `top`
-    kernels by device time."""
-    from torch.profiler import ProfilerActivity, profile
+    after one warm call and a warm-up step inside the profiler (without it
+    the first kernels of the window can go missing): the call's host time,
+    the summed device time and launch count, the device's idle share of the
+    call, the `top` kernels by device time, and if `by_name` the count of
+    each kernel by name, device copies and memsets under one name (host
+    transfers apart). The schedule's `ProfilerStep*` row is a device row
+    spanning the whole step, not a launch: it is left out."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()  # warm
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3
-    rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        prof.step()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and not e.key.startswith("ProfilerStep")]
     rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
     device_ms = sum(e.self_device_time_total for e in rows) / 1e3
-    return {
+    out = {
         "host_ms": host_ms, "device_ms": device_ms, "device_launches": sum(e.count for e in rows),
         "device_idle_share": max(0.0, 1.0 - device_ms / host_ms) if host_ms else None,
         "kernels": [{"name": e.key[:60], "count": e.count, "ms": e.self_device_time_total / 1e3}
                     for e in rows[:top]],
     }
+    if not by_name:
+        return out
+    names, transfers = {}, 0
+    for e in rows:
+        if "HtoD" in e.key or "DtoH" in e.key:
+            transfers += e.count
+            continue
+        key = DEVICE_COPY if e.key.lower().startswith(("memcpy", "memset")) else e.key
+        names[key] = names.get(key, 0) + e.count
+    return {**out, "names": names, "transfers": transfers}
 
 
 def make_rqvae(geo: dict, dev):
@@ -825,6 +880,13 @@ class LaunchCounts:
     def read(self) -> dict:
         return {**{name: fn.launches for name, fn in self.wrappers.items()},
                 "attention_bwd": self.wrappers["attention"].backward_launches}
+
+    def restore(self, counts: dict) -> None:
+        """Set the counters back to what `read` returned, dropping launches
+        made since (those that hold a kernel against its plain version)."""
+        for name, fn in self.wrappers.items():
+            fn.launches = counts[name]
+        self.wrappers["attention"].backward_launches = counts["attention_bwd"]
 
 
 def retrieve_calls(retriever, hist):
@@ -1445,6 +1507,515 @@ def train_profile_phase(step, tables, dev, top: int = 12) -> None:
                       for e in rows[:top]]})
 
 
+# ---- serving as it is deployed: checkpoints, saved index, bucket graphs, growth, queue ----
+
+FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures", "jax_synthetic")
+FIXTURE_LOGP_TOL = 1e-4  # card (kernels, f32) against the JAX XLA path's stored log-probas
+GROWTH = 4096  # items admitted after capture at the Amazon width
+QUEUE = dict(requests=1024, rates=(250.0, 1000.0), overload_requests=4096, overload_depth=256,
+             overload_deadline_ms=50.0)
+
+
+def rq_encode_packed_phase(rq, x) -> dict:
+    """Kernel 1's emit_packed epilogue at the Amazon width, both precisions:
+    ids equal to an unpacked launch's, the key column equal to
+    pack_sem_id_tuples of them; the epilogue's extra ms."""
+    from rqvae_tpu_torch.ops.cuda.rq_encode import fused_encode_quantize
+    from rqvae_tpu_torch.ops.dedup import pack_sem_id_tuples
+
+    w, cb = rq.encoder.kernels(), rq.codebooks.detach()
+    out = {}
+    with torch.no_grad():
+        for precision in ("f32", "bf16"):
+            ids = fused_encode_quantize(x, w, cb, 3, precision=precision)
+            packed = fused_encode_quantize(x, w, cb, 3, precision=precision, emit_packed=True)
+            sync()
+            check(torch.equal(packed[:, :3], ids), f"rq_encode_packed {precision}: ids differ from the unpacked launch")
+            check(torch.equal(packed[:, 3], pack_sem_id_tuples(ids, cb.shape[1])),
+                  f"rq_encode_packed {precision}: key column differs from pack_sem_id_tuples")
+            plain_ms = cuda_ms(lambda: fused_encode_quantize(x, w, cb, 3, precision=precision), reps=20)
+            packed_ms = cuda_ms(lambda: fused_encode_quantize(x, w, cb, 3, precision=precision, emit_packed=True),
+                                reps=20)
+            out[precision] = {"ms": packed_ms, "unpacked_ms": plain_ms, "extra_ms": packed_ms - plain_ms}
+    emit({"phase": "rq_encode_packed", "items": int(x.shape[0]), "ids_equal": True, "key_equal": True, **out})
+    return {f"packed_{p}_extra_ms": v["extra_ms"] for p, v in out.items()}
+
+
+def our_kernels(names: dict) -> dict:
+    """The count of the port's kernels among kernel names."""
+    keys = {"rq_encode": "rq_encode", "decoder_stack": "decoder_stack", "encoder_stack": "encoder_rows",
+            "attention": "attention"}
+    return {k: sum(c for n, c in names.items() if pat in n) for k, pat in keys.items()}
+
+
+def demangle(name: str) -> str:
+    """A C++ symbol as the profiler names its kernel (libstdc++'s
+    __cxa_demangle); a name that is not mangled comes back as it is."""
+    import ctypes
+
+    fn = ctypes.CDLL("libstdc++.so.6").__cxa_demangle
+    fn.restype, fn.argtypes = ctypes.c_void_p, [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_void_p,
+                                                ctypes.POINTER(ctypes.c_int)]
+    status = ctypes.c_int()
+    ptr = fn(name.encode(), None, None, ctypes.byref(status))
+    if status.value or not ptr:
+        return name
+    out = ctypes.string_at(ptr).decode()
+    free = ctypes.CDLL("libc.so.6").free
+    free.argtypes = [ctypes.c_void_p]
+    free(ptr)
+    return out
+
+
+def graph_nodes(graph, root: str) -> dict:
+    """The nodes of one of the engine's bucket graphs (kept at capture), read
+    from its debug dump: each kernel by its demangled name and the copy and
+    memset nodes under profile_call's one name for them."""
+    path = os.path.join(root, "graph.dot")
+    graph.debug_dump(path)
+    with open(path) as f:
+        text = f.read()
+    kinds = re.findall(r'label="\{\n?([A-Z_]+)\n', text)
+    names = {}
+    for name in re.findall(r'label="\{KERNEL\n\| \{ID \| \d+ \(topoId: \d+\) \| ([^}\\]*)', text):
+        name = demangle(name)
+        names[name] = names.get(name, 0) + 1
+    check(sum(names.values()) == kinds.count("KERNEL") > 0, f"graph dump: {len(kinds)} nodes not read")
+    check(set(kinds) <= {"KERNEL", "MEMCPY", "MEMSET"}, f"graph dump: node kinds {sorted(set(kinds))}")
+    copies = kinds.count("MEMCPY") + kinds.count("MEMSET")
+    return {**names, DEVICE_COPY: copies} if copies else names
+
+
+def kernels_against_plain(fn, counts) -> list:
+    """Kernels 2 and 3 at the shapes one call of `fn` gives them: the call
+    runs with both wrappers recording their operands, and each recorded
+    launch is held against its plain version on the same operands with the
+    decoder_stack and encoder_stack phases' gates (the bf16 decoder with the
+    encoder phase's bf16 pair, see below). Launches made here do not count. Returns one row per launch: kernel, output shape, route, errors."""
+    from rqvae_tpu_torch.models import t5
+    from rqvae_tpu_torch.ops.cuda import decoder_stack as D
+    from rqvae_tpu_torch.ops.cuda import encoder_stack as E
+
+    plain = {"t5_decoder_stack_infer": D.t5_decoder_stack_plain, "t5_encoder_stack_infer": E.t5_encoder_stack_plain}
+    kernel = {name: getattr(t5, name) for name in plain}
+    calls = []
+
+    def recording(name):
+        def run(*ops, eps):
+            y = kernel[name](*ops, eps=eps)
+            calls.append((name, ops, eps, y))
+            return y
+        return run
+
+    before = counts.read()
+    for name in plain:
+        setattr(t5, name, recording(name))
+    try:
+        with torch.no_grad():
+            fn()
+    finally:
+        for name, f in kernel.items():
+            setattr(t5, name, f)
+    rows = []
+    with torch.no_grad():
+        for name, ops, eps, y in calls:
+            y_plain = plain[name](*ops, eps=eps)
+            dt = ops[0].dtype
+            if name == "t5_decoder_stack_infer":
+                B, kT, d, NL, H, dk, dff, Le = D._check_cuda(*ops)
+                tol, mean_tol = DECODER_TOL[dt], None
+                if dt == torch.bfloat16:
+                    # the tokens come from the bf16 index, where one flipped bf16 rounding of the
+                    # residual stream crosses the decoder phase's 0.06 by a step (0.0625, PERF.md
+                    # section 7): the bf16 pair of the encoder phase, the entries above 0.06 counted
+                    tol, mean_tol = ENCODER_TOL[dt]
+                route = D.decoder_stack_route(kT, d, dk, H * dk, dff, Le, dt)
+            else:
+                B, L, d, NL, H, dk, dff = E._check_cuda(*ops)
+                tol, mean_tol = ENCODER_TOL[dt]
+                route = E.encoder_stack_route(d, dk, H * dk, dff, dt)
+            errs = error_distribution(y, y_plain, tol)
+            what = f"{name[3:16]} {dtype_name(dt)} at {tuple(y.shape)}"
+            check(bool(torch.isfinite(y).all()), f"{what}: non-finite output")
+            check(errs["max_abs_err"] <= tol and (mean_tol is None or errs["mean_abs_err"] <= mean_tol),
+                  f"{what}: {errs} against tol {tol}, mean tol {mean_tol}")
+            if name == "t5_decoder_stack_infer":
+                errs["above_decoder_tol"] = int(((y - y_plain).abs() > DECODER_TOL[dt]).sum())
+            rows.append({"kernel": name[3:16], "shape": list(y.shape), "route": route, **errs})
+    counts.restore(before)
+    return rows
+
+
+def write_jax_checkpoints(root: str, rq, model):
+    """The seeded weights as the JAX package's checkpoint files."""
+    from rqvae_tpu_torch.utils.checkpoint import save_checkpoint
+    from rqvae_tpu_torch.utils.convert import jax_params_from_state_dict
+
+    rq_path = save_checkpoint(os.path.join(root, "rqvae"), 0, jax_params_from_state_dict(rq), config=rq.config,
+                              fmt="msgpack")
+    dec_path = save_checkpoint(os.path.join(root, "decoder"), 0, jax_params_from_state_dict(model),
+                               config=model.config, fmt="msgpack")
+    return rq_path, dec_path
+
+
+def bucket_route(model, items: int) -> dict:
+    """Which kernels a bucket's encoder and decoder rows take (models/t5.py
+    gates), and each kernel's route (ops/cuda route functions; the decoder
+    kernel's per beam level, kT = 1, 2k, 3k)."""
+    from rqvae_tpu_torch.ops.cuda.decoder_stack import decoder_stack_route
+    from rqvae_tpu_torch.ops.cuda.encoder_stack import encoder_stack_route
+
+    cfg = model.config
+    Le = items * (cfg.num_hierarchies + int(cfg.should_add_sep_token))
+    widths = (cfg.t5_d_model, cfg.t5_d_kv, cfg.t5_num_heads * cfg.t5_d_kv, cfg.t5_d_ff)
+    dtype = getattr(torch, cfg.t5_dtype)
+    enc = model.encoder
+    if enc.use_fused_encode(Le):
+        encoder = f"encoder_stack kernel ({encoder_stack_route(*widths, dtype)})"
+    elif enc.block[0].self_attn._use_fused(Le, Le):
+        encoder = "attention kernel"
+    else:
+        encoder = "plain"
+    k = cfg.top_k_for_generation
+    levels = [1] + [k * (h + 1) for h in range(1, cfg.num_hierarchies)]
+    decoder = (f"decoder_stack kernel ({', '.join(decoder_stack_route(kT, *widths, Le, dtype) for kT in levels)})"
+               if model.decoder.use_fused_decode(Le) else "plain")
+    return {"Le": Le, "encoder": encoder, "decoder": decoder}
+
+
+def bucket_histories(n_items: int, bb: int, ib: int, seed: int) -> np.ndarray:
+    r = np.random.RandomState(seed)
+    hist = r.randint(0, n_items, (bb, ib)).astype(np.int32)
+    lengths = r.randint(1, ib + 1, bb)
+    return np.where(np.arange(ib)[None, :] < lengths[:, None], hist, -1).astype(np.int32)
+
+
+def replay_ms(eng, g, reps: int = 5) -> float:
+    """CUDA-event ms of one bucket graph's replay on the engine's stream."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch.cuda.stream(eng.stream):
+        g.graph.replay()
+        start.record()
+        for _ in range(reps):
+            g.graph.replay()
+        end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def host_ms(fn, reps: int = 5) -> list:
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def serve_phase(phase: str, geo: dict, counts, dev, seed: int):
+    """The deployed serving path at one geometry: seeded full-width weights
+    written as JAX-format checkpoints; a first from_checkpoints start that
+    builds and saves the index (kernel 1 once) and a second that loads it
+    (kernel 1 no time); warmup() captures every bucket; per bucket the
+    route, replay equal to eager bit for bit, each launch of kernels 2 and 3
+    against its plain version on its own operands, the engine's graph equal
+    by kernel name to one eager call's launches, eager and replayed ms; then
+    retrieve_many over 256 mixed-length histories against the eager engine,
+    and the graph pool's memory. The wrapper counts returned are the first
+    start's index build and the eager calls made after the warm-up; the
+    replays' launches are the graphs' nodes (`our_kernels` per bucket).
+    Returns (wrapper launch counts, engine, RQ-VAE, corpus)."""
+    from rqvae_tpu_torch.serving.engine import RetrievalEngine
+    from rqvae_tpu_torch.serving.retriever import Retriever
+
+    rq, x_cpu, x = make_rqvae(geo, dev)
+    model = retrieval_model("bfloat16", dev)
+    tmp = tempfile.mkdtemp(prefix=f"{phase}_")
+    rq_path, dec_path = write_jax_checkpoints(tmp, rq, model)
+    del model
+    index_path = os.path.join(tmp, "index.npz")
+    feats = x_cpu.numpy()
+    counts.zero()
+    starts = {}
+    for name in ("build", "load"):
+        sync()
+        t0 = time.perf_counter()
+        r = Retriever.from_checkpoints(rq_path, dec_path, feats, index_path=index_path, device=dev)
+        sync()
+        starts[name] = {"ms": (time.perf_counter() - t0) * 1e3, "rq_encode_launches": counts.read()["rq_encode"]}
+        counts.zero()
+    check(starts["build"]["rq_encode_launches"] == 1 and starts["load"]["rq_encode_launches"] == 0,
+          f"{phase}: index build / load launches {starts}")
+    counts.zero()
+    eng = RetrievalEngine(r, max_items=geo["history"])
+    reset_peak_memory()
+    before, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    sync()
+    t0 = time.perf_counter()
+    n_graphs = eng.warmup()
+    sync()
+    warmup_s = time.perf_counter() - t0
+    # the graphs' static tensors stay allocated; the pool keeps the segments their captures used
+    pool = {"graphs": n_graphs, "warmup_s": warmup_s, "allocated_bytes": torch.cuda.memory_allocated() - before,
+            "reserved_bytes": torch.cuda.memory_reserved() - reserved, "peak_bytes": peak_memory() - before}
+    counts.zero()  # the warm-up's captures tick the wrappers but launch nothing
+    buckets = []
+    for i, ((bb, ib), g) in enumerate(sorted(eng.graphs.items())):
+        hist = bucket_histories(geo["items"], bb, ib, seed + i)
+        users = np.zeros(bb, np.int32)
+        eager = r.retrieve(hist)
+        flight = eng._replay(hist, users)
+        flight.event.synchronize()
+        same = all(torch.equal(h, e.cpu()) for h, e in zip(flight.host, eager))
+        check(same, f"{phase}: bucket ({bb}, {ib}) replay differs from eager")
+        # replay and eager run the same kernels: hold kernels 2 and 3 at this bucket's shapes
+        # against their plain versions
+        held = kernels_against_plain(lambda: r.retrieve(hist), counts)
+        # the engine's graph of the bucket (its debug dump) holds, kernel by kernel, what one eager
+        # call of the body launches (profiler; a profile can drop events: up to three)
+        h_dev = torch.as_tensor(hist, device=dev)
+        u_dev = torch.zeros(bb, dtype=torch.int32, device=dev)
+        nodes = graph_nodes(g.graph, tmp)
+        for attempt in range(1, 4):
+            eager_call = profile_call(lambda: r._retrieve_body(h_dev, u_dev), by_name=True)
+            if eager_call["names"] == nodes:
+                break
+        e_names = eager_call["names"]
+        differ = {n[:90]: [nodes.get(n, 0), e_names.get(n, 0)] for n in set(nodes) | set(e_names)
+                  if nodes.get(n, 0) != e_names.get(n, 0)}
+        ours = our_kernels(nodes)
+        check(not differ, f"{phase}: bucket ({bb}, {ib}) kernels by name, graph against eager: {differ}")
+        replay_prof = profile_call(lambda: eng._replay(hist, users).event.synchronize())
+        route = bucket_route(r.model, ib)
+        want = {"decoder_stack": 3 * route["decoder"].startswith("decoder_stack"),
+                "encoder_stack": int(route["encoder"].startswith("encoder_stack"))}
+        got = {k: sum(h["kernel"] == k for h in held) for k in want}
+        check(got == want, f"{phase}: bucket ({bb}, {ib}) held {got} launches against the plain versions, "
+                           f"its route {route} gives {want}")
+        row = {"bucket": [bb, ib], **route,
+               "kernels_held": [[h["kernel"], h["shape"], h["route"], h["max_abs_err"], h["mean_abs_err"],
+                                 h.get("above_decoder_tol")] for h in held],
+               "eager_ms": cuda_ms(lambda: r.retrieve(hist), reps=5, warmup=1),
+               "eager_host_ms": host_ms(lambda: r.retrieve(hist)),
+               "replay_ms": replay_ms(eng, g),
+               "replay_host_ms": host_ms(lambda: eng._replay(hist, users).event.synchronize()),
+               "replay_profile": {k: replay_prof[k] for k in ("host_ms", "device_ms", "device_launches",
+                                                                "device_idle_share")},
+               "eager_profile": {k: eager_call[k] for k in ("host_ms", "device_ms", "device_launches",
+                                                            "device_idle_share")},
+               "graph_nodes": sum(nodes.values()), "graph_copies": nodes.get(DEVICE_COPY, 0),
+               "profiles_to_match": attempt, "our_kernels": ours,
+               "valid_beams": float((flight.host.item_ids >= 0).float().mean())}
+        # the card's idle share of a replayed call: 1 - the graph's time on the card (CUDA events) over
+        # the call's host time (inputs in, replay, results out, wait)
+        row["replay_idle_share_events"] = max(0.0, 1.0 - row["replay_ms"] / float(np.median(row["replay_host_ms"])))
+        buckets.append(row)
+    r_ng = np.random.RandomState(seed + 100)
+    reqs = [r_ng.randint(0, geo["items"], r_ng.randint(1, geo["history"] + 6)).astype(np.int32) for _ in range(256)]
+    sync()
+    t0 = time.perf_counter()
+    got = eng.retrieve_many(reqs)
+    many_ms = (time.perf_counter() - t0) * 1e3
+    eager_eng = RetrievalEngine(r, max_items=geo["history"], cuda_graphs=False)
+    t0 = time.perf_counter()
+    want = eager_eng.retrieve_many(reqs)
+    many_eager_ms = (time.perf_counter() - t0) * 1e3
+    for a, b in zip(got, want):
+        check(np.array_equal(a, b), f"{phase}: retrieve_many over 256 histories differs from the eager engine")
+    launches = counts.read()
+    launches["rq_encode"] += starts["build"]["rq_encode_launches"]  # the first start's index build
+    emit({"phase": phase, "items": geo["items"], "max_items": geo["history"], "item_buckets": eng.item_buckets,
+          "batch_buckets": eng.batch_buckets, "startup": starts, "graph_pool": pool, "buckets": buckets,
+          "retrieve_many": {"requests": len(reqs), "shapes": {str(k): v for k, v in eng.shape_counts.items()},
+                            "graphs_ms": many_ms, "eager_ms": many_eager_ms},
+          "wrapper_launches": launches})
+    shutil.rmtree(tmp, ignore_errors=True)
+    return launches, eng, rq, x
+
+
+def corpus_growth_phase(eng, rq, x, counts, dev) -> dict:
+    """extend_corpus after capture at the Amazon width: GROWTH new items (some
+    equal to old items or to each other, so the dedup column counts across
+    both), kernel 1 once; the dedup column equals a full rebuild's, and the
+    replays return what an engine over the rebuilt corpus returns, new items
+    among them."""
+    from rqvae_tpu_torch.serving.engine import RetrievalEngine
+    from rqvae_tpu_torch.serving.retriever import Retriever
+    from rqvae_tpu_torch.tokenizer.semids import SemanticIdTokenizer
+
+    n = x.shape[0]
+    model = eng.retriever.model
+    tok = SemanticIdTokenizer(rq, device=dev)
+    tok.precompute_corpus_ids(x)
+    grown = Retriever(model, tok, device=dev, capacity=n + GROWTH)
+    geng = RetrievalEngine(grown, max_items=eng.max_items)
+    geng.warmup()
+    new = make_corpus(GROWTH, x.shape[1], seed=21).to(dev)
+    new[:64] = x[:64]  # equal to old items
+    new[100:110] = new[:10]  # equal to earlier new items
+    ptrs = [t.data_ptr() for t in grown.corpus_tensors()]
+    counts.zero()
+    sync()
+    t0 = time.perf_counter()
+    check(grown.extend_corpus(new) == n + GROWTH, "corpus_growth: size")
+    extend_ms = (time.perf_counter() - t0) * 1e3
+    launches = counts.read()
+    check(launches["rq_encode"] == 1, f"corpus_growth: kernel-1 launches {launches}")
+    check([t.data_ptr() for t in grown.corpus_tensors()] == ptrs, "corpus_growth: a corpus tensor moved")
+    full = SemanticIdTokenizer(rq, device=dev)
+    full.precompute_corpus_ids(torch.cat([x, new]))
+    check(torch.equal(grown.tokenizer.cached_ids, full.cached_ids), "corpus_growth: ids or dedup differ from a rebuild")
+    dedup_new = grown.tokenizer.cached_ids[n:, 3]
+    fresh = RetrievalEngine(Retriever(model, full, device=dev), max_items=eng.max_items, cuda_graphs=False)
+    r_ng = np.random.RandomState(22)
+    reqs = [r_ng.randint(n, n + GROWTH, r_ng.randint(1, eng.max_items + 1)).astype(np.int32) for _ in range(128)]
+    got, want = geng.retrieve_many(reqs), fresh.retrieve_many(reqs)
+    for a, b in zip(got, want):
+        check(np.array_equal(a, b), "corpus_growth: replays differ from an engine over the rebuilt corpus")
+    admitted = int((got.item_ids >= n).sum())
+    check(admitted > 0, "corpus_growth: no admitted item was returned")
+    emit({"phase": "corpus_growth", "items": n, "admitted": GROWTH, "capacity": grown.capacity,
+          "extend_ms": extend_ms, "launches": launches, "new_rows_with_dedup": int((dedup_new > 0).sum()),
+          "max_dedup_new": int(dedup_new.max()), "requests": len(reqs), "admitted_items_returned": admitted,
+          "valid_beams": float((got.item_ids >= 0).mean())})
+    return launches
+
+
+def queue_phase(eng, n_items: int) -> None:
+    """An AsyncRetrievalEngine over the Amazon engine: every future equals
+    its flush's retrieve_many row; p50/p99 latency and flush sizes at two
+    offered rates; rejects and sheds past saturation. Times printed, not gated."""
+    from rqvae_tpu_torch.serving.queue import AsyncRetrievalEngine, DeadlineExceededError, QueueOverloadedError
+
+    flushes = []
+    real = eng.retrieve_many_device
+
+    def recording(histories, user_ids=None):
+        flushes.append((list(histories), list(user_ids)))
+        return real(histories, user_ids)
+
+    eng.retrieve_many_device = recording
+    r_ng = np.random.RandomState(31)
+
+    def requests(count):
+        return [r_ng.randint(0, n_items, r_ng.randint(1, eng.max_items + 1)).astype(np.int32) for _ in range(count)]
+
+    def offer(q, reqs, rate):
+        futs, t0 = [], time.perf_counter()
+        for i, h in enumerate(reqs):
+            if rate:
+                wait = t0 + i / rate - time.perf_counter()
+                if wait > 0:
+                    time.sleep(wait)
+            futs.append((h, i, q.submit(h, i)))
+        return futs, time.perf_counter() - t0
+
+    rows = []
+    try:
+        for rate in QUEUE["rates"]:
+            flushes.clear()
+            reqs = requests(QUEUE["requests"])
+            with AsyncRetrievalEngine(eng, max_delay_ms=2.0) as q:
+                futs, offer_s = offer(q, reqs, rate)
+                results = {id(h): f.result(timeout=120) for h, _, f in futs}
+            stats = q.stats()
+            for hists, uids in flushes:  # each future equals its flush's rows, recomputed
+                want = eng.finalize_many(len(hists), real(hists, uids))
+                for j, h in enumerate(hists):
+                    got = results[id(h)]
+                    check(all(np.array_equal(a, w[j]) for a, w in zip(got, want)),
+                          "queue: a future differs from its retrieve_many row")
+            sizes = [len(h) for h, _ in flushes]
+            rows.append({"offered_per_s": rate, "requests": len(reqs), "offer_s": offer_s,
+                         "submitted_per_s": len(reqs) / max(offer_s, 1e-9),
+                         "latency_p50_ms": stats["latency_p50_s"] * 1e3,
+                         "latency_p99_ms": stats["latency_p99_s"] * 1e3, "flushes": len(flushes),
+                         "flush_size_mean": float(np.mean(sizes)), "flush_size_max": int(max(sizes))})
+        reqs = requests(QUEUE["overload_requests"])
+        with AsyncRetrievalEngine(eng, max_delay_ms=2.0, max_queue_depth=QUEUE["overload_depth"],
+                                  deadline_ms=QUEUE["overload_deadline_ms"]) as q:
+            futs, offer_s = offer(q, reqs, None)
+            outcome = {"served": 0, "rejected": 0, "shed": 0}
+            for _, _, f in futs:
+                try:
+                    f.result(timeout=120)
+                    outcome["served"] += 1
+                except QueueOverloadedError:
+                    outcome["rejected"] += 1
+                except DeadlineExceededError:
+                    outcome["shed"] += 1
+        stats = q.stats()
+        check(outcome["rejected"] == stats["rejected"] and outcome["shed"] == stats["shed"],
+              f"queue overload: futures {outcome} against stats {stats}")
+    finally:
+        eng.retrieve_many_device = real
+    emit({"phase": "queue", "max_delay_ms": 2.0, "rates": rows,
+          "overload": {"requests": len(reqs), "max_queue_depth": QUEUE["overload_depth"],
+                       "deadline_ms": QUEUE["overload_deadline_ms"], "offer_s": offer_s, **outcome,
+                       "latency_p50_ms": stats.get("latency_p50_s", float("nan")) * 1e3,
+                       "latency_p99_ms": stats.get("latency_p99_s", float("nan")) * 1e3}})
+
+
+def fixture_inputs() -> dict:
+    with np.load(os.path.join(FIXTURE, "inputs_and_results.npz")) as z:
+        return {k: z[k] for k in z.files}
+
+
+def checkpoint_interop_phase(dev) -> None:
+    """The committed JAX-written checkpoints (flax's bytes), served on the
+    card in f32 through from_checkpoints, against what the JAX package
+    served for them (stored beside them)."""
+    from rqvae_tpu_torch.serving.retriever import Retriever
+
+    fx = fixture_inputs()
+    r = Retriever.from_checkpoints(os.path.join(FIXTURE, "rqvae", "checkpoint_299.msgpack"),
+                                   os.path.join(FIXTURE, "decoder", "checkpoint_400.msgpack"),
+                                   fx["item_features"], device=dev, precision="f32")
+    out = r.retrieve(fx["histories"])
+    ids_equal = bool(np.array_equal(out.item_ids.cpu().numpy(), fx["item_ids"]))
+    sem_equal = bool(np.array_equal(out.sem_ids.cpu().numpy(), fx["sem_ids"]))
+    err = float(np.abs(out.log_probas.cpu().numpy() - fx["log_probas"]).max())
+    check(ids_equal and sem_equal, "checkpoint_interop: item ids differ from the JAX package's")
+    check(err <= FIXTURE_LOGP_TOL, f"checkpoint_interop: log_probas differ by {err}")
+    emit({"phase": "checkpoint_interop", "queries": int(fx["histories"].shape[0]), "items": int(fx["item_ids"].size),
+          "item_ids_equal": ids_equal, "sem_ids_equal": sem_equal, "log_probas_max_abs_diff": err,
+          "tol": FIXTURE_LOGP_TOL, "config": {"t5_d_model": r.model.config.t5_d_model,
+                                              "n_candidates": r.model.config.n_candidates}})
+
+
+def sampled_candidates_phase(dev) -> None:
+    """Sampled candidates, card against CPU in f32 over the fixture's
+    weights, each fed the same Gumbel noise."""
+    import dataclasses
+
+    from rqvae_tpu_torch.models.retrieval import EncoderDecoderRetrievalModel
+    from rqvae_tpu_torch.serving.retriever import Retriever
+
+    fx = fixture_inputs()
+    paths = (os.path.join(FIXTURE, "rqvae", "checkpoint_299.msgpack"),
+             os.path.join(FIXTURE, "decoder", "checkpoint_400.msgpack"))
+    out = {}
+    noise = None
+    for name, device in (("card", dev), ("cpu", "cpu")):
+        base = Retriever.from_checkpoints(*paths, fx["item_features"], device=device, precision="f32")
+        cfg = dataclasses.replace(base.model.config, sample_candidates=True, n_candidates=16)
+        model = EncoderDecoderRetrievalModel(cfg, device=device)
+        model.load_state_dict(base.model.state_dict())
+        r = Retriever(model, base.tokenizer, device=device, seed=41)
+        noise = r.draw_noise(fx["histories"].shape[0]) if noise is None else noise
+        out[name] = r.retrieve(fx["histories"], noise=noise)
+    card, host = out["card"], out["cpu"]
+    same = beams_same(card, host)
+    err = float((card.log_probas.cpu() - host.log_probas).abs().max().item())
+    check(same >= BEAMS_SAME_MIN, f"sampled_candidates: all beams identical on {same:.3f} of queries")
+    valid = card.log_probas.cpu() > -1e8
+    check(bool(valid.any()) and bool((card.item_ids.cpu()[valid] >= 0).all()),
+          "sampled_candidates: no valid beam, or a valid beam that maps to no item")
+    emit({"phase": "sampled_candidates", "queries": int(fx["histories"].shape[0]), "n_candidates": 16,
+          "queries_all_beams_same": same, "log_probas_max_abs_diff": err})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1483,6 +2054,7 @@ def main() -> int:
     models = {dt: retrieval_model(dtype_name(dt), dev) for dt in (torch.bfloat16, torch.float32)}
     rq_amazon_row, near = rq_encode_phase("rq_encode", rq, x)
     rq_amazon_bf16 = rq_encode_bf16_phase("rq_encode_bf16", rq, x, dev)
+    rq_packed = rq_encode_packed_phase(rq, x)
     hist = histories(AMAZON["items"], AMAZON["history"], seed=3)
     kernels["decoder_stack"] = decoder_stack_phase(models, rq, x, hist, dev)
 
@@ -1511,6 +2083,7 @@ def main() -> int:
     kernels["rq_encode"].update(rq_encode_bf16_phase("rq_encode_bf16_ml32m", rq, x, dev))
     kernels["rq_encode"].update({f"amazon_{k}": v for k, v in rq_amazon_bf16.items()})
     kernels["rq_encode"]["kernel_routes"] = {"bf16": "tensor_cores", "f32": "cuda_cores"}
+    kernels["rq_encode"].update(rq_packed)
     rq1m, _, x1m = make_rqvae(ML1M, dev)  # ML-1M's 786 inputs: the width the wrapper used to refuse
     kernels["rq_encode"]["ml1m_ms"] = rq_encode_phase("rq_encode_ml1m", rq1m, x1m)[0]["ms"]
     kernels["rq_encode"]["ml1m_bf16_ms"] = rq_encode_bf16_phase("rq_encode_bf16_ml1m", rq1m, x1m, dev)["bf16_ms"]
@@ -1597,6 +2170,20 @@ def main() -> int:
     for name, (gin, corpus) in corpora.items():
         launches[f"train_rqvae_{name}"] = train_rqvae_phase(f"train_rqvae_{name}", gin, corpus, counts, dev)
     train_rqvae_card_vs_cpu_phase(corpora, dev)
+    del corpora
+    torch.cuda.empty_cache()
+
+    # ---- 19-24. serving as it is deployed ----
+    checkpoint_interop_phase(dev)
+    sampled_candidates_phase(dev)
+    launches["serve_amazon"], eng, rq, x = serve_phase("serve_amazon", AMAZON, counts, dev, seed=50)
+    launches["corpus_growth"] = corpus_growth_phase(eng, rq, x, counts, dev)
+    queue_phase(eng, AMAZON["items"])
+    del eng, rq, x
+    torch.cuda.empty_cache()
+    launches["serve_ml32m"], eng, rq, x = serve_phase("serve_ml32m", ML32M, counts, dev, seed=60)
+    del eng, rq, x
+    torch.cuda.empty_cache()
 
     # ---- kernels, card, result ----
     for name, row in kernels.items():

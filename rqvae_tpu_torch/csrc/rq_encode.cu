@@ -80,6 +80,11 @@
 // are double-buffered. The argmin writes each thread's best per row to the
 // dead weight ring, and 8 threads a row reduce it, lower index first.
 //
+// With pack_bits > 0 (the reference's emit_packed epilogue), each row's
+// output holds one more column: the lexicographic packed key of its ids,
+// ((id_0 << b | id_1) << b | ...), which the thread that writes the row's
+// ids keeps in a register across the levels (n_levels * b <= 31).
+//
 // Shared memory (both routes fit every shipped configuration in the 232,448
 // B a Hopper block may use): see tc::layout and cc::layout, mirrored by
 // rqvae_tpu_torch/ops/cuda/rq_encode.py::rq_encode_smem_bytes.
@@ -118,7 +123,8 @@ struct Params {
   const void* cb;          // [n_levels, K, D]: the gather of the chosen codes
   const float* cb2;        // [n_levels, K], +inf past the real codebook
   int n_rows, n_levels, K, D;
-  int* out;                // [n_rows, n_levels]
+  int* out;                // [n_rows, ld_out]: the ids, then the packed key when pack_bits > 0
+  int ld_out, pack_bits;
   Pass pass[MAX_PASSES];   // the layers (the tensor-core route's in blocks of 256 columns), then the levels
   int n_passes;
 };
@@ -488,6 +494,7 @@ __device__ __forceinline__ void encode(const Params& p) {
   bf16* res = buf[p.n_weights & 1];
   const int ldr = p.D + 8;
   const bf16* cb_all = static_cast<const bf16*>(p.cb);
+  int packed = 0;  // the row's packed key (threads < ROWS)
   for (int level = 0; level < p.n_levels; ++level) {
     if (p.K == 256) distances<4>(p, ring, consumed, res, level, scratch);
     else if (p.K == 128) distances<2>(p, ring, consumed, res, level, scratch);
@@ -502,7 +509,12 @@ __device__ __forceinline__ void encode(const Params& p) {
         take_min(best, bi, c.x, __float_as_int(c.y));
       }
       ids[r] = bi;
-      if (row0 + r < p.n_rows) p.out[(size_t)(row0 + r) * p.n_levels + level] = bi;
+      packed = (packed << p.pack_bits) | bi;
+      if (row0 + r < p.n_rows) {
+        int* o = p.out + (size_t)(row0 + r) * p.ld_out;
+        o[level] = bi;
+        if (p.pack_bits && level + 1 == p.n_levels) o[p.n_levels] = packed;
+      }
     }
     __syncthreads();
     if (level + 1 < p.n_levels) {  // res = rnd(res - cb[id]); the next pass's barrier orders it
@@ -755,6 +767,7 @@ __device__ __forceinline__ void encode(const Params& p) {
   float2* scratch = reinterpret_cast<float2*>(ring);
   const int n = p.K, ncg = n / tile_n(n);
   const float* cb_all = static_cast<const float*>(p.cb);
+  int packed = 0;  // the row's packed key (threads with s == 0)
   for (int level = 0; level < p.n_levels; ++level) {
     if (n > 256) distances<BF16, 8, 8>(p, res, level, ring, scratch);
     else if (n > 128) distances<BF16, 4, 8>(p, res, level, ring, scratch);
@@ -774,7 +787,12 @@ __device__ __forceinline__ void encode(const Params& p) {
         take_min(best, bi, __shfl_xor_sync(0xffffffffu, best, off), __shfl_xor_sync(0xffffffffu, bi, off));
       if (s == 0) {
         ids[r] = bi;
-        if (row0 + r < p.n_rows) p.out[(size_t)(row0 + r) * p.n_levels + level] = bi;
+        packed = (packed << p.pack_bits) | bi;
+        if (row0 + r < p.n_rows) {
+          int* o = p.out + (size_t)(row0 + r) * p.ld_out;
+          o[level] = bi;
+          if (p.pack_bits && level + 1 == p.n_levels) o[p.n_levels] = packed;
+        }
       }
     }
     __syncthreads();
@@ -827,12 +845,15 @@ int rq_encode_smem_bytes(const int* dims, int n_weights, int K, int route) {
 // weights [dims[i], dims[i+1]], codebooks [n_levels, K, D] and their
 // transposes [n_levels, D, K], cb2 [n_levels, K]; bf16 storage (weights,
 // codebooks) on the tensor-core route, float32 on the CUDA-core route.
-// bf16 != 0: the bf16 mode. Returns cudaErrorInvalidValue, launching
-// nothing, when the route does not take these widths.
+// bf16 != 0: the bf16 mode. pack_bits > 0: out is [n_rows, n_levels + 1],
+// the last column each row's packed key (n_levels * pack_bits <= 31).
+// Returns cudaErrorInvalidValue, launching nothing, when the route does not
+// take these widths.
 int rq_encode_forward(const float* x, int n_rows, void* const* weights, const int* dims, int n_weights,
                       const void* codebooks, const void* codebooks_t, const float* cb2, int n_levels, int K, int D,
-                      int* out, int bf16, int route, void* stream) {
-  if (n_weights < 1 || n_weights > MAX_WEIGHTS || n_levels < 1 || n_levels > MAX_LEVELS)
+                      int* out, int bf16, int route, int pack_bits, void* stream) {
+  if (n_weights < 1 || n_weights > MAX_WEIGHTS || n_levels < 1 || n_levels > MAX_LEVELS || pack_bits < 0 ||
+      n_levels * pack_bits > 31)
     return (int)cudaErrorInvalidValue;
   const bool tc_route = route == TENSOR_CORES;
   if (tc_route ? !(bf16 && tc::takes(dims, n_weights, K, D)) : !cc::takes(dims, n_weights, K, D))
@@ -848,6 +869,8 @@ int rq_encode_forward(const float* x, int n_rows, void* const* weights, const in
   p.K = K;
   p.D = D;
   p.out = out;
+  p.pack_bits = pack_bits;
+  p.ld_out = n_levels + (pack_bits > 0);
   // K-tile rows: the tensor-core route's from tc::tile_k (x padded to the
   // MMA depth), the CUDA-core route's cc::BK
   auto bk_of = [&](int depth, int n) { return tc_route ? tc::tile_k(depth, n) : cc::BK; };

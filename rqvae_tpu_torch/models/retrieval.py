@@ -9,14 +9,19 @@ beam's log-prob, which rounds to -1e9.
 
 Training: `forward(batch, training, generator)` is the teacher-forced loss, the
 sum over hierarchy levels of the mean cross-entropy of that level's head at
-its decoder position. Sampled-candidate generation and rematerialisation
-(`t5_remat`) are not ported.
+its decoder position. Rematerialisation (`t5_remat`) is not ported.
+
+Generation: deterministic over all K codewords per level, or with
+`sample_candidates` over n_candidates drawn per beam by Gumbel top-k (the
+reference's multinomial without replacement) from Gumbel noise the caller
+passes in: the port cannot draw jax.random's bits, so its tests feed it the
+noise that JAX draws.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 from torch import nn
@@ -24,6 +29,7 @@ from torch import nn
 from rqvae_tpu_torch.data.schemas import TokenizedSeqBatch
 from rqvae_tpu_torch.models.t5 import DropoutSeeds, T5Stack, T5StackConfig
 from rqvae_tpu_torch.ops.embedding import embedding_lookup
+from rqvae_tpu_torch.ops.gumbel import sample_without_replacement
 from rqvae_tpu_torch.serving.beam import PrefixTable, extend_keys, valid_children
 from rqvae_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -33,7 +39,7 @@ NEG_INF = -1e9
 @dataclass(frozen=True)
 class RetrievalConfig:
     """The fields of rqvae_tpu.models.retrieval.RetrievalConfig, same names
-    and defaults (`n_candidates` comes with sampled-candidate generation)."""
+    and defaults (a JAX decoder checkpoint's config JSON holds every one)."""
 
     num_hierarchies: int = 3
     codebook_size: int = 256
@@ -44,6 +50,7 @@ class RetrievalConfig:
     t5_num_layers: int = 4
     t5_dropout: float = 0.1
     top_k_for_generation: int = 10
+    n_candidates: int = 64  # sampled candidates per level (sample_candidates=True)
     should_add_sep_token: bool = True
     num_user_bins: Optional[int] = None
     sample_candidates: bool = False
@@ -208,6 +215,14 @@ class EncoderDecoderRetrievalModel(nn.Module):
         loss_d = nll.mean(0)  # [L]
         return ModelOutput(loss=loss_d.sum(), logits=logits, loss_d=loss_d)
 
+    def sampling_noise_shapes(self, batch: int) -> list:
+        """The shape of each level's Gumbel noise in sampled-candidate
+        generation: [B, K] at level 0, [B, k, K] after it (the shapes of
+        the JAX package's draws, one per level from fold_in(rng, h))."""
+        cfg = self.config
+        K, k = cfg.codebook_size, cfg.top_k_for_generation
+        return [(batch, K)] + [(batch, k, K)] * (cfg.num_hierarchies - 1)
+
     @torch.no_grad()
     def generate(
         self,
@@ -215,12 +230,19 @@ class EncoderDecoderRetrievalModel(nn.Module):
         seq_mask: torch.Tensor,
         user_ids: Optional[torch.Tensor],
         prefix_table: PrefixTable,
+        noise: Optional[Sequence[torch.Tensor]] = None,
     ) -> GenerationOutput:
-        """Deterministic constrained beam search over all K codewords per level."""
+        """Constrained beam search. Deterministic by default: all K codewords
+        per level. With `config.sample_candidates`, each level draws
+        n_cands = min(max(n_candidates, k), K) distinct candidates per beam
+        by Gumbel top-k (ops/gumbel.py::sample_without_replacement) from
+        `noise[h]`, Gumbel(0, 1) noise of `sampling_noise_shapes(B)[h]`;
+        candidates with an invalid prefix score -1e9."""
         cfg = self.config
-        if cfg.sample_candidates:
-            raise NotImplementedError("sampled-candidate generation is not ported yet")
         L, K, k = cfg.num_hierarchies, cfg.codebook_size, cfg.top_k_for_generation
+        if cfg.sample_candidates and noise is None:
+            raise ValueError("sample_candidates=True needs the Gumbel noise of every level "
+                             "(Retriever.retrieve draws it from its own generator)")
         D = L + 1
         input_ids = strip_dedup_col(sem_ids, D, L)
         mask = strip_dedup_col(seq_mask.to(torch.int32), D, L)
@@ -243,26 +265,42 @@ class EncoderDecoderRetrievalModel(nn.Module):
             )
             return y.reshape(B, beams, T, -1)[:, :, -1].reshape(B * beams, -1)
 
-        def scores(dec_last: torch.Tensor, h: int, parent_keys: torch.Tensor) -> torch.Tensor:
-            """Level-h log-probs of all K children, invalid prefixes -1e9."""
+        def scores(dec_last: torch.Tensor, h: int, parent_keys: torch.Tensor):
+            """Level-h (scores, candidate ids) per parent, invalid prefixes -1e9:
+            all K children, or n_cands sampled ones."""
             logp = torch.log_softmax(dec_last @ self.heads[h], dim=-1)
             child_ok = valid_children(prefix_table, h, parent_keys)[..., :K]
-            return torch.where(child_ok, logp.reshape(child_ok.shape), NEG_INF)
+            logp = logp.reshape(child_ok.shape)
+            if cfg.sample_candidates:
+                n_cands = min(max(cfg.n_candidates, k), K)
+                cand = sample_without_replacement(logp, n_cands, noise=noise[h])
+                valid = torch.gather(child_ok, -1, cand.long())
+                return torch.where(valid, torch.gather(logp, -1, cand.long()), NEG_INF), cand
+            return torch.where(child_ok, logp, NEG_INF), None
+
+        def chosen_ids(cand: Optional[torch.Tensor], idx: torch.Tensor, n: int) -> torch.Tensor:
+            """Candidate ids at flat top-k positions `idx` over rows of n."""
+            if cand is None:
+                return (idx % n).to(torch.int32)
+            return torch.gather(cand.reshape(B, -1), 1, idx)
 
         # level 0: all beams share the empty prefix
         t0 = prefix_table.level_keys[0]
         key_dtype = torch.int32 if t0.dtype == torch.bool else t0.dtype
         zero_keys = torch.zeros(B, dtype=key_dtype, device=enc.device)
-        beam_logp, top_idx = top_k(scores(decode_last(None, 1), 0, zero_keys), k)
-        beam_ids = top_idx.to(torch.int32)[:, :, None]  # [B, k, 1]
+        s0, cand0 = scores(decode_last(None, 1), 0, zero_keys)
+        beam_logp, top_idx = top_k(s0, k)
+        beam_ids = chosen_ids(cand0, top_idx, s0.shape[-1])[:, :, None]  # [B, k, 1]
         beam_keys = extend_keys(prefix_table, zero_keys[:, None], beam_ids[..., 0])
 
         for h in range(1, L):
             dec = decode_last(beam_ids.reshape(B * k, h), k)
-            total = beam_logp[:, :, None] + scores(dec, h, beam_keys)  # [B, k, K]
-            beam_logp, top_idx = top_k(total.reshape(B, k * K), k)
-            parent = top_idx // K
-            chosen = (top_idx % K).to(torch.int32)
+            s, cand = scores(dec, h, beam_keys)  # [B, k, n]
+            n = s.shape[-1]
+            total = beam_logp[:, :, None] + s
+            beam_logp, top_idx = top_k(total.reshape(B, k * n), k)
+            parent = top_idx // n
+            chosen = chosen_ids(cand, top_idx, n)
             parent_ids = torch.gather(beam_ids, 1, parent[:, :, None].expand(-1, -1, h))
             beam_ids = torch.cat([parent_ids, chosen[:, :, None]], dim=-1)
             beam_keys = extend_keys(prefix_table, torch.gather(beam_keys, 1, parent), chosen)

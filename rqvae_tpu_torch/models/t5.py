@@ -43,6 +43,8 @@ device, no device-count gate to force past) or "off". Rematerialisation
 
 from __future__ import annotations
 
+import functools
+
 from dataclasses import dataclass
 from typing import List, NamedTuple, Optional, Tuple
 
@@ -157,6 +159,12 @@ class RMSNorm(nn.Module):
         return (xf * (1.0 / torch.sqrt(var + self.eps))).to(x.dtype) * self.weight
 
 
+@functools.lru_cache(maxsize=None)
+def _log_ratio(max_distance: int, max_exact: int) -> float:
+    """log(max_distance / max_exact) in float32, computed once per pair."""
+    return float(torch.log(torch.tensor(max_distance / max_exact, dtype=torch.float32)))
+
+
 def relative_position_bucket(
     relative_position: torch.Tensor,
     bidirectional: bool,
@@ -176,10 +184,12 @@ def relative_position_bucket(
         n = torch.clamp(n, min=0)
     max_exact = num_buckets // 2
     is_small = n < max_exact
-    log_ratio = torch.log(torch.tensor(max_distance / max_exact, dtype=torch.float32))
+    # log(max_distance / max_exact) in float32, made on the device by a fill
+    # (a host-to-device copy would break CUDA graph capture)
+    log_ratio = _log_ratio(max_distance, max_exact)
     val_if_large = max_exact + (
         torch.log(torch.clamp(n, min=1).to(torch.float32) / max_exact)
-        / log_ratio.to(n.device)
+        / torch.full((), log_ratio, dtype=torch.float32, device=n.device)
         * (num_buckets - max_exact)
     ).to(torch.int32)
     val_if_large = torch.clamp(val_if_large, max=num_buckets - 1)

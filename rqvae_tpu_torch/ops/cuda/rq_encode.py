@@ -25,6 +25,10 @@ must not drop to TF32, and bf16 at other widths: float32 FMAs). Any input
 width is taken: `pad_operands` pads x's columns and the first weight's rows
 to a multiple of 4, and the later widths to multiples of 16, with zeros,
 which add nothing to any sum.
+
+`emit_packed=True` appends the reference's epilogue column, each row's
+lexicographic packed key (ops/dedup.py::pack_sem_id_tuples of its ids), in
+the kernel and in the plain version alike. No path of either package reads it.
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ _C = ctypes.c_void_p
 _FUNCTIONS = {
     "rq_encode_forward": [
         _C, ctypes.c_int, ctypes.POINTER(_C), ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-        _C, _C, _C, ctypes.c_int, ctypes.c_int, ctypes.c_int, _C, ctypes.c_int, ctypes.c_int, _C,
+        _C, _C, _C, ctypes.c_int, ctypes.c_int, ctypes.c_int, _C, ctypes.c_int, ctypes.c_int, ctypes.c_int, _C,
     ],
     "rq_encode_smem_bytes": [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int, ctypes.c_int],
     "rq_encode_rows_per_block": [],
@@ -162,19 +166,32 @@ def pad_operands(x: torch.Tensor, weights: Sequence[torch.Tensor], codebooks: to
     return x, weights, pad(codebooks, codebooks.shape[1], widths[-1])
 
 
+def pack_bits_for(codebook_size: int, n_levels: int) -> int:
+    """Bits per level of the emit_packed key column (ops/dedup.py::id_bits),
+    refused past 31 bits of key."""
+    bits = max(1, (int(codebook_size) - 1).bit_length())
+    if n_levels * bits > 31:
+        raise ValueError(f"emit_packed needs n_levels * id_bits <= 31, got {n_levels} x {bits}")
+    return bits
+
+
 def fused_encode_quantize_plain(
     x: torch.Tensor,
     weights: Sequence[torch.Tensor],
     codebooks: torch.Tensor,
     n_levels: int,
     precision: str = "f32",
+    emit_packed: bool = False,
 ) -> torch.Tensor:
     """The kernel's arithmetic in torch: matmul chain with ReLU between, then
     per level argmin(||cb||^2 - 2 res.cb) (first index on ties) and
     res -= cb[id]. In bf16 the values are rounded at the kernel's points and
     the products are float32 matmuls of the rounded values (a bf16 matmul
-    would round its sums too). Returns [N, n_levels] int32."""
+    would round its sums too). Returns [N, n_levels] int32; with
+    emit_packed, [N, n_levels + 1], the last column the lexicographic packed
+    key of the row's ids (the reference's epilogue)."""
     _check(x, weights, codebooks, n_levels, precision)
+    bits = pack_bits_for(codebooks.shape[1], n_levels) if emit_packed else 0
     rnd = round_bf16 if precision == "bf16" else torch.Tensor.float
     h = rnd(x)
     for i, w in enumerate(weights):
@@ -192,6 +209,11 @@ def fused_encode_quantize_plain(
         idx = torch.argmin(dist, dim=-1)
         res = rnd(res - cb[level][idx])
         ids.append(idx.to(torch.int32))
+    if emit_packed:
+        packed = ids[0]
+        for col in ids[1:]:
+            packed = (packed << bits) | col
+        ids.append(packed)
     return torch.stack(ids, dim=1)
 
 
@@ -233,8 +255,11 @@ def fused_encode_quantize(
     codebooks: torch.Tensor,  # [L, K, D]
     n_levels: int,
     precision: str = "f32",  # "f32" or "bf16", as the reference's
+    emit_packed: bool = False,  # append the packed key column (n_levels * id_bits <= 31)
 ) -> torch.Tensor:
-    """[N, n_levels] int32 semantic ids. Launches the CUDA kernel for CUDA
+    """[N, n_levels] int32 semantic ids ([N, n_levels + 1] with emit_packed,
+    the last column each row's lexicographic packed key, written by the
+    kernel's epilogue). Launches the CUDA kernel for CUDA
     tensors on the route `rq_encode_route` gives (and counts the launch in
     `fused_encode_quantize.launches`); CPU tensors take the plain version.
     Operands of any float dtype, layout, offset and width are taken, as the
@@ -242,7 +267,7 @@ def fused_encode_quantize(
     (`kernel_operands`). Widths past MAX_WIDTH, more than MAX_LEVELS levels
     and shapes whose block does not fit in shared memory raise ValueError."""
     if x.device.type == "cpu":
-        return fused_encode_quantize_plain(x, weights, codebooks, n_levels, precision)
+        return fused_encode_quantize_plain(x, weights, codebooks, n_levels, precision, emit_packed)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     dims = _check(x, weights, codebooks, n_levels, precision)
@@ -251,6 +276,7 @@ def fused_encode_quantize(
     if n_levels > MAX_LEVELS:
         raise ValueError(f"rq_encode takes at most {MAX_LEVELS} levels, got {n_levels}")
     K, D = codebooks.shape[1], codebooks.shape[2]
+    bits = pack_bits_for(K, n_levels) if emit_packed else 0
     route = rq_encode_route(dims, K, D, precision)
     widths, kp = prepared_widths(dims, K)
     if max(*widths[1:], kp) > MAX_WIDTH:
@@ -262,7 +288,7 @@ def fused_encode_quantize(
         raise ValueError(f"rq_encode ({route}) needs {smem} B of shared memory for widths {dims}, "
                          f"over the {MAX_SMEM_BYTES} B a block may use")
     n = x.shape[0]
-    out = torch.empty((n, n_levels), dtype=torch.int32, device=x.device)
+    out = torch.empty((n, n_levels + int(emit_packed)), dtype=torch.int32, device=x.device)
     if n == 0:
         return out
     # x stays float32 (rounded to bf16 by the kernel as it loads a tile)
@@ -271,7 +297,7 @@ def fused_encode_quantize(
     with torch.cuda.device(x.device):  # the kernel launches on the current device
         rc = lib.rq_encode_forward(
             xk.data_ptr(), n, w_ptrs, c_dims, len(wk), cb.data_ptr(), cb_t.data_ptr(), cb2.data_ptr(),
-            n_levels, kp, widths[-1], out.data_ptr(), int(precision == "bf16"), ROUTES.index(route),
+            n_levels, kp, widths[-1], out.data_ptr(), int(precision == "bf16"), ROUTES.index(route), bits,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     fused_encode_quantize.launches += 1

@@ -32,10 +32,13 @@ def pack_sem_id_tuples(sem_ids: torch.Tensor, codebook_size: int) -> torch.Tenso
         dtype = torch.int64
     else:
         raise ValueError(f"Cannot pack {L} levels x {bits} bits into 62 bits")
-    mults = torch.tensor(
-        [1 << (bits * (L - 1 - l)) for l in range(L)], dtype=dtype, device=sem_ids.device
-    )
-    return torch.sum(sem_ids.to(dtype) * mults, dim=-1, dtype=dtype)
+    # Horner's form of sum(id_l << bits*(L-1-l)): the same integers, with no
+    # host-made tensor (a copy to the card, which a CUDA graph cannot capture)
+    ids = sem_ids.to(dtype)
+    key = ids[..., 0]
+    for level in range(1, L):
+        key = key * (1 << bits) + ids[..., level]
+    return key
 
 
 def dedup_counts_from_keys(keys: torch.Tensor) -> torch.Tensor:

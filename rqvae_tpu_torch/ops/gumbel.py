@@ -1,4 +1,5 @@
-"""Gumbel sampling and Gumbel-softmax (port of rqvae_tpu/ops/gumbel.py).
+"""Gumbel sampling, Gumbel-softmax and sampling without replacement (port of
+rqvae_tpu/ops/gumbel.py).
 
 The reference draws from an explicit JAX key; here the draws come from an
 explicit `torch.Generator` (a CPU generator: the noise is drawn on the host
@@ -29,3 +30,19 @@ def gumbel_softmax_sample(logits: torch.Tensor, temperature: float, generator: O
             raise ValueError("gumbel_softmax_sample needs a generator or the noise")
         noise = sample_gumbel(logits.shape, generator, logits.device, logits.dtype)
     return torch.softmax((logits + noise.to(logits.device, logits.dtype)) / temperature, dim=-1)
+
+
+def sample_without_replacement(logp: torch.Tensor, n: int, generator: Optional[torch.Generator] = None,
+                               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """n distinct indices drawn from softmax(logp) over the last axis, without
+    replacement (the Gumbel top-k trick): the indices of the n largest
+    logp + g, g Gumbel(0, 1) noise from `generator` or given as `noise`,
+    ordered by draw, ties to the lower index as jax.lax.top_k breaks them.
+    Returns int32 [..., n]."""
+    if noise is None:
+        if generator is None:
+            raise ValueError("sample_without_replacement needs a generator or the noise")
+        noise = sample_gumbel(logp.shape, generator, logp.device, logp.dtype)
+    perturbed = logp + noise.to(logp.device, logp.dtype)
+    idx = torch.sort(perturbed, dim=-1, descending=True, stable=True).indices[..., :n]
+    return idx.to(torch.int32)

@@ -65,6 +65,35 @@ def build_prefix_table(
     return PrefixTable(level_keys=tuple(tables), bits=bits)
 
 
+def extend_prefix_table(
+    table: PrefixTable,
+    new_corpus_ids: torch.Tensor,  # [M, L] semantic ids of the admitted items
+    codebook_size: int,
+    n_valid_old: int,  # corpus size before this extension
+) -> PrefixTable:
+    """Admit M new corpus tuples into the trie, IN PLACE: no level changes
+    its shape or its storage, so a CUDA graph that captured the table reads
+    the grown trie. Dense levels set the bits of the new (parent row, child
+    column) pairs; sorted levels overwrite the sentinel slots
+    [n_valid_old, n_valid_old + M) and re-sort into the same storage.
+    Requires capacity >= n_valid_old + M. Returns `table`."""
+    M, L = new_corpus_ids.shape
+    if L != len(table.level_keys):
+        raise ValueError(f"{L} levels of ids for a {len(table.level_keys)}-level table")
+    W = 1 << table.bits
+    for h, t in enumerate(table.level_keys):
+        keys = pack_sem_id_tuples(new_corpus_ids[:, : h + 1], codebook_size)
+        if t.dtype == torch.bool:
+            keys = keys.long()
+            t[keys >> table.bits, keys & (W - 1)] = True
+        else:
+            if n_valid_old + M > t.shape[0]:
+                raise ValueError(f"prefix-table capacity {t.shape[0]} exceeded: {n_valid_old} + {M} items")
+            t[n_valid_old : n_valid_old + M] = keys.to(t.dtype)
+            t.copy_(torch.sort(t).values)
+    return table
+
+
 def is_valid_prefix(table: PrefixTable, level: int, keys: torch.Tensor) -> torch.Tensor:
     """keys: packed prefixes of length level+1, any shape -> bool mask."""
     t = table.level_keys[level]

@@ -1,0 +1,237 @@
+"""Shape-bucketed request batching, one CUDA graph per bucket (port of
+rqvae_tpu/serving/engine.py).
+
+Each request's history is padded with -1 up to the next ITEM bucket (masked
+positions are exact no-ops), requests are grouped per bucket, and a group's
+batch is padded up to the next BATCH bucket with empty rows, dropped on
+return. Every (batch, items) bucket is one fixed shape, the counterpart of
+the JAX package's one compiled program per shape.
+
+On the card each bucket runs as one CUDA graph of the whole query
+(`Retriever._retrieve_body`: tokenization from the table, the encoder, every
+beam level and the inverse lookup), captured once, at `warmup()` or at the
+bucket's first use, after one eager run on the engine's side stream (which
+builds the kernel libraries and sets their launch attributes outside the
+capture). All graphs share one memory pool: their replays run one after
+another on that stream. A dispatch writes its requests into pinned host
+memory, copies them into the graph's static inputs without blocking,
+replays, and copies the three results into pinned host buffers of its own,
+then records an event; `finalize_many` waits on the event. A capture that
+fails raises: the card has no eager fallback. CPU tensors run eagerly, as
+the tests run them.
+"""
+
+from __future__ import annotations
+
+from typing import List, NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from rqvae_tpu_torch.serving.retriever import RetrievalResult, Retriever
+
+
+def _default_item_buckets(max_items: int) -> tuple:
+    """Powers of two from 8 below max_items, and max_items itself."""
+    buckets = []
+    b = 8
+    while b < max_items:
+        buckets.append(b)
+        b *= 2
+    buckets.append(max_items)
+    return tuple(buckets)
+
+
+class BucketGraph(NamedTuple):
+    """One captured bucket: static device inputs, the graph, static outputs."""
+
+    hist: torch.Tensor  # [bb, ib] int32
+    uids: torch.Tensor  # [bb] int32
+    noise: Optional[List[torch.Tensor]]  # sampled candidates: each level's Gumbel noise
+    graph: "torch.cuda.CUDAGraph"
+    out: RetrievalResult
+
+
+class _InFlight(NamedTuple):
+    """A replayed dispatch: its results' pinned host copies and the event
+    recorded after the copies."""
+
+    host: RetrievalResult
+    event: "torch.cuda.Event"
+
+
+class RetrievalEngine:
+    """Batched, shape-bucketed front end over `Retriever`.
+
+    `max_items` is the longest history served; a longer one keeps its most
+    recent `max_items` items. `cuda_graphs=False` runs the card eagerly, for
+    timing eager against replay only. Batch buckets are taken as given: one
+    card, no mesh whose size they would have to divide."""
+
+    def __init__(
+        self,
+        retriever: Retriever,
+        max_items: int,
+        item_buckets: Optional[Sequence[int]] = None,
+        batch_buckets: Sequence[int] = (1, 4, 16, 64),
+        cuda_graphs: bool = True,
+    ):
+        self.retriever = retriever
+        self.max_items = int(max_items)
+        self.item_buckets = tuple(sorted(item_buckets) if item_buckets else _default_item_buckets(self.max_items))
+        if self.item_buckets[-1] < self.max_items:
+            raise ValueError("the largest item bucket must cover max_items")
+        self.batch_buckets = tuple(sorted(set(batch_buckets)))
+        self.shape_counts: dict = {}  # batches run at each (batch, items) shape
+        self.device = retriever.device
+        self.use_graphs = self.device.type == "cuda" and cuda_graphs
+        self.graphs: dict = {}  # (batch bucket, item bucket) -> BucketGraph
+        if self.use_graphs:
+            self.stream = torch.cuda.Stream(self.device)
+            self.pool = torch.cuda.graph_pool_handle()
+
+    def _bucket_for(self, n: int, buckets: tuple) -> int:
+        for b in buckets:
+            if n <= b:
+                return b
+        return buckets[-1]
+
+    # ---- graphs ----
+
+    def _capture(self, bb: int, ib: int) -> BucketGraph:
+        r = self.retriever
+        hist = torch.full((bb, ib), -1, dtype=torch.int32, device=self.device)
+        hist[:, 0] = 0  # one valid item per row
+        uids = torch.zeros(bb, dtype=torch.int32, device=self.device)
+        noise = r.draw_noise(bb)
+        if noise is not None:
+            noise = [g.to(self.device) for g in noise]
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.no_grad(), torch.cuda.stream(self.stream):
+            r._retrieve_body(hist, uids, noise)  # eager: builds, loads and sets up every kernel first
+        graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept, so its nodes can be read (debug_dump)
+        try:
+            # thread_local: a resolver thread's event waits do not void a capture
+            with torch.no_grad(), torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
+                                                   capture_error_mode="thread_local"):
+                out = r._retrieve_body(hist, uids, noise)
+            graph.instantiate()
+        except Exception as e:
+            raise RuntimeError(f"CUDA graph capture of bucket (batch {bb}, items {ib}) failed: {e}") from e
+        return BucketGraph(hist, uids, noise, graph, out)
+
+    def graph_for(self, bb: int, ib: int) -> BucketGraph:
+        """The bucket's graph, captured at first use."""
+        g = self.graphs.get((bb, ib))
+        if g is None:
+            with self.retriever._lock, torch.cuda.device(self.device):
+                g = self.graphs.get((bb, ib))  # another thread may have captured it meanwhile
+                if g is None:
+                    g = self.graphs[(bb, ib)] = self._capture(bb, ib)
+        return g
+
+    def _replay(self, padded: np.ndarray, users: np.ndarray) -> _InFlight:
+        bb, ib = padded.shape
+        g = self.graph_for(bb, ib)
+        r = self.retriever
+        hist_host = torch.from_numpy(padded).pin_memory()
+        uids_host = torch.from_numpy(users).pin_memory()
+        noise = r.draw_noise(bb)
+        host = RetrievalResult(*(torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in g.out))
+        event = torch.cuda.Event()
+        with r._lock, torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            g.hist.copy_(hist_host, non_blocking=True)
+            g.uids.copy_(uids_host, non_blocking=True)
+            if noise is not None:
+                for buf, n in zip(g.noise, noise):
+                    buf.copy_(n.pin_memory(), non_blocking=True)
+            g.graph.replay()
+            for h, t in zip(host, g.out):
+                h.copy_(t, non_blocking=True)
+            event.record(self.stream)
+        return _InFlight(host, event)
+
+    # ---- batching ----
+
+    def _run_group_device(self, hists, uids, item_bucket):
+        """Dispatch one bucket-shaped batch: a graph replay on the card
+        (returns the in-flight copies) or an eager retrieve on the CPU
+        (returns its result). Callers slice rows after `finalize_many`."""
+        n = len(hists)
+        bb = self._bucket_for(n, self.batch_buckets)
+        padded = np.full((bb, item_bucket), -1, np.int32)
+        users = np.zeros((bb,), np.int32)
+        for i, h in enumerate(hists):
+            padded[i, : len(h)] = h
+            users[i] = uids[i]
+        self.shape_counts[(bb, item_bucket)] = self.shape_counts.get((bb, item_bucket), 0) + 1
+        if self.use_graphs:
+            return self._replay(padded, users)
+        return self.retriever.retrieve(padded, users)
+
+    def retrieve_many_device(
+        self,
+        histories: Sequence[np.ndarray],  # per-request 1-D item-id arrays
+        user_ids: Optional[Sequence[int]] = None,
+    ) -> list:
+        """Dispatch phase of retrieve_many: bucket the requests, dispatch one
+        batch per (batch, items) bucket group, and return the plan of
+        (request indices, result) pairs without waiting for the results;
+        `finalize_many` turns the plan into the stacked host result."""
+        if user_ids is None:
+            user_ids = [0] * len(histories)
+        if len(user_ids) != len(histories):
+            raise ValueError(f"{len(user_ids)} user ids for {len(histories)} histories")
+        cleaned = []
+        for h in histories:  # drop pad markers, keep the most recent max_items
+            h = np.asarray(h, np.int32)
+            h = h[h >= 0]
+            cleaned.append(h[-self.max_items:])
+        groups: dict = {}
+        for i, h in enumerate(cleaned):
+            groups.setdefault(self._bucket_for(max(len(h), 1), self.item_buckets), []).append(i)
+        plan = []
+        cap = self.batch_buckets[-1]
+        for item_bucket, idxs in sorted(groups.items()):
+            for s in range(0, len(idxs), cap):  # oversize groups split at the largest batch bucket
+                chunk = idxs[s: s + cap]
+                res = self._run_group_device([cleaned[i] for i in chunk], [user_ids[i] for i in chunk], item_bucket)
+                plan.append((chunk, res))
+        return plan
+
+    @staticmethod
+    def finalize_many(n_requests: int, plan: list) -> RetrievalResult:
+        """Fetch phase: wait for each group's results and stack per-request
+        rows (numpy) in request order."""
+        out = [None] * n_requests
+        for chunk, res in plan:
+            if isinstance(res, _InFlight):
+                res.event.synchronize()
+                res = res.host
+            host = [t.cpu().numpy() for t in res]
+            for j, i in enumerate(chunk):
+                out[i] = [a[j] for a in host]
+        return RetrievalResult(*(np.stack(cols) for cols in zip(*out)))
+
+    def retrieve_many(
+        self,
+        histories: Sequence[np.ndarray],
+        user_ids: Optional[Sequence[int]] = None,
+    ) -> RetrievalResult:
+        """Serve variable-length requests; results stack in request order."""
+        return self.finalize_many(len(histories), self.retrieve_many_device(histories, user_ids))
+
+    def warmup(self) -> int:
+        """Capture every (batch, items) bucket's graph on the card, or run each
+        bucket once on the CPU. Returns the number of buckets."""
+        n = 0
+        for ib in self.item_buckets:
+            for bb in self.batch_buckets:
+                if self.use_graphs:
+                    self.graph_for(bb, ib)
+                else:
+                    dummy = np.full((bb, ib), -1, np.int32)
+                    dummy[:, 0] = 0
+                    self.retriever.retrieve(dummy, np.zeros((bb,), np.int32))
+                n += 1
+        return n

@@ -9,12 +9,19 @@ launch of the rq_encode kernel (ops/cuda/rq_encode.py) at `precision`, bf16
 by default as the reference's `pallas_precision`; elsewhere, and in
 `encode_batch` on every device, it is RqVae.get_semantic_ids in chunks.
 Sequence tokenization is a table lookup.
+
+An index is saved and loaded (`save_index`, `load_index`) in the JAX
+package's file, an `np.savez_compressed` archive of `cached_ids` and a
+fingerprint of the RQ-VAE that built it, so either package reads the
+other's. `extend_corpus_ids` admits new items with the dedup column a full
+rebuild would give them, encoding them as the index build does.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from rqvae_tpu_torch.data.schemas import SeqBatch, TokenizedSeqBatch
@@ -42,6 +49,15 @@ class SemanticIdTokenizer:
         self.precision = precision
         self.cached_ids: Optional[torch.Tensor] = None  # [N, L+1] int32
 
+    @property
+    def n_layers(self) -> int:
+        return self.model.config.n_layers
+
+    @property
+    def sem_ids_dim(self) -> int:
+        """Tokens per item, the dedup column included."""
+        return self.n_layers + 1
+
     def reset(self) -> None:
         self.cached_ids = None
 
@@ -61,21 +77,73 @@ class SemanticIdTokenizer:
         return torch.cat(chunks)
 
     @torch.no_grad()
-    def precompute_corpus_ids(self, item_features) -> torch.Tensor:
-        """Tokenize the whole corpus: encode -> pack -> dedup -> concat. The
-        encode is one rq_encode launch at `precision` where `use_kernel`."""
+    def _encode_index(self, item_features) -> torch.Tensor:
+        """[N, L] ids as the index build takes them: one rq_encode launch at
+        `precision` where `use_kernel`, else the model's f32 path."""
         if self.use_kernel:
             x = torch.as_tensor(item_features, dtype=torch.float32, device=self.device)
-            ids = fused_encode_quantize(
+            return fused_encode_quantize(
                 x, self.model.encoder.kernels(), self.model.codebooks.detach(),
                 n_levels=self.model.config.n_layers, precision=self.precision,
             )
-        else:
-            ids = self.encode_batch(item_features)
+        return self.encode_batch(item_features)
+
+    @torch.no_grad()
+    def precompute_corpus_ids(self, item_features) -> torch.Tensor:
+        """Tokenize the whole corpus: encode -> pack -> dedup -> concat."""
+        ids = self._encode_index(item_features)
         keys = pack_sem_id_tuples(ids, self.model.config.codebook_size)
         dedup = dedup_counts_from_keys(keys)
         self.cached_ids = torch.cat([ids, dedup[:, None].to(ids.dtype)], dim=1)
         return self.cached_ids
+
+    # ---- index persistence and growth ----
+
+    def _index_fingerprint(self) -> np.ndarray:
+        """Geometry and codebook sums, in float64, of the RQ-VAE that defines
+        the index (the JAX package's fingerprint, value for value)."""
+        cfg = self.model.config
+        cb = self.model.codebooks.detach().cpu().double().numpy()
+        return np.asarray([float(cfg.n_layers), float(cfg.codebook_size), float(cb.shape[-1]),
+                           float(cb.sum()), float(np.abs(cb).sum())])
+
+    def save_index(self, path: str) -> None:
+        """Write cached_ids and the fingerprint (np.savez_compressed, the JAX
+        package's file)."""
+        if self.cached_ids is None:
+            raise RuntimeError("no corpus index built; nothing to save")
+        np.savez_compressed(path, cached_ids=self.cached_ids.cpu().numpy(), fingerprint=self._index_fingerprint())
+
+    def load_index(self, path: str) -> torch.Tensor:
+        """Read a saved index (either package's) after checking that this
+        tokenizer's RQ-VAE built it."""
+        with np.load(path) as z:
+            fp, cached = z["fingerprint"], z["cached_ids"]
+        mine = self._index_fingerprint()
+        if fp.shape != mine.shape or not np.allclose(fp, mine):
+            raise ValueError(f"index at {path} was built by a different RQ-VAE (fingerprint {fp} != {mine})")
+        self.cached_ids = torch.as_tensor(cached, dtype=torch.int32).to(self.device)
+        return self.cached_ids
+
+    @torch.no_grad()
+    def extend_corpus_ids(self, new_features) -> torch.Tensor:
+        """Append [M, L+1] rows for new items to cached_ids and return them.
+        A row's dedup column is what a full rebuild gives it: the count of
+        equal tuples among the existing items (two searchsorted over their
+        sorted keys) plus the count of earlier equal tuples in this batch.
+        The encode runs as the index build's (kernel 1 on the card)."""
+        if self.cached_ids is None:
+            raise RuntimeError("extend_corpus_ids needs an existing index; call precompute_corpus_ids first")
+        L, K = self.n_layers, self.model.config.codebook_size
+        ids = self._encode_index(new_features)
+        keys = pack_sem_id_tuples(ids, K)
+        old_sorted = torch.sort(pack_sem_id_tuples(self.cached_ids[:, :L], K)).values
+        before = (torch.searchsorted(old_sorted, keys, side="right")
+                  - torch.searchsorted(old_sorted, keys, side="left"))
+        dedup = dedup_counts_from_keys(keys) + before.to(torch.int32)
+        rows = torch.cat([ids, dedup[:, None].to(ids.dtype)], dim=1)
+        self.cached_ids = torch.cat([self.cached_ids, rows])
+        return rows
 
     def __call__(self, batch: SeqBatch) -> TokenizedSeqBatch:
         """Tokenize a sequence batch by cached-table lookup."""
@@ -102,7 +170,7 @@ def _tokenize_from_cache(
     B, N_seq = ids.shape
     N, D = cached_ids.shape
     sem = cached_ids[torch.clamp(ids.long(), 0, N - 1)]  # [B, N_seq, D]
-    mask = torch.repeat_interleave(seq_mask.bool(), D, dim=1)  # [B, N_seq*D]
+    mask = seq_mask.bool()[:, :, None].expand(B, N_seq, D).reshape(B, N_seq * D)
     sem_ids = torch.where(mask, sem.reshape(B, N_seq * D), -1)
     sem_ids_fut = cached_ids[torch.clamp(ids_fut.long(), 0, N - 1)].reshape(B, D)
     arange = torch.arange(D, dtype=torch.int32, device=ids.device)

@@ -8,8 +8,11 @@ optional gradient clipping and accumulation, partial (loss only) and full
 the optimizer's moments and the schedule's position. It runs on the card
 unless `device="cpu"`.
 
-The frozen RQ-VAE comes from a checkpoint of this package
-(utils/checkpoint.py, `.pt`) or, with no path, from `seed` (untrained). Every
+The frozen RQ-VAE comes from a checkpoint of either format (utils/checkpoint.py:
+this package's `.pt`, or the `.msgpack` file that every shipped
+`configs/decoder_*.gin` names, as the JAX stage-1 trainer writes it) or, with
+no path, from `seed` (untrained). A run resumes from this package's `.pt`
+files only (a JAX file's optimizer state is in optax's layout). Every
 step's randomness (rows, windows, dropout seeds) is a function of (`seed`,
 step), so a resumed run takes the steps an unbroken run takes.
 
@@ -64,15 +67,16 @@ def step_rows(seed: int, step: int, n_rows: int, count: int) -> np.ndarray:
 
 
 def load_rqvae(path: Optional[str], fallback: RqVaeConfig, device, seed: int) -> RqVae:
-    """The frozen RQ-VAE: from a `.pt` checkpoint of this package, or made
-    from `seed` at `fallback` when there is no path."""
+    """The frozen RQ-VAE: from a checkpoint of either format (a `.pt` file of
+    this package, or the `.msgpack` file the JAX package's stage-1 trainer
+    writes), or made from `seed` at `fallback` when there is no path."""
     if path is None:
         return RqVae(fallback, device=device, seed=seed)
     restored = ckpt_lib.load_checkpoint(path)
     if not isinstance(restored["config"], RqVaeConfig):
         raise ValueError(f"{path} is not an RQ-VAE checkpoint")
     rq = RqVae(restored["config"], device=device, seed=seed)
-    rq.load_state_dict(restored["params"])
+    rq.load_state_dict(ckpt_lib.params_state_dict(restored))
     print(f"---Loaded RQVAE iter {restored['step']}---")
     return rq
 
@@ -191,6 +195,7 @@ def train(
     )
     start_iter = 0
     if pretrained_decoder_path is not None:
+        ckpt_lib.refuse_jax_resume(pretrained_decoder_path)
         restored = ckpt_lib.load_checkpoint(pretrained_decoder_path)
         model.load_state_dict(restored["params"])
         optimizer.load_state_dict(restored["opt_state"])

@@ -135,6 +135,7 @@ def train(
     start_iter = 0
     sample = torch.as_tensor(train_items.head(kmeans_init_samples), device=dev)  # k-means init and restarts
     if pretrained_rqvae_path is not None:
+        ckpt_lib.refuse_jax_resume(pretrained_rqvae_path)
         restored = ckpt_lib.load_checkpoint(pretrained_rqvae_path)
         model.load_state_dict(restored["params"])
         if "opt_state" in restored:

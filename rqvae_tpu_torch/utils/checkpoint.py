@@ -1,15 +1,25 @@
 """Checkpoints of the port: params + optimizer state + step + config
 (counterpart of rqvae_tpu/utils/checkpoint.py).
 
-One `checkpoint_{step}.pt` per step, written by `torch.save`: the model's
-`state_dict`, the optimizer's `state_dict` (moments and update count, which
-fixes the schedule's position), the step, free-form `extra`, and the config
-dataclass as JSON, rebuilt on load. The RQ-VAE checkpoint is the contract
-between the two training stages: the decoder trainer rebuilds the RQ-VAE from
-the stored config and loads the weights.
+Two formats, told apart by the suffix:
 
-The JAX package's flax-msgpack checkpoints are not read here: a `.msgpack`
-path raises (their reader is queued in ROADMAP.md).
+- `checkpoint_{step}.pt`, the port's trainers' own, written by `torch.save`:
+  the model's `state_dict`, the optimizer's `state_dict` (moments and update
+  count, which fixes the schedule's position), the step, free-form `extra`,
+  and the config dataclass as JSON, rebuilt on load;
+- `checkpoint_{step}.msgpack`, the JAX package's: an 8-byte little-endian
+  length, the JSON meta {"config", "step"}, then the flax-msgpack blob of
+  {step, params, opt_state?, extra?}, read and written without JAX, flax or
+  msgpack (utils/flax_msgpack.py). Its params are the flax tree
+  ({'params': {...}}, numpy leaves, bf16 leaves as torch tensors);
+  `params_state_dict` turns either format's params into the port's
+  `state_dict`. The port writes this format's params, config and step
+  (`save_checkpoint(..., fmt="msgpack")`), not an optimizer state in
+  optax's layout.
+
+The RQ-VAE checkpoint is the contract between the two training stages: the
+decoder trainer rebuilds the RQ-VAE from the stored config and loads the
+weights.
 """
 
 from __future__ import annotations
@@ -20,9 +30,12 @@ import json
 import os
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
-_SUFFIX = ".pt"
+from rqvae_tpu_torch.utils import flax_msgpack
+
+SUFFIXES = (".pt", ".msgpack")
 
 
 def _config_to_jsonable(cfg: Any) -> Any:
@@ -58,58 +71,116 @@ def _jsonable_to_config(obj: Any) -> Any:
     return obj
 
 
-def _refuse_msgpack(path: str) -> None:
-    if str(path).endswith(".msgpack"):
-        raise NotImplementedError(
-            f"{path}: flax-msgpack checkpoints of the rqvae_tpu package are not read yet "
-            "(the reader is queued in ROADMAP.md); pass a .pt checkpoint written by "
-            "rqvae_tpu_torch.utils.checkpoint.save_checkpoint"
-        )
+def is_jax_format(path: str) -> bool:
+    """A `.msgpack` checkpoint, the JAX package's format."""
+    return str(path).endswith(".msgpack")
 
 
-def save_checkpoint(save_dir: str, step: int, params: Dict[str, torch.Tensor], opt_state: Any = None,
-                    config: Any = None, extra: Optional[Dict[str, Any]] = None) -> str:
-    """Write checkpoint_{step}.pt under save_dir (tensors moved to the CPU);
-    returns the path."""
+def _write_atomic(path: str, write) -> str:
+    tmp = path + ".tmp"
+    write(tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def save_checkpoint(save_dir: str, step: int, params, opt_state: Any = None, config: Any = None,
+                    extra: Optional[Dict[str, Any]] = None, fmt: str = "pt") -> str:
+    """Write checkpoint_{step}.{fmt} under save_dir; returns the path.
+
+    fmt="pt": `params` a state_dict (tensors moved to the CPU), `opt_state`
+    the optimizer's state_dict. fmt="msgpack": the JAX package's file, which
+    its `load_checkpoint` restores; `params` the flax tree
+    (`utils/convert.py::jax_params_from_state_dict`); an `opt_state` is
+    refused (optax's layout is not written)."""
     os.makedirs(save_dir, exist_ok=True)
+    config_json = _config_to_jsonable(config)
+    if fmt == "msgpack":
+        if opt_state is not None:
+            raise ValueError("the JAX format's opt_state is optax's layout, which the port does not write")
+        payload = {"step": np.int64(step), "params": params}
+        if extra:
+            payload["extra"] = extra
+        blob = flax_msgpack.msgpack_serialize(payload)
+        meta = json.dumps({"config": config_json, "step": int(step)}).encode()
+
+        def write(tmp):
+            with open(tmp, "wb") as f:
+                f.write(len(meta).to_bytes(8, "little"))
+                f.write(meta)
+                f.write(blob)
+
+        return _write_atomic(os.path.join(save_dir, f"checkpoint_{step}.msgpack"), write)
+    if fmt != "pt":
+        raise ValueError(f"fmt must be 'pt' or 'msgpack', got {fmt!r}")
     to_cpu = lambda t: t.detach().cpu() if isinstance(t, torch.Tensor) else t
     payload = {
         "step": int(step),
         "params": {k: to_cpu(v) for k, v in params.items()},
-        "config_json": json.dumps(_config_to_jsonable(config)),
+        "config_json": json.dumps(config_json),
     }
     if opt_state is not None:
         payload["opt_state"] = {k: [to_cpu(t) for t in v] if isinstance(v, list) else v for k, v in opt_state.items()}
     if extra:
         payload["extra"] = extra
-    path = os.path.join(save_dir, f"checkpoint_{step}{_SUFFIX}")
-    tmp = path + ".tmp"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
-    return path
+    return _write_atomic(os.path.join(save_dir, f"checkpoint_{step}.pt"), lambda tmp: torch.save(payload, tmp))
+
+
+def _load_msgpack(path: str) -> Dict[str, Any]:
+    with open(path, "rb") as f:
+        meta_len = int.from_bytes(f.read(8), "little")
+        meta = json.loads(f.read(meta_len))
+        blob = f.read()
+    payload = dict(flax_msgpack.msgpack_restore(blob))
+    payload["config"] = _jsonable_to_config(meta.get("config"))
+    payload["step"] = int(payload["step"])
+    return payload
 
 
 def load_checkpoint(path: str, map_location="cpu") -> Dict[str, Any]:
-    """{step, params, opt_state?, extra?, config} of a checkpoint written by
-    save_checkpoint."""
-    _refuse_msgpack(path)
+    """{step, params, opt_state?, extra?, config} of a checkpoint of either
+    format: a `.msgpack` file's params are its flax tree (numpy leaves), a
+    `.pt` file's a state_dict."""
+    if is_jax_format(path):
+        return _load_msgpack(path)
     payload = dict(torch.load(path, map_location=map_location, weights_only=True))
     payload["config"] = _jsonable_to_config(json.loads(payload.pop("config_json")))
     payload["step"] = int(payload["step"])
     return payload
 
 
+def params_state_dict(restored: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The port's state_dict of a loaded checkpoint's params, from either
+    format (a flax tree goes through `state_dict_from_jax`)."""
+    from rqvae_tpu_torch.utils.convert import state_dict_from_jax
+
+    params = restored["params"]
+    if set(params) == {"params"} and isinstance(params["params"], dict):
+        return state_dict_from_jax(params)
+    return params
+
+
 def latest_checkpoint(save_dir: str) -> Optional[str]:
-    """The checkpoint_{step}.pt with the largest step under save_dir, or None."""
+    """The checkpoint_{step}.pt or .msgpack with the largest step under
+    save_dir, or None."""
     if not os.path.isdir(save_dir):
         return None
     best: Tuple[int, Optional[str]] = (-1, None)
     for name in os.listdir(save_dir):
-        if name.startswith("checkpoint_") and name.endswith(_SUFFIX):
+        suffix = next((s for s in SUFFIXES if name.endswith(s)), None)
+        if name.startswith("checkpoint_") and suffix:
             try:
-                step = int(name[len("checkpoint_"): -len(_SUFFIX)])
+                step = int(name[len("checkpoint_"): -len(suffix)])
             except ValueError:
                 continue
             if step > best[0]:
                 best = (step, os.path.join(save_dir, name))
     return best[1]
+
+
+def refuse_jax_resume(path: str) -> None:
+    """A trainer resumes from its own `.pt` files only: a JAX checkpoint's
+    optimizer state is in optax's layout, which the port does not read."""
+    if is_jax_format(path):
+        raise NotImplementedError(
+            f"{path}: resuming from a JAX-format checkpoint needs its optax opt_state, which the port does not "
+            "read; resume from a .pt checkpoint of this package")

@@ -7,7 +7,9 @@
 and a Dense `kernel` [in, out] becomes an nn.Linear `weight` [out, in]. Every
 other leaf (`codebooks`, `out_proj`, `heads`, `sid_embedding`, `bos_token`,
 `sep_token`, `user_embedding`, `rel_bias`, RMSNorm `weight`) carries over
-as it is.
+as it is. `jax_params_from_state_dict` is the inverse (the JAX-format
+checkpoint writer's params): it decides by module type, since an nn.Linear
+`weight` becomes a transposed `kernel` while an RMSNorm `weight` stays.
 
 `init_rqvae_` and `init_retrieval_` fill a model from a seed at the JAX
 package's init scales (models/mlp.py torch-Linear uniform; models/t5.py HF
@@ -24,19 +26,22 @@ import numpy as np
 import torch
 
 
-def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
     out = {}
     for k, v in tree.items():
         path = f"{prefix}{k}"
         if isinstance(v, Mapping):
             out.update(_flatten(v, path + "/"))
+        elif isinstance(v, torch.Tensor):  # a bf16 leaf of a checkpoint (utils/flax_msgpack.py)
+            out[path] = v
         else:
-            out[path] = np.asarray(v)
+            out[path] = torch.from_numpy(np.array(v, copy=True))
     return out
 
 
 def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """flax params ({'params': {...}} or the inner dict) -> port state_dict."""
+    """flax params ({'params': {...}} or the inner dict), numpy or torch
+    leaves -> port state_dict."""
     if set(params) == {"params"}:
         params = params["params"]
     state = {}
@@ -46,8 +51,38 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
         name = ".".join(re.sub(r"^(block|dense)_(\d+)$", _rename, p) for p in parts[:-1])
         if leaf == "kernel":
             leaf, arr = "weight", arr.T
-        state[f"{name}.{leaf}" if name else leaf] = torch.from_numpy(np.array(arr, copy=True, order="C"))
+        state[f"{name}.{leaf}" if name else leaf] = arr.contiguous().clone()
     return state
+
+
+def jax_params_from_state_dict(model: torch.nn.Module) -> Dict[str, Dict]:
+    """The inverse of `state_dict_from_jax`: the flax params tree
+    {'params': {...}} of `model`, numpy leaves. An nn.Linear `weight` [out,
+    in] goes back to a Dense `kernel` [in, out]; every other parameter (an
+    RMSNorm's `weight` included) keeps its name and layout. The module's
+    type decides, not the name."""
+    linear = {f"{name}.weight" if name else "weight"
+              for name, m in model.named_modules() if isinstance(m, torch.nn.Linear)}
+    tree: Dict = {}
+    for key, t in model.state_dict().items():
+        parts = key.split(".")
+        path, leaf = [], parts[-1]
+        i = 0
+        while i < len(parts) - 1:
+            if parts[i] in ("block", "layers") and parts[i + 1].isdigit():
+                path.append(f"{'block' if parts[i] == 'block' else 'dense'}_{parts[i + 1]}")
+                i += 2
+            else:
+                path.append(parts[i])
+                i += 1
+        arr = t.detach().cpu()
+        if key in linear:
+            leaf, arr = "kernel", arr.T
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = arr.contiguous() if arr.dtype == torch.bfloat16 else arr.contiguous().numpy()
+    return {"params": tree}
 
 
 def grads_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:

@@ -121,7 +121,9 @@ def test_port_never_imports_jax():
             "data/synthetic.py", "data/datasets.py", "data/registry.py", "utils/config.py", "utils/logging.py",
             "utils/checkpoint.py", "ops/schedules.py", "ops/metrics.py", "ops/embedding.py",
             "train/train_rqvae.py", "train/rqvae_steps.py", "ops/kmeans.py", "ops/losses.py", "ops/gumbel.py"} <= rel
-    banned = {"jax", "flax", "rqvae_tpu", "jaxlib", "optax"}
+    assert {"utils/flax_msgpack.py", "serving/engine.py", "serving/queue.py"} <= rel
+    # the card machine has no JAX, flax or msgpack: checkpoints are read by utils/flax_msgpack.py
+    banned = {"jax", "flax", "rqvae_tpu", "jaxlib", "optax", "msgpack"}
     for path in files:
         for mod in _imports(path):
             assert mod.split(".")[0] not in banned, f"{path.relative_to(ROOT)} imports {mod}"

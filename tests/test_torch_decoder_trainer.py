@@ -24,6 +24,7 @@ from rqvae_tpu_torch.train import train_decoder
 from rqvae_tpu_torch.train.train_decoder import step_generator, step_rows, train
 from rqvae_tpu_torch.utils import checkpoint as ckpt
 from rqvae_tpu_torch.utils import config as tconfig
+from rqvae_tpu_torch.utils.convert import jax_params_from_state_dict
 
 VAE = dict(vae_input_dim=64, vae_n_cat_feats=0, vae_hidden_dims=[32], vae_embed_dim=8, vae_codebook_size=16,
            vae_n_layers=3)
@@ -116,13 +117,27 @@ def test_step_randomness_is_a_function_of_seed_and_step():
     assert torch.equal(a, b) and not torch.equal(a, torch.rand(4, generator=step_generator(2, 10)))
 
 
-def test_untrained_rqvae_from_seed_and_refusals(tmp_path):
+def test_untrained_rqvae_from_seed_and_refusals(tmp_path, rqvae_checkpoint):
     s = train(iterations=2, dataset_folder=str(tmp_path / "ds"), save_dir_root=str(tmp_path / "dec"),
               partial_eval_every=1000, full_eval_every=1000, full_eval_max_batches=1, **SMALL)
     assert np.isfinite(s["total_loss"]) and "h@10" in s
-    with pytest.raises(NotImplementedError, match="msgpack"):
+    # a `.msgpack` RQ-VAE path (the JAX format, which the shipped configs name) is read: the same
+    # weights in either format train the same step
+    ds, rq_path = rqvae_checkpoint
+    restored = ckpt.load_checkpoint(rq_path)
+    rq = RqVae(restored["config"], device="cpu")
+    rq.load_state_dict(restored["params"])
+    jax_path = ckpt.save_checkpoint(str(tmp_path / "jaxfmt"), 19, jax_params_from_state_dict(rq),
+                                    config=restored["config"], fmt="msgpack")
+    runs = [train(iterations=1, dataset_folder=ds, save_dir_root=str(tmp_path / f"x{i}"), pretrained_rqvae_path=p,
+                  partial_eval_every=1000, full_eval_every=1000, **SMALL) for i, p in enumerate((rq_path, jax_path))]
+    assert jax_path.endswith(".msgpack") and runs[0]["total_loss"] == runs[1]["total_loss"]
+    with pytest.raises(FileNotFoundError):
         train(iterations=1, dataset_folder=str(tmp_path / "ds"), save_dir_root=str(tmp_path / "x"),
               pretrained_rqvae_path="out/rqvae/checkpoint_9.msgpack", **SMALL)
+    with pytest.raises(NotImplementedError, match="optax"):
+        train(iterations=1, dataset_folder=ds, save_dir_root=str(tmp_path / "x"), pretrained_decoder_path=jax_path,
+              **SMALL)
     with pytest.raises(ValueError, match="not an RQ-VAE"):
         train(iterations=1, dataset_folder=str(tmp_path / "ds"), save_dir_root=str(tmp_path / "x"),
               pretrained_rqvae_path=s["checkpoint_path"], **SMALL)

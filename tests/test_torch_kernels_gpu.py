@@ -872,3 +872,104 @@ def test_rq_encode_library_refuses_a_route_that_does_not_take_the_shape(cuda, mo
         fused_encode_quantize(x, w, cb, 3, precision="f32")
     with pytest.raises(ValueError, match="up to 512"):
         fused_encode_quantize(x, [torch.randn(768, 1024, device=cuda), torch.randn(1024, 32, device=cuda)], cb, 3)
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("fields,n", [(SMALL_VAE, 1000), (AMAZON_VAE, 4099)])
+def test_rq_encode_emit_packed(cuda, fields, n, precision):
+    """The packed key column of the kernel's epilogue: ids equal to an
+    unpacked launch's, the key equal to pack_sem_id_tuples of them."""
+    from rqvae_tpu_torch.ops.dedup import pack_sem_id_tuples
+
+    rq, x = _rqvae(fields, n, cuda)
+    w, cb = rq.encoder.kernels(), rq.codebooks.detach()
+    ids = fused_encode_quantize(x, w, cb, 3, precision=precision)
+    packed = fused_encode_quantize(x, w, cb, 3, precision=precision, emit_packed=True)
+    torch.cuda.synchronize()
+    assert packed.shape == (n, 4)
+    assert torch.equal(packed[:, :3], ids)
+    assert torch.equal(packed[:, 3], pack_sem_id_tuples(ids, fields["codebook_size"]))
+
+
+def _small_serving(cuda, n_items=600):
+    rq, x = _rqvae(SMALL_VAE, n_items, cuda, seed=1)
+    cfg = RetrievalConfig(num_hierarchies=3, codebook_size=16, t5_d_model=32, t5_d_kv=8, t5_num_heads=4,
+                          t5_d_ff=64, t5_num_layers=2, top_k_for_generation=5)
+    model = EncoderDecoderRetrievalModel(cfg, device=cuda, seed=3)
+    return rq, x, model
+
+
+def _retriever(rq, model, x, cuda, capacity=None):
+    tok = SemanticIdTokenizer(rq, device=cuda)
+    tok.precompute_corpus_ids(x)
+    return Retriever(model, tok, device=cuda, capacity=capacity)
+
+
+def test_engine_replay_equals_eager_in_every_bucket(cuda):
+    """One CUDA graph per bucket: each replay gives the eager retrieve's
+    item ids and log-probas bit for bit (short rows: the decoder kernel;
+    128 items, 512 encoder rows: the encoder-stack kernel)."""
+    from rqvae_tpu_torch.serving.engine import RetrievalEngine
+
+    rq, x, model = _small_serving(cuda)
+    r = _retriever(rq, model, x, cuda)
+    eng = RetrievalEngine(r, max_items=128, item_buckets=(8, 20, 128), batch_buckets=(1, 4, 16))
+    assert eng.warmup() == 9 and len(eng.graphs) == 9
+    rng = np.random.RandomState(0)
+    for (bb, ib) in eng.graphs:
+        hist = rng.randint(0, 600, (bb, ib)).astype(np.int32)
+        hist[:, rng.randint(1, ib + 1):] = -1
+        eager = r.retrieve(hist)
+        flight = eng._replay(hist, np.zeros(bb, np.int32))
+        flight.event.synchronize()
+        for got, want in zip(flight.host, eager):
+            assert torch.equal(got, want.cpu()), (bb, ib)
+    reqs = [rng.randint(0, 600, rng.randint(1, 140)) for _ in range(40)]
+    got = eng.retrieve_many(reqs)
+    want = RetrievalEngine(r, max_items=128, item_buckets=(8, 20, 128), batch_buckets=(1, 4, 16),
+                           cuda_graphs=False).retrieve_many(reqs)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_engine_replays_serve_the_grown_corpus(cuda):
+    """extend_corpus after capture: the captured graphs read the grown state
+    (updated in place) and return what a fresh engine over the whole corpus
+    returns, new items included."""
+    from rqvae_tpu_torch.serving.engine import RetrievalEngine
+
+    rq, x, model = _small_serving(cuda, n_items=800)
+    grown = _retriever(rq, model, x[:500], cuda, capacity=800)
+    eng = RetrievalEngine(grown, max_items=8, batch_buckets=(64,))
+    eng.warmup()
+    ptrs = [t.data_ptr() for t in grown.corpus_tensors()]
+    assert grown.extend_corpus(x[500:]) == 800
+    assert [t.data_ptr() for t in grown.corpus_tensors()] == ptrs
+    full = _retriever(rq, model, x, cuda)
+    assert torch.equal(grown.tokenizer.cached_ids, full.tokenizer.cached_ids)
+    reqs = list(np.random.RandomState(1).randint(500, 800, (64, 6)))
+    got = eng.retrieve_many(reqs)
+    want = RetrievalEngine(full, max_items=8, batch_buckets=(64,), cuda_graphs=False).retrieve_many(reqs)
+    np.testing.assert_array_equal(got.item_ids, want.item_ids)
+    np.testing.assert_array_equal(got.log_probas, want.log_probas)
+    assert (got.item_ids >= 500).any()
+
+
+def test_engine_capture_failure_raises(cuda, monkeypatch):
+    """No eager fallback on the card: a body that reads the device from the
+    host cannot be captured, and the engine says so."""
+    from rqvae_tpu_torch.serving.engine import RetrievalEngine
+
+    rq, x, model = _small_serving(cuda)
+    r = _retriever(rq, model, x, cuda)
+    body = r._retrieve_body
+
+    def host_read(hist, uids, noise=None):
+        out = body(hist, uids, noise)
+        out.item_ids.sum().item()  # a host read: illegal while capturing
+        return out
+
+    monkeypatch.setattr(r, "_retrieve_body", host_read)
+    eng = RetrievalEngine(r, max_items=8, batch_buckets=(4,))
+    with pytest.raises(RuntimeError, match="capture"):
+        eng.retrieve_many([np.arange(5)])

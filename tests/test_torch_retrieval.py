@@ -201,10 +201,15 @@ def test_generate_ties_with_few_valid_children(models):
 
 
 def test_sampled_candidates_not_ported(models):
+    """Sampled candidates are ported now (tests/test_torch_sampled_candidates.py);
+    as JAX's generate() without an rng, the port's without the noise raises."""
     tm = tr.EncoderDecoderRetrievalModel(tr.RetrievalConfig(**FIELDS, sample_candidates=True), device="cpu")
     tt = tbeam.build_prefix_table(torch.zeros(2, L, dtype=torch.int32), K)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="noise"):
         tm.generate(torch.zeros(1, 4, dtype=torch.int32), torch.ones(1, 4, dtype=torch.bool), None, tt)
+    noise = [torch.zeros(s) for s in tm.sampling_noise_shapes(1)]
+    out = tm.generate(torch.zeros(1, 4, dtype=torch.int32), torch.ones(1, 4, dtype=torch.bool), None, tt, noise=noise)
+    assert out.sem_ids.shape == (1, k, L) and bool((out.sem_ids[0, 0] == 0).all())
 
 
 def test_retriever_end_to_end_matches_jax(models):
