@@ -54,7 +54,11 @@ bf16, top-k 10, batches of 64 histories.
       (bf16: the tiled route) and at the Amazon training shape
       [640, 6, 80, 64] (bf16: the whole-row route), with ragged key masks and
       one row with every key masked, f32 and bf16, dropout rate 0 and 0.1
-      (same seed on both sides), and a causal case at L = 512: max abs error
+      (the same seed on both sides: a 1-element int32 tensor on the card,
+      which the kernels read, as training passes it), and a causal case at
+      L = 512; the keep bits that kernels 4 and 5 apply with a device seed,
+      read off identity blocks, equal the plain version's for seeds 77, 78
+      and 2^31 + 5 on all three routes, 77 and 78 apart: max abs error
       <= 2e-5 in f32 and <= 3.2e-2 in bf16 (one bf16 step, 2^-5, of an output
       between 4 and 8 whose f32 sum lands across a rounding boundary; the two
       sides sum in another order); SDPA's time at both shapes;
@@ -168,6 +172,38 @@ bf16, top-k 10, batches of 64 histories.
       latency and flush sizes printed), then past saturation with a bounded
       queue and deadlines (rejects and sheds printed, not gated).
 
+  Training as the JAX trainers run it (chunks of steps_per_loop steps, each
+  step one replay of a CUDA graph of the whole step), run after phase 18:
+  25. train_rqvae_graph_amazon, train_rqvae_graph_ml32m: stage 1 at
+      configs/rqvae_amazon.gin (STE, batch 640) and rqvae_ml32m.gin (rotation
+      trick, batch 64), codebooks seeded from the data: from one state, 8
+      steps one by one (steps_per_loop=1) twice, against 2 chunks of 4
+      replays: parameters and AdamW moments bit-equal (or, if the two eager
+      runs differ, no further apart than they are), each chunk's metrics the
+      mean of its eager steps' bit for bit, the graph's nodes by demangled
+      name equal to one eager step's profiled launches; eager and replayed
+      host ms, the graph's card ms (CUDA events), a replay's idle share;
+  26. train_rqvae_graph_amazon_gumbel: the same in Gumbel-softmax mode with
+      the temperature annealed on the device from the step number;
+  27. train_perf: train/perf.py's measure_stage1_step() and
+      measure_stage2_step() at their defaults (the Amazon flagship) and stage
+      2 at the ML-32M geometry: seconds per step by differential timing of
+      graph replays, examples/s, flops and MFU against the bf16 peak; a
+      200-step train_rqvae.train run at rqvae_amazon.gin's settings with
+      steps_per_loop=1 against the automatic chunk (100);
+  28. train_graph_amazon: stage 2 at configs/decoder_amazon.gin's widths
+      (batch 640, Le 80, bf16, dropout 0.1): 8 eager steps twice against 2
+      chunks of 4 replays, the gates of 25; the graph holds kernel 4 x 4 and
+      kernel 5 x 4 (its launches in the kernels line: nodes x replays; the
+      wrappers' counters, zeroed first, do not tick on a replay); capture s
+      and the graph pool's memory;
+  29. train_graph_ml32m: the same at decoder_ml32m.gin's (batch 64, Le
+      800: the tiled routes), 4 eager steps against 2 chunks of 2;
+  30. remat: one ML-32M stage-2 step with t5_remat=True against False,
+      dropout 0.1, the same seeds: loss and every gradient bit-equal; kernel
+      4 launched 8 times with remat (each encoder layer's forward again in
+      the backward), 4 without; the peak memory of both.
+
 Each phase prints one JSON line. Then the `kernels` line, the card's
 `nvidia-smi` name and power limit, and last `{"ok": true, "device": ...}`.
 Any failed check raises: the script exits non-zero and prints no last line.
@@ -176,6 +212,7 @@ Without a CUDA device it exits with code 1 before printing anything.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import re
@@ -656,7 +693,8 @@ def attention_phase(dev) -> dict:
     route launches; the Amazon shape's numbers beside it)."""
     from rqvae_tpu_torch.ops.cuda.attention import attention_route, t5_attention, t5_attention_plain
 
-    H, L, dk, seed = 6, ML32M["history"] * 4, 64, 77
+    H, L, dk = 6, ML32M["history"] * 4, 64
+    seed = torch.tensor([77], dtype=torch.int32, device=dev)  # the seed in device memory, as training passes it
     rows, kernel_row, amazon = [], None, {}
     L_am = AMAZON["history"] * 4
     cases = [(dt, B, Lc, False, rate) for B, Lc in ((BATCH, L), (TRAIN_AMAZON["batch"], L_am))
@@ -699,7 +737,7 @@ def attention_phase(dev) -> dict:
                 amazon[rate] = row
             rows.append(row)
             del q, k, v, bias, mask, got, want
-    emit({"phase": "attention", "H": H, "dk": dk, "rows": rows})
+    emit({"phase": "attention", "H": H, "dk": dk, "rows": rows, "device_seed_keep_bits": device_seed_keep_bits(dev)})
     # the Amazon training shape: dropout 0.1, as the training forward runs it; the bound and the
     # library's time there without dropout (the one library call has none)
     kernel_row.update(amazon_route=amazon[0.1]["route"], amazon_ms=amazon[0.1]["kernel_ms"],
@@ -707,6 +745,54 @@ def attention_phase(dev) -> dict:
                       amazon_bound_ms=amazon[0.1]["bound_ms"], amazon_bound_by=amazon[0.1]["bound_by"],
                       amazon_no_dropout_ms=amazon[0.0]["kernel_ms"], amazon_library_ms=amazon[0.0]["library_ms"])
     return kernel_row
+
+
+def device_seed_keep_bits(dev) -> dict:
+    """Kernels 4 and 5 with the seed as a 1-element int32 tensor on the card:
+    the keep bits each applies, read off identity blocks (forward: with v the
+    identity on keys 0..63, out[..., :64] is the dropped p of those keys;
+    backward, hashing its bits itself: with dout the identity on queries
+    0..63, dv^T[:, :, :64] is the dropped p of those queries), against
+    attention_keep_mask's bits from the same tensor on unmasked keys; bf16 at
+    L = 80 (whole rows) and 800 (tiled), f32 (CUDA cores) at 80. Seeds 77,
+    78 and 2^31 + 5 (a negative int32, the reference's uint32 bits): each
+    equal to the plain version's bits, 77 and 78 different from each other."""
+    from rqvae_tpu_torch.ops.cuda import attention as A
+    from rqvae_tpu_torch.ops.hash_dropout import attention_keep_mask
+
+    rate, B, H = 0.1, 2, 3
+    seeds = torch.tensor([77, 78, -(2**31) + 5], dtype=torch.int32, device=dev)
+    rows = []
+    for dt, L in ((torch.bfloat16, 80), (torch.bfloat16, 800), (torch.float32, 80)):
+        g = torch.Generator().manual_seed(4)
+        q, k = (0.5 * torch.randn(B, H, L, 64, generator=g)).to(dt).to(dev), \
+            (0.5 * torch.randn(B, H, L, 64, generator=g)).to(dt).to(dev)
+        bias = (0.1 * torch.randn(H, L, L, generator=g)).to(dev)
+        mask = (torch.rand(B, L, generator=g) > 0.2).to(torch.int32).to(dev)
+        eye = torch.zeros(L, 64)
+        eye[torch.arange(64), torch.arange(64)] = 1.0
+        eye = eye.to(dt).to(dev).expand(B, H, L, 64).contiguous()
+        keys = mask.bool()[:, None, None, :]
+        kernel_bits, same = [], []
+        for i in range(3):
+            s = seeds[i:i + 1]
+            want = attention_keep_mask(s, B, H, L, L, rate, dev)
+            with torch.no_grad():
+                out, m, l, _ = A._forward_cuda(q, k, eye, bias, mask, s, False, rate, True)
+                dv = A._backward_cuda(q, k, eye, bias, mask, s, eye, m, l, False, rate)[2]
+            fwd = (out != 0) & keys[..., :64]
+            bwd = (dv.transpose(-1, -2) != 0) & keys
+            same.append(bool(torch.equal(fwd, want[..., :64] & keys[..., :64]))
+                        and bool(torch.equal(bwd, want[:, :, :64, :] & keys)))
+            kernel_bits.append(fwd)
+        differ = not torch.equal(kernel_bits[0], kernel_bits[1])
+        what = f"device seed keep bits {dtype_name(dt)} L={L} ({A.attention_route(L, L, 64, dt)})"
+        check(all(same), f"{what}: kernel bits against the plain version's for seeds 77, 78, 2^31 + 5: {same}")
+        check(differ, f"{what}: seeds 77 and 78 keep the same bits")
+        rows.append({"dtype": dtype_name(dt), "L": L, "route": A.attention_route(L, L, 64, dt),
+                     "equal_to_plain": same, "seeds_77_78_differ": differ,
+                     "kept_share": float(kernel_bits[0].sum()) / float(keys[..., :64].expand_as(fwd).sum())})
+    return {"seeds": [77, 78, 2**31 + 5], "rate": rate, "rows": rows}
 
 
 def encoder_stack_phase(models: dict, dev) -> dict:
@@ -1019,7 +1105,8 @@ def attention_bwd_phase(dev):
     the forward kernel's time at that shape."""
     from rqvae_tpu_torch.ops.cuda import attention as A
 
-    H, dk, seed = 6, 64, 77
+    H, dk = 6, 64
+    seed = torch.tensor([77], dtype=torch.int32, device=dev)  # the seed in device memory, as training passes it
     shapes = {"amazon": (TRAIN_AMAZON["batch"], AMAZON["history"] * 4), "ml32m": (TRAIN_ML32M["batch"], ML32M["history"] * 4)}
     cases = [(name, dt, False, rate) for name in shapes for dt in (torch.float32, torch.bfloat16) for rate in (0.0, 0.1)]
     cases.append(("amazon", torch.bfloat16, True, 0.1))
@@ -1505,6 +1592,327 @@ def train_profile_phase(step, tables, dev, top: int = 12) -> None:
           "hash_dropout_encoder_sites_share_of_device_ms": dropout_ms / device_ms,
           "kernels": [{"name": e.key[:60], "count": e.count, "ms": e.self_device_time_total / 1e3}
                       for e in rows[:top]]})
+
+
+# ---- training as the JAX trainers run it: step graphs, remat, step time and MFU ----
+
+# stage 2: n eager steps (steps_per_loop=1) against n / chunk chunks of `chunk` replays
+TRAIN_GRAPH = {"amazon": dict(eager=8, chunk=4), "ml32m": dict(eager=4, chunk=2)}
+RQ_GRAPH = dict(eager=8, chunk=4)  # stage 1, the same
+
+
+def attention_launches_in(names: dict) -> dict:
+    """Kernel 4's and kernel 5's launches among kernel names (a graph's nodes
+    or a profile): one forward kernel per kernel-4 launch; kernel 5 launches
+    one kernel on the whole-row route and three on the others (and a group
+    reduction), counted by its first."""
+    fwd = sum(c for n, c in names.items() if re.search(r"attn::attention_(rows_|tiled_)?kernel[<(]", n))
+    bwd = sum(c for n, c in names.items()
+              if re.search(r"::(bwd_rows_kernel|bwd_delta_tiled_kernel|delta_kernel)[<(]", n))
+    return {"attention": fwd, "attention_bwd": bwd}
+
+
+def same_state(model_a, opt_a, model_b, opt_b) -> dict:
+    """Largest abs difference of the parameters and of the moments (0.0 when
+    bit-equal), and whether all are bit-equal."""
+    pa, pb = list(model_a.parameters()), list(model_b.parameters())
+    ma, mb = opt_a.mu + opt_a.nu, opt_b.mu + opt_b.nu
+    return {"bit_equal": all(torch.equal(a, b) for a, b in zip(pa + ma, pb + mb)),
+            "params_max_abs_diff": max(float((a.detach() - b.detach()).abs().max()) for a, b in zip(pa, pb)),
+            "moments_max_abs_diff": max(float((a - b).abs().max()) for a, b in zip(ma, mb)),
+            "count": [opt_a.count, opt_b.count]}
+
+
+def chunk_means_equal(chunks: list, eager: list, chunk: int) -> bool:
+    """Each chunk's metrics equal the step-order float32 sum of its eager
+    steps' over the chunk's length, bit for bit."""
+    for c, means in enumerate(chunks):
+        for key, v in means.items():
+            total = torch.zeros_like(v)
+            for m in eager[c * chunk:(c + 1) * chunk]:
+                total = total + m[key]
+            if not torch.equal(v, total / chunk):
+                return False
+    return True
+
+
+def graph_gate(phase: str, eager_twice: dict, graph: dict) -> dict:
+    """The graph against the eager steps: bit-equal, or, if two eager runs of
+    the same steps are not bit-equal on this card, no further from the eager
+    run than the two eager runs are from each other (reported)."""
+    if eager_twice["bit_equal"]:
+        check(graph["bit_equal"], f"{phase}: the graph's state differs from the eager steps': {graph}")
+    else:
+        check(graph["params_max_abs_diff"] <= eager_twice["params_max_abs_diff"]
+              and graph["moments_max_abs_diff"] <= eager_twice["moments_max_abs_diff"],
+              f"{phase}: eager runs differ by {eager_twice}; the graph by {graph}")
+    return {"eager_twice": eager_twice, "graph_vs_eager": graph,
+            "gate": "bit_equal" if eager_twice["bit_equal"] else "eager_vs_eager"}
+
+
+def replay_timing(chunks, replays: int) -> dict:
+    """Host ms per replay of `replays` staged steps (synchronised), the
+    graph's CUDA-event ms on the card, and one profiled replay's device time
+    and the card's idle share of it. The draws must be staged; the step
+    index is reset before the timed replays and before each profiled one."""
+    sync()
+    chunks.index.zero_()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    chunks.replay(replays)
+    end.record()
+    sync()
+    host = (time.perf_counter() - t0) * 1e3 / replays
+    card = start.elapsed_time(end) / replays
+
+    def one():
+        chunks.index.zero_()
+        chunks.replay(1)
+
+    prof = profile_call(one)
+    return {"replayed_host_ms": host, "graph_card_ms": card,
+            "replay_profile": {k: prof[k] for k in ("host_ms", "device_ms", "device_launches", "device_idle_share")}}
+
+
+def graph_against_eager(phase: str, graph, chunks_eager, tmp: str) -> dict:
+    """The graph's nodes by demangled name against one eager step's profiled
+    launches (a chunk runner of one step, its index reset between runs
+    without a launch; up to three profiles: a profile can drop events)."""
+    nodes = graph_nodes(graph, tmp)
+    fresh = [torch.zeros_like(chunks_eager.index) for _ in range(12)]
+
+    def one():
+        chunks_eager.index = fresh.pop()
+        chunks_eager._one_step()
+
+    for _ in range(3):
+        prof = profile_call(one, by_name=True)
+        if prof["names"] == nodes:
+            break
+    names = prof["names"]
+    differ = {n[:90]: [nodes.get(n, 0), names.get(n, 0)] for n in set(nodes) | set(names)
+              if nodes.get(n, 0) != names.get(n, 0)}
+    check(not differ, f"{phase}: kernels by name, graph against an eager step: {differ}")
+    return {"nodes": sum(nodes.values()), "copies": nodes.get(DEVICE_COPY, 0),
+            "eager_step": {k: prof[k] for k in ("host_ms", "device_ms", "device_launches", "device_idle_share")},
+            "attention_nodes": attention_launches_in(nodes)}
+
+
+def eager_runs(make, run_step, n: int) -> tuple:
+    """(model, optimizer, step, per-step metrics, per-step host ms, draws) of
+    steps 0 .. n - 1 of seed 0 one by one (steps_per_loop=1) from a fresh
+    `make(1)`."""
+    model, opt, step = make(1)
+    draws = [step.draws(0, s) for s in range(n)]
+    ms, metrics = [], []
+    for d in draws:
+        sync()
+        t0 = time.perf_counter()
+        metrics.append(run_step(step, [d]))
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return model, opt, step, metrics, ms, draws
+
+
+def train_graph_phase(phase: str, geo: dict, rq, x, dev, counts, eager: int, chunk: int) -> dict:
+    """Stage-2 steps as the JAX trainer runs them, at a published width: from
+    one state, n_eager steps one by one (steps_per_loop=1), twice, against
+    n_eager / chunk chunks through the step's CUDA graph; returns the
+    replays' launches of kernels 4 and 5, read off the graph's nodes (the
+    wrappers' counters, zeroed before the chunks, do not tick on a replay)."""
+    n_eager = eager
+    from rqvae_tpu_torch.ops.schedules import inverse_sqrt_schedule
+    from rqvae_tpu_torch.tokenizer.semids import SemanticIdTokenizer
+    from rqvae_tpu_torch.train.decoder_steps import make_decoder_graph_train_step
+    from rqvae_tpu_torch.train.state import adamw
+
+    seq_items, seq_lengths = make_sequences(geo, x.shape[0], seed=21)
+    cached = SemanticIdTokenizer(rq, device=dev).precompute_corpus_ids(x)
+    tables = [torch.as_tensor(a, device=dev) for a in (seq_items, seq_lengths, np.arange(geo["users"]))] + [cached]
+
+    def make(n_steps):
+        model = retrieval_model("bfloat16", dev, t5_dropout=0.1)
+        opt = adamw(model.parameters(), inverse_sqrt_schedule(1e-3, 10000), weight_decay=1e-4)
+        step = make_decoder_graph_train_step(model, opt, max_seq_len=geo["max_seq_len"], n_steps=n_steps,
+                                             batch_size=geo["batch"])
+        step.draws = functools.partial(step.draws, n_rows=geo["users"])
+        return model, opt, step
+
+    run_step = lambda step, d: step(*tables, d)
+    me, oe, se, eager, eager_ms, draws = eager_runs(make, run_step, n_eager)
+    again = eager_runs(make, run_step, n_eager)
+    model, opt, step = make(chunk)
+    step.bind(*tables)
+    sync()
+    torch.cuda.empty_cache()  # as the capture does on entry: the reserved bytes after it are the pool's
+    mem0, res0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    reset_peak_memory()
+    t0 = time.perf_counter()
+    step.chunks.capture()
+    sync()
+    capture_s = time.perf_counter() - t0
+    pool = {"allocated_bytes": torch.cuda.memory_allocated() - mem0,
+            "reserved_bytes": torch.cuda.memory_reserved() - res0, "peak_bytes": peak_memory() - mem0}
+    counts.zero()
+    chunks = [run_step(step, draws[i:i + chunk]) for i in range(0, n_eager, chunk)]
+    sync()
+    ticked = counts.read()
+    check(not any(ticked.values()), f"{phase}: wrappers ticked during replays: {ticked}")
+    replays = step.chunks.replays
+    gate = graph_gate(phase, same_state(me, oe, *again[:2]), same_state(me, oe, model, opt))
+    means_equal = chunk_means_equal(chunks, eager, chunk)
+    check(means_equal, f"{phase}: a chunk's means differ from the means of its eager steps")
+    losses = [float(m["total_loss"]) for m in eager]
+    check(all(np.isfinite(losses)), f"{phase}: losses {losses}")
+    with tempfile.TemporaryDirectory() as tmp:
+        nodes = graph_against_eager(phase, step.chunks.graph, se.chunks, tmp)
+    per_step = nodes["attention_nodes"]
+    check(per_step == {"attention": 4, "attention_bwd": 4}, f"{phase}: kernels 4 and 5 in the graph: {per_step}")
+    step.chunks.stage(draws[:chunk])
+    timing = replay_timing(step.chunks, chunk)
+    emit({"phase": phase, "batch": geo["batch"], "Le": geo["max_seq_len"] * 4, "dtype": "bfloat16", "dropout": 0.1,
+          "eager_steps": n_eager, "chunk": chunk, "chunks": len(chunks), "replays": replays, **gate,
+          "chunk_means_equal_eager_means": means_equal, "losses": losses,
+          "chunk_total_loss": [float(c["total_loss"]) for c in chunks], "eager_host_ms": eager_ms, **timing,
+          "graph_nodes": nodes, "capture_s": capture_s, "graph_pool": pool})
+    del me, oe, se, again, model, opt, step, tables, cached
+    torch.cuda.empty_cache()
+    return {k: v * replays for k, v in per_step.items()}
+
+
+def train_rqvae_graph_phase(phase: str, gin: str, x_cpu: torch.Tensor, dev, mode=None, anneal=False) -> None:
+    """Stage-1 steps at a config file's settings (codebooks seeded from the
+    data): n eager steps, twice, against chunks through the step's CUDA
+    graph, from one state; `mode` overrides the file's estimator, `anneal`
+    puts a temperature anneal on the device."""
+    from rqvae_tpu_torch.models.rqvae import RqVae, RqVaeConfig
+    from rqvae_tpu_torch.ops.schedules import gumbel_temperature_at
+    from rqvae_tpu_torch.train.rqvae_steps import make_rqvae_graph_train_step
+    from rqvae_tpu_torch.train.state import adamw
+    from rqvae_tpu_torch.utils.config import parse_config_file
+
+    st = parse_config_file(gin)
+    cfg = RqVaeConfig(input_dim=st["vae_input_dim"], embed_dim=st["vae_embed_dim"],
+                      hidden_dims=tuple(st["vae_hidden_dims"]), codebook_size=st["vae_codebook_size"],
+                      n_layers=st["vae_n_layers"], commitment_weight=st["commitment_weight"],
+                      n_cat_feats=st["vae_n_cat_feats"], codebook_mode=mode or st["vae_codebook_mode"])
+    t_fn = functools.partial(gumbel_temperature_at, t0=1.0, min_t=0.1, anneal_rate=0.05,
+                             step_size=2) if anneal else None
+    x = x_cpu.to(dev)
+
+    def make(n_steps):
+        model = RqVae(cfg, device=dev, seed=5)
+        init_codebooks_from_data(model, x, seed=6)
+        opt = adamw(model.parameters(), st["learning_rate"], weight_decay=st["weight_decay"])
+        step = make_rqvae_graph_train_step(model, opt, n_steps=n_steps, accum=1, batch_size=st["batch_size"],
+                                           gumbel_t=1.0, t_fn=t_fn)
+        step.draws = functools.partial(step.draws, n_items=x.shape[0])
+        return model, opt, step
+
+    run_step = lambda step, d: step(x, d)
+    n, chunk = RQ_GRAPH["eager"], RQ_GRAPH["chunk"]
+    me, oe, se, eager, eager_ms, draws = eager_runs(make, run_step, n)
+    again = eager_runs(make, run_step, n)
+    model, opt, step = make(chunk)
+    chunks = [run_step(step, draws[i:i + chunk]) for i in range(0, n, chunk)]
+    sync()
+    gate = graph_gate(phase, same_state(me, oe, *again[:2]), same_state(me, oe, model, opt))
+    means_equal = chunk_means_equal(chunks, eager, chunk)
+    check(means_equal, f"{phase}: a chunk's means differ from the means of its eager steps")
+    losses = [float(m["total_loss"]) for m in eager]
+    check(all(np.isfinite(losses)), f"{phase}: losses {losses}")
+    with tempfile.TemporaryDirectory() as tmp:
+        nodes = graph_against_eager(phase, step.chunks.graph, se.chunks, tmp)
+    step.chunks.stage(draws[:chunk])
+    timing = replay_timing(step.chunks, chunk)
+    emit({"phase": phase, "config": gin, "mode": cfg.codebook_mode.name, "batch": st["batch_size"],
+          "anneal_on_device": anneal, "temperatures": [float(m["gumbel_t"]) for m in eager],
+          "eager_steps": n, "chunk": chunk, "replays": step.chunks.replays, **gate,
+          "chunk_means_equal_eager_means": means_equal, "losses": losses, "eager_host_ms": eager_ms, **timing,
+          "graph_nodes": nodes})
+    del me, oe, se, again, model, opt, step, x
+    torch.cuda.empty_cache()
+
+
+def remat_phase(rq, x, dev, counts) -> dict:
+    """One ML-32M stage-2 step's loss and gradients with t5_remat=True against
+    False, dropout 0.1, the same batch and seeds: bit-equal; the peak memory
+    of each. Returns the launches of kernels 4 and 5."""
+    from rqvae_tpu_torch.models.t5 import DropoutSeeds
+    from rqvae_tpu_torch.tokenizer.semids import SemanticIdTokenizer
+    from rqvae_tpu_torch.train.decoder_steps import _make_micro_batch_fn
+    from rqvae_tpu_torch.train.step_graph import step_generator, step_rows
+
+    geo = TRAIN_ML32M
+    seq_items, seq_lengths = make_sequences(geo, x.shape[0], seed=22)
+    cached = SemanticIdTokenizer(rq, device=dev).precompute_corpus_ids(x)
+    tables = [torch.as_tensor(a, device=dev) for a in (seq_items, seq_lengths, np.arange(geo["users"]))] + [cached]
+    g = step_generator(0, 0)
+    rows = torch.as_tensor(step_rows(0, 0, geo["users"], geo["batch"]), device=dev)
+    u_start, u_end = (torch.rand(geo["batch"], generator=g).to(dev) for _ in range(2))
+    batch = _make_micro_batch_fn(geo["max_seq_len"], True, True)(*tables, rows, u_start, u_end)
+    out = {}
+    for remat in (False, True):
+        model = retrieval_model("bfloat16", dev, t5_dropout=0.1, t5_remat=remat)
+        seeds = DropoutSeeds.draw(torch.Generator().manual_seed(3), 1, model.n_dropout_sites)[0].to(dev)
+        sync()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        reset_peak_memory()
+        counts.zero()
+        res = model(batch, training=True, seeds=seeds)
+        res.loss.backward()
+        sync()
+        launched = {k: v for k, v in counts.read().items() if k.startswith("attention")}
+        out[remat] = (res.loss.detach(), {n: p.grad for n, p in model.named_parameters()},
+                      peak_memory() - base, launched)
+        del model, res
+    (la, ga, pa, ka), (lb, gb, pb, kb) = out[False], out[True]
+    same = bool(torch.equal(la, lb)) and all(torch.equal(ga[n], gb[n]) for n in ga)
+    check(same, "remat: the loss or a gradient with t5_remat=True differs from t5_remat=False")
+    check(ka == {"attention": 4, "attention_bwd": 4} and kb == {"attention": 8, "attention_bwd": 4},
+          f"remat: kernel launches {ka} without, {kb} with (the recompute runs each encoder layer's forward again)")
+    emit({"phase": "remat", "batch": geo["batch"], "Le": geo["max_seq_len"] * 4, "dtype": "bfloat16",
+          "dropout": 0.1, "loss": float(la), "loss_and_gradients_bit_equal": same,
+          "peak_step_bytes": {"remat_off": pa, "remat_on": pb}, "launches": {"remat_off": ka, "remat_on": kb}})
+    del out, tables, cached, batch
+    torch.cuda.empty_cache()
+    return {k: ka[k] + kb[k] for k in ka}
+
+
+def train_perf_phase(x_cpu: torch.Tensor, dev) -> None:
+    """train/perf.py's measures at their defaults (the Amazon flagship, both
+    stages) and stage 2 at the ML-32M geometry; a 200-step stage-1 run of
+    train_rqvae.train at configs/rqvae_amazon.gin's settings with
+    steps_per_loop=1 against the automatic chunk (100 here)."""
+    from rqvae_tpu_torch.data.registry import RecDataset
+    from rqvae_tpu_torch.train import perf
+    from rqvae_tpu_torch.train import train_rqvae as T
+    from rqvae_tpu_torch.utils.config import apply_config
+
+    rows = {"stage1_amazon": perf.measure_stage1_step(device=dev),
+            "stage2_amazon": perf.measure_stage2_step(device=dev),
+            "stage2_ml32m": perf.measure_stage2_step(batch=TRAIN_ML32M["batch"],
+                                                     max_seq_len=TRAIN_ML32M["max_seq_len"],
+                                                     n_rows=TRAIN_ML32M["users"], r1=3, r2=23, device=dev)}
+    for name, r in rows.items():
+        check(r["seconds_per_step"] > 0 and 0 < r["mfu"] < 1, f"train_perf {name}: {r}")
+    runs = {}
+    with tempfile.TemporaryDirectory() as root:
+        folder = write_item_dataset(os.path.join(root, "data"), x_cpu, seed=13)
+        for spl in (1, None):
+            t0 = time.perf_counter()
+            s = apply_config(T.train, "configs/rqvae_amazon.gin", iterations=200, eval_every=200,
+                             save_model_every=200, log_every=100, steps_per_loop=spl, dataset=RecDataset.SYNTHETIC,
+                             dataset_folder=folder, save_dir_root=os.path.join(root, f"rq{spl}"), device=dev)
+            sync()
+            runs["steps_per_loop_1" if spl == 1 else "steps_per_loop_auto"] = {
+                "wall_s": time.perf_counter() - t0, "iterations_per_sec": s["iterations_per_sec"],
+                "kmeans_init_ms": s["kmeans_init_ms"], "total_loss": s["total_loss"]}
+    for name, r in runs.items():
+        check(bool(np.isfinite(r["total_loss"])), f"train_perf {name}: loss {r['total_loss']}")
+    emit({"phase": "train_perf", "peak": "h100_sxm_bf16", **rows, "train_rqvae_200_steps": runs})
 
 
 # ---- serving as it is deployed: checkpoints, saved index, bucket graphs, growth, queue ----
@@ -2170,8 +2578,25 @@ def main() -> int:
     for name, (gin, corpus) in corpora.items():
         launches[f"train_rqvae_{name}"] = train_rqvae_phase(f"train_rqvae_{name}", gin, corpus, counts, dev)
     train_rqvae_card_vs_cpu_phase(corpora, dev)
+
+    # ---- 25-30. training as the JAX trainers run it: step graphs, remat, step time and MFU ----
+    from rqvae_tpu_torch.models.quantize import QuantizeForwardMode
+
+    train_rqvae_graph_phase("train_rqvae_graph_amazon", *corpora["amazon"], dev)
+    train_rqvae_graph_phase("train_rqvae_graph_ml32m", *corpora["ml32m"], dev)
+    train_rqvae_graph_phase("train_rqvae_graph_amazon_gumbel", *corpora["amazon"], dev,
+                            mode=QuantizeForwardMode.GUMBEL_SOFTMAX, anneal=True)
+    train_perf_phase(corpora["amazon"][1], dev)
     del corpora
     torch.cuda.empty_cache()
+    for name, geo, vae in (("amazon", TRAIN_AMAZON, AMAZON), ("ml32m", TRAIN_ML32M, ML32M)):
+        rq, x_cpu, x = make_rqvae(vae, dev)
+        launches[f"train_graph_{name}"] = train_graph_phase(f"train_graph_{name}", geo, rq, x, dev, counts,
+                                                            **TRAIN_GRAPH[name])
+        if name == "ml32m":
+            launches["remat"] = remat_phase(rq, x, dev, counts)
+        del rq, x_cpu, x
+        torch.cuda.empty_cache()
 
     # ---- 19-24. serving as it is deployed ----
     checkpoint_interop_phase(dev)

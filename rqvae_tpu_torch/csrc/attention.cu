@@ -22,7 +22,7 @@
 namespace {
 
 template <typename T>
-int launch(void* const* ptrs, const int* dims, int seed, unsigned keep_thresh, float keep_scale,
+int launch(void* const* ptrs, const int* dims, const int* seed, unsigned keep_thresh, float keep_scale,
            int dropout, void* stream) {
   attn::Params<T> p;
   p.q = static_cast<const T*>(ptrs[0]);
@@ -38,7 +38,7 @@ int launch(void* const* ptrs, const int* dims, int seed, unsigned keep_thresh, f
   p.B = dims[0]; p.H = dims[1]; p.Lq = dims[2]; p.Lk = dims[3]; p.dk = dims[4];
   p.causal = dims[5];
   p.dropout = dropout;
-  p.seed_mix = (unsigned)seed * 0x9E3779B9u;
+  p.seed = seed;
   p.keep_thresh = keep_thresh;
   p.keep_scale = keep_scale;
   return (int)attn::launch_attention<T>(p, static_cast<cudaStream_t>(stream));
@@ -54,9 +54,10 @@ const char* kernel_error_string(int code) { return cudaGetErrorString((cudaError
 // then row_max and row_sum [B, H, Lq] f32 (both null: statistics not written),
 // then keep_bits [B, H, Lq, ceil(Lk / 64), 2] int32 (null: not written; only
 // the tiled route writes them, with dropout).
-// dims: B, H, Lq, Lk, dk, causal. With dropout != 0, keep iff the hash bits
-// >= keep_thresh and kept probabilities are scaled by keep_scale.
-int attention_forward(int is_bf16, void* const* ptrs, const int* dims, int seed,
+// dims: B, H, Lq, Lk, dk, causal. With dropout != 0, seed is the device
+// address of the int32 dropout seed (read by the kernel, not here), keep iff
+// the hash bits >= keep_thresh and kept probabilities are scaled by keep_scale.
+int attention_forward(int is_bf16, void* const* ptrs, const int* dims, const int* seed,
                       unsigned keep_thresh, float keep_scale, int dropout, void* stream) {
   return is_bf16 ? launch<__nv_bfloat16>(ptrs, dims, seed, keep_thresh, keep_scale, dropout, stream)
                  : launch<float>(ptrs, dims, seed, keep_thresh, keep_scale, dropout, stream);

@@ -96,6 +96,7 @@
 namespace {
 
 using attn::keep_bit;
+using attn::seed_mix_of;
 using attn::MASKED;
 using attn::Num;
 using attn::row_sum;
@@ -118,7 +119,8 @@ template <typename T> struct BwdParams {
   const unsigned* keep_bits;  // the tiled forward's keep bits (attn::Params::keep_bits), or null: hashed anew
   int B, H, Lq, Lk, dkw;      // dkw: head width
   int causal, dropout, groups;
-  unsigned seed_mix, keep_thresh;
+  const int* seed;            // [1] int32 dropout seed in device memory (read as the forward reads it)
+  unsigned keep_thresh;
   float keep_scale;
 };
 
@@ -231,6 +233,7 @@ __device__ __forceinline__ unsigned tile_p_dp(const BwdParams<T>& P, const Smem&
                                               float (&dp)[4][4]) {
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   cuda_core_products(sm, P.dkw, p, dp);
+  const unsigned seed_mix = P.dropout ? seed_mix_of(P.seed) : 0u;
   unsigned keep = 0xFFFFu;
   const float* bias_h = P.bias + (size_t)h * P.Lq * P.Lk;
 #pragma unroll
@@ -252,7 +255,7 @@ __device__ __forceinline__ unsigned tile_p_dp(const BwdParams<T>& P, const Smem&
         const unsigned counter =
             (((unsigned)b * (unsigned)P.H + (unsigned)h) * (unsigned)P.Lq + (unsigned)row) * (unsigned)P.Lk +
             (unsigned)key;
-        if (keep_bit(counter, P.seed_mix, P.keep_thresh)) {
+        if (keep_bit(counter, seed_mix, P.keep_thresh)) {
           dp[i][j] *= P.keep_scale;
         } else {
           dp[i][j] = 0.f;
@@ -560,6 +563,7 @@ __device__ __forceinline__ void probs_and_dp(float (&s)[NJ][4], float (&dp)[NJ][
                                              bf16* pd_tile, int ld, int pd_row0, const unsigned* bits) {
   const int t = threadIdx.x & 3, g = (threadIdx.x & 31) >> 2;
   const float inv_l[2] = {1.f / l[0], 1.f / l[1]};
+  const unsigned seed_mix = P.dropout && bits == nullptr ? seed_mix_of(P.seed) : 0u;
   uint2 kw[2] = {make_uint2(0u, 0u), make_uint2(0u, 0u)};
   if (NJ == 8 && bits != nullptr && P.dropout) {
     const int nt = (P.Lk + TL_KT - 1) / TL_KT;
@@ -587,7 +591,7 @@ __device__ __forceinline__ void probs_and_dp(float (&s)[NJ][4], float (&dp)[NJ][
               NJ == 8 && bits != nullptr
                   ? (((j & 4) ? kw[hh].y : kw[hh].x) >> bit) & 1u
                   : keep_bit(drop_counter(b, h, P.H, P.Lq, P.Lk, row_lo + hh * 8, k0 + j * 8 + 2 * t + e2),
-                             P.seed_mix, P.keep_thresh);
+                             seed_mix, P.keep_thresh);
           pd[e2] = (keep ? pv : 0.f) * P.keep_scale;
           dp[j][e] = keep ? dp[j][e] * P.keep_scale : 0.f;
         }
@@ -1076,7 +1080,7 @@ cudaError_t launch_ng(const BwdParams<T>& P, cudaStream_t stream) {
 }
 
 template <typename T>
-int launch(void* const* ptrs, const int* dims, int seed, unsigned keep_thresh, float keep_scale, int dropout,
+int launch(void* const* ptrs, const int* dims, const int* seed, unsigned keep_thresh, float keep_scale, int dropout,
            void* stream) {
   BwdParams<T> P;
   P.q = static_cast<const T*>(ptrs[0]);
@@ -1098,7 +1102,7 @@ int launch(void* const* ptrs, const int* dims, int seed, unsigned keep_thresh, f
   P.causal = dims[5];
   P.groups = dims[6];
   P.dropout = dropout;
-  P.seed_mix = (unsigned)seed * 0x9E3779B9u;
+  P.seed = seed;
   P.keep_thresh = keep_thresh;
   P.keep_scale = keep_scale;
   if (P.dkw % 4 || P.dkw < 4 || P.dkw > MAX_DK || P.B < 1 || P.H < 1 || P.Lq < 1 || P.Lk < 1 || P.groups < 1 ||
@@ -1128,10 +1132,11 @@ const char* kernel_error_string(int code) { return cudaGetErrorString((cudaError
 // (scratch), dq, dk, dv (q's dtype), dbias [H, Lq, Lk] f32, and the partial
 // dbias [groups, H, Lq, Lk] f32 (unused when groups == 1), and the tiled
 // forward's keep bits (attention_forward's keep_bits; null: hashed anew).
-// dims: B, H, Lq, Lk, dk, causal, groups. Dropout as in attention_forward.
+// dims: B, H, Lq, Lk, dk, causal, groups. Dropout as in attention_forward
+// (seed: the device address of the int32 seed).
 // Launches on `stream` the route's kernels (1 on the whole-row route, 3 on the
 // others), and one more when groups > 1.
-int attention_backward(int is_bf16, void* const* ptrs, const int* dims, int seed, unsigned keep_thresh,
+int attention_backward(int is_bf16, void* const* ptrs, const int* dims, const int* seed, unsigned keep_thresh,
                        float keep_scale, int dropout, void* stream) {
   return is_bf16 ? launch<__nv_bfloat16>(ptrs, dims, seed, keep_thresh, keep_scale, dropout, stream)
                  : launch<float>(ptrs, dims, seed, keep_thresh, keep_scale, dropout, stream);

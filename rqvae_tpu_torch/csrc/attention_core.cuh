@@ -39,7 +39,10 @@
 // Dropout (rate > 0): keep bits are the murmur3 finaliser of the wrapping
 // uint32 counter ((b*H + h)*Lq + q)*Lk + k XOR seed * 0x9E3779B9, keep iff
 // bits >= round(rate * 2^32); dropped p is zeroed and the rest scaled by
-// 1/(1-rate) in float32 before the rounding to the compute dtype.
+// 1/(1-rate) in float32 before the rounding to the compute dtype. The int32
+// seed is read from device memory (Params::seed) by every thread that drops,
+// as the Pallas kernels read seed_ref[0] from SMEM: a launch captured in a
+// CUDA graph reads the seed its buffer holds at replay.
 //
 // Row statistics: when Params::row_max / row_sum are set, each row's softmax
 // maximum m and sum l are written out ([B, H, Lq] float32), so that the
@@ -77,7 +80,7 @@ template <typename T> struct Params {
   int B, H, Lq, Lk, dk;
   int causal;
   int dropout;              // 0: no dropout, the three fields below unused
-  unsigned seed_mix;        // seed * 0x9E3779B9 (wrapping)
+  const int* seed;          // [1] int32 dropout seed in device memory
   unsigned keep_thresh;     // keep iff bits >= this
   float keep_scale;         // 1 / (1 - rate)
 };
@@ -85,6 +88,9 @@ template <typename T> struct Params {
 __host__ __device__ inline int smem_floats(int dk) {
   return QT * (dk + 4) + KT * (dk + 4) + KT * dk + QT * (KT + 4) + KT;
 }
+
+// seed * 0x9E3779B9 (wrapping) of the int32 seed at `seed`
+__device__ __forceinline__ unsigned seed_mix_of(const int* seed) { return (unsigned)__ldg(seed) * 0x9E3779B9u; }
 
 __device__ __forceinline__ bool keep_bit(unsigned counter, unsigned seed_mix, unsigned thresh) {
   unsigned x = counter ^ seed_mix;
@@ -227,6 +233,7 @@ __device__ void attention_tile(const Params<T>& p, int b, int h, int q0, float* 
   }
 
   // ---- pass 2: p = round(exp(s - m) / l [dropout]); out += p @ v ----
+  const unsigned seed_mix = p.dropout ? seed_mix_of(p.seed) : 0u;
   float o[2][4][4];
 #pragma unroll
   for (int g = 0; g < 2; ++g)
@@ -250,7 +257,7 @@ __device__ void attention_tile(const Params<T>& p, int b, int h, int q0, float* 
           const unsigned key = (unsigned)(k0 + tx + 16 * j);
           const unsigned counter =
               (((unsigned)b * (unsigned)p.H + (unsigned)h) * (unsigned)Lq + (unsigned)row) * (unsigned)Lk + key;
-          pv = (keep_bit(counter, p.seed_mix, p.keep_thresh) ? pv : 0.f) * p.keep_scale;
+          pv = (keep_bit(counter, seed_mix, p.keep_thresh) ? pv : 0.f) * p.keep_scale;
         }
         Ss[(ty * 4 + i) * lds + tx + 16 * j] = Num<T>::rnd(pv);
       }
@@ -539,6 +546,7 @@ __device__ __forceinline__ void probs_times_v(float (&s)[NJ][4], float (&o)[8][4
                                               int row_lo, int k0, const __nv_bfloat16* Vs, unsigned* bits) {
   const int lane = threadIdx.x & 31, t = lane & 3;
   const float inv_l[2] = {1.f / l[0], 1.f / l[1]};
+  const unsigned seed_mix = p.dropout ? seed_mix_of(p.seed) : 0u;
   unsigned kw[2][2] = {{0u, 0u}, {0u, 0u}};  // [row][keys 0-31, 32-63 of the tile]
 #pragma unroll
   for (int j = 0; j < NJ; ++j)
@@ -547,7 +555,7 @@ __device__ __forceinline__ void probs_times_v(float (&s)[NJ][4], float (&o)[8][4
       float pv = sm_p(s[j][e], m[e >> 1], inv_l[e >> 1]);
       if (p.dropout) {
         const unsigned c = drop_counter(b, h, p.H, p.Lq, p.Lk, row_lo + (e >> 1) * 8, k0 + j * 8 + 2 * t + (e & 1));
-        const bool keep = keep_bit(c, p.seed_mix, p.keep_thresh);
+        const bool keep = keep_bit(c, seed_mix, p.keep_thresh);
         pv = (keep ? pv : 0.f) * p.keep_scale;
         if (NJ == 8) kw[e >> 1][(j >> 2) & 1] |= (unsigned)keep << ((j & 3) * 8 + 2 * t + (e & 1));
       }

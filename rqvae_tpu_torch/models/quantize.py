@@ -15,6 +15,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from rqvae_tpu_torch.ops.embedding import one_hot
 from rqvae_tpu_torch.ops.gumbel import gumbel_softmax_sample
 from rqvae_tpu_torch.ops.losses import quantize_loss
 from rqvae_tpu_torch.ops.normalize import l2norm
@@ -54,7 +55,7 @@ def codebook_distances(
 
 def lookup(codebook: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """codebook[ids] as a one-hot matmul: [B, D]."""
-    return torch.nn.functional.one_hot(ids.long(), codebook.shape[0]).to(codebook.dtype) @ codebook
+    return one_hot(ids, codebook.shape[0], codebook.dtype) @ codebook
 
 
 def efficient_rotation_trick_transform(u: torch.Tensor, q: torch.Tensor, e: torch.Tensor) -> torch.Tensor:

@@ -9,7 +9,9 @@ beam's log-prob, which rounds to -1e9.
 
 Training: `forward(batch, training, generator)` is the teacher-forced loss, the
 sum over hierarchy levels of the mean cross-entropy of that level's head at
-its decoder position. Rematerialisation (`t5_remat`) is not ported.
+its decoder position. Its dropout seeds are a device row of `n_dropout_sites`
+int32 values (models/t5.py::DropoutSeeds), passed as `seeds` or drawn from
+`generator`. `t5_remat` rematerialises each T5 block in the backward pass.
 
 Generation: deterministic over all K codewords per level, or with
 `sample_candidates` over n_candidates drawn per beam by Gumbel top-k (the
@@ -55,15 +57,11 @@ class RetrievalConfig:
     num_user_bins: Optional[int] = None
     sample_candidates: bool = False
     t5_dtype: str = "float32"
-    t5_remat: bool = False  # not ported: True raises
+    t5_remat: bool = False  # rematerialise each T5 block in the backward pass
     t5_hash_dropout: bool = True
     t5_fused_decode: str = "auto"
     t5_fused_encode: str = "auto"
     t5_fused_attention: str = "auto"
-
-    def __post_init__(self):
-        if self.t5_remat:
-            raise NotImplementedError("t5_remat (rematerialised blocks) is not ported")
 
     @property
     def t5(self) -> T5StackConfig:
@@ -79,6 +77,7 @@ class RetrievalConfig:
             fused_decode=self.t5_fused_decode,
             fused_encode=self.t5_fused_encode,
             fused_attention=self.t5_fused_attention,
+            remat=self.t5_remat,
         )
 
 
@@ -126,13 +125,18 @@ class EncoderDecoderRetrievalModel(nn.Module):
         if cfg.num_user_bins:
             self.user_embedding = nn.Parameter(torch.empty(cfg.num_user_bins, d, device=dev))
         self.encoder = T5Stack(cfg.t5, is_decoder=False, device=dev)
-        self.decoder = T5Stack(cfg.t5, is_decoder=True, device=dev)
+        self.decoder = T5Stack(cfg.t5, is_decoder=True, device=dev, site0=self.encoder.n_sites)
         self.heads = nn.Parameter(torch.empty(L, d, K, device=dev))  # per-hierarchy heads
         init_retrieval_(self, seed)
 
     @property
     def device(self) -> torch.device:
         return self.heads.device
+
+    @property
+    def n_dropout_sites(self) -> int:
+        """Dropout sites of one training forward: the encoder's, then the decoder's."""
+        return self.encoder.n_sites + self.decoder.n_sites
 
     def _offsets(self, n_cols: int) -> torch.Tensor:
         """Per-hierarchy embedding offsets repeated across columns."""
@@ -147,7 +151,7 @@ class EncoderDecoderRetrievalModel(nn.Module):
         seq_mask: torch.Tensor,  # [B, N*L] 1 = valid
         user_ids: Optional[torch.Tensor] = None,  # [B]
         training: bool = False,
-        seeds: Optional[DropoutSeeds] = None,
+        seeds: Optional[torch.Tensor] = None,
     ):
         cfg = self.config
         B, T = sem_ids.shape
@@ -186,7 +190,7 @@ class EncoderDecoderRetrievalModel(nn.Module):
         beams: int = 1,
         cross_kv=None,  # decoder.cross_kv(enc_out)
         training: bool = False,
-        seeds: Optional[DropoutSeeds] = None,
+        seeds: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         embs = self._decoder_embs(fut_ids, enc_out.shape[0] * beams)
         return self.decoder(
@@ -195,16 +199,19 @@ class EncoderDecoderRetrievalModel(nn.Module):
         )  # [B*beams, T+1, d]
 
     def forward(self, batch: TokenizedSeqBatch, training: bool = False,
-                generator: Optional[torch.Generator] = None) -> ModelOutput:
+                generator: Optional[torch.Generator] = None, seeds: Optional[torch.Tensor] = None) -> ModelOutput:
         """Teacher-forced loss. With `training` and a dropout rate above 0,
-        `generator` (a CPU torch.Generator) supplies the dropout seeds."""
+        the dropout seeds are `seeds` (an int32 device row of at least
+        `n_dropout_sites`, read on the device) or, without it, drawn from
+        `generator` (a CPU torch.Generator: one row of DropoutSeeds.draw)."""
         cfg = self.config
         L = cfg.num_hierarchies
         D = L + 1  # sem_ids_dim including the dedup column
         input_ids = strip_dedup_col(batch.sem_ids, D, L)
         mask = strip_dedup_col(batch.seq_mask.to(torch.int32), D, L)
         fut = batch.sem_ids_fut[:, :L]
-        seeds = DropoutSeeds(generator) if training and generator is not None else None
+        if seeds is None and training and generator is not None and cfg.t5_dropout > 0.0:
+            seeds = DropoutSeeds.draw(generator, 1, self.n_dropout_sites)[0].to(self.device)
 
         enc, enc_mask = self.encoder_forward(input_ids, mask, batch.user_ids, training, seeds)
         dec = self.decoder_forward(fut, enc, enc_mask, training=training, seeds=seeds)[:, :-1]  # [B, L, d]

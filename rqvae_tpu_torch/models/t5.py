@@ -10,12 +10,16 @@
 - Dropout (training only, rate `dropout`) at the reference's sites, in its
   order: the stack's input, the attention weights (inside the attention kernel
   where that runs), each sublayer's output before the residual add, the FFN's
-  inner activation, the stack's output. Each site takes its own int32 seed
-  from a `DropoutSeeds` handed down by the caller, which draws them on the
-  host from an explicit `torch.Generator`: nothing reads global random state.
-  With `hash_dropout` the mask is the counter hash of ops/hash_dropout.py and
-  is rebuilt in the backward pass; without it, a Bernoulli mask from a
-  generator seeded with the site's seed.
+  inner activation, the stack's output. Every site has a fixed index, given at
+  construction (a stack's sites follow `site0`), and reads its int32 seed
+  from that column of the forward's seed row: a device tensor that the caller
+  draws on the host from an explicit `torch.Generator` (`DropoutSeeds.draw`)
+  and copies to the device once. Nothing reads global random state, and no
+  site reads the host, so a CUDA graph of a training step takes the seeds its
+  buffer holds at each replay. With `hash_dropout` the mask is the counter
+  hash of ops/hash_dropout.py and is rebuilt in the backward pass; without
+  it, a Bernoulli mask from a generator seeded with the site's seed (read
+  back to the host: that path is eager only).
 
 Parameters stay float32. With `dtype="bfloat16"` every projection rounds its
 operands to bf16, sums the products in f32 and rounds the result to bf16 once
@@ -37,8 +41,11 @@ that the port routes as the reference does:
   FUSED_ATTENTION_MIN_LEN of them.
 
 Each mode field is "auto" (the gate decides), "on" (the same here: one
-device, no device-count gate to force past) or "off". Rematerialisation
-(`remat`) is not ported.
+device, no device-count gate to force past) or "off". With `remat`, each
+block of a training forward is rematerialised in the backward pass
+(`torch.utils.checkpoint`, the counterpart of the reference's `nn.remat`):
+its sites' seeds are fixed by index, so the recomputed block rebuilds the
+forward's masks and the gradients equal those without remat bit for bit.
 """
 
 from __future__ import annotations
@@ -46,11 +53,12 @@ from __future__ import annotations
 import functools
 
 from dataclasses import dataclass
-from typing import List, NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from rqvae_tpu_torch.ops.cuda.attention import t5_attention
 from rqvae_tpu_torch.ops.cuda.decoder_stack import t5_decoder_stack_infer
@@ -92,6 +100,8 @@ class T5StackConfig:
     # attention kernels: "auto" (in training on from FUSED_ATTENTION_MIN_TILE
     # queries and keys, at inference from FUSED_ATTENTION_MIN_LEN) or "off"
     fused_attention: str = "auto"
+    # rematerialise each block in the backward pass of a training forward
+    remat: bool = False
 
     def __post_init__(self):
         for name in ("fused_decode", "fused_encode", "fused_attention"):
@@ -114,35 +124,42 @@ def dense(x: torch.Tensor, weight: torch.Tensor, cdt: torch.dtype) -> torch.Tens
 
 
 class DropoutSeeds:
-    """Host-side int32 seeds for the dropout sites of forward passes: drawn
-    from `generator` (a CPU torch.Generator) a block at a time, handed out one
-    per site in call order. The same generator state gives the same masks."""
+    """The int32 seeds of the dropout sites, one row per forward pass (micro-
+    batch), one column per site index. `draw` takes them from `generator` (a
+    CPU torch.Generator) a block of BLOCK at a time, row after row, enough
+    blocks for `n_sites`: the same generator state gives the same masks."""
 
-    BLOCK = 64  # more than the sites of one forward of an 8-layer model
+    BLOCK = 64  # more than the sites of one forward of a 4+4-layer model
 
-    def __init__(self, generator: torch.Generator):
+    @classmethod
+    def columns(cls, n_sites: int) -> int:
+        return cls.BLOCK * max(1, -(-n_sites // cls.BLOCK))
+
+    @classmethod
+    def draw(cls, generator: torch.Generator, rows: int, n_sites: int) -> torch.Tensor:
+        """[rows, columns(n_sites)] int32 on the host."""
         if generator.device.type != "cpu":
             raise ValueError("dropout seeds are drawn on the host: pass a CPU torch.Generator")
-        self.generator = generator
-        self._seeds: List[int] = []
-
-    def next(self) -> int:
-        if not self._seeds:
-            self._seeds = torch.randint(0, 2**31 - 1, (self.BLOCK,), generator=self.generator).tolist()[::-1]
-        return self._seeds.pop()
+        blocks = cls.columns(n_sites) // cls.BLOCK
+        return torch.stack([
+            torch.cat([torch.randint(0, 2**31 - 1, (cls.BLOCK,), generator=generator) for _ in range(blocks)])
+            for _ in range(rows)
+        ]).to(torch.int32)
 
 
-def dropout(x: torch.Tensor, cfg: T5StackConfig, training: bool, seeds: Optional[DropoutSeeds]) -> torch.Tensor:
-    """One dropout site at rate cfg.dropout (the identity outside training)."""
+def dropout(x: torch.Tensor, cfg: T5StackConfig, training: bool, seeds: Optional[torch.Tensor],
+            site: int) -> torch.Tensor:
+    """One dropout site at rate cfg.dropout (the identity outside training);
+    its seed is seeds[site], a view on the device."""
     if not training or cfg.dropout == 0.0:
         return x
     if seeds is None:
-        raise ValueError("training with dropout needs a DropoutSeeds (an explicit generator)")
-    seed = seeds.next()
+        raise ValueError("training with dropout needs the step's dropout seeds (an explicit generator)")
+    seed = seeds[site:site + 1]
     if cfg.hash_dropout:
         return hash_dropout(x, seed, cfg.dropout)
     keep_prob = 1.0 - cfg.dropout
-    g = torch.Generator(device=x.device).manual_seed(seed)
+    g = torch.Generator(device=x.device).manual_seed(int(seed))
     keep = torch.rand(x.shape, device=x.device, generator=g) < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
@@ -198,10 +215,11 @@ def relative_position_bucket(
 
 class T5Attention(nn.Module):
     def __init__(self, cfg: T5StackConfig, has_relative_bias: bool = False,
-                 bidirectional: bool = True, device=None):
+                 bidirectional: bool = True, device=None, site: int = 0):
         super().__init__()
         self.cfg = cfg
         self.bidirectional = bidirectional
+        self.site = site  # the attention weights' dropout site
         inner = cfg.num_heads * cfg.d_kv
         d = cfg.d_model
         self.q = nn.Linear(d, inner, bias=False, device=device)
@@ -253,7 +271,7 @@ class T5Attention(nn.Module):
         causal: bool = False,
         kv_cache: Optional[tuple] = None,  # precomputed kv_heads() output
         training: bool = False,
-        seeds: Optional[DropoutSeeds] = None,
+        seeds: Optional[torch.Tensor] = None,
     ):
         cfg = self.cfg
         cdt = cfg.compute_dtype
@@ -270,8 +288,8 @@ class T5Attention(nn.Module):
             keys = mask if mask is not None else torch.ones(B, Lk, dtype=torch.int32, device=x.device)
             rate = cfg.dropout if training else 0.0
             if rate > 0.0 and seeds is None:
-                raise ValueError("training with dropout needs a DropoutSeeds (an explicit generator)")
-            seed = seeds.next() if rate > 0.0 else 0  # a host int: the kernels take it without a sync
+                raise ValueError("training with dropout needs the step's dropout seeds (an explicit generator)")
+            seed = seeds[self.site:self.site + 1] if rate > 0.0 else None  # the kernels read it on the card
             out = t5_attention(q.contiguous(), k.contiguous(), v.contiguous(), bias.contiguous(),
                                keys.to(torch.int32), seed, causal=causal, dropout_rate=rate)
             out = out.transpose(1, 2).reshape(B, Lq, cfg.num_heads * cfg.d_kv)
@@ -285,48 +303,59 @@ class T5Attention(nn.Module):
         if causal:
             cmask = torch.ones(Lq, Lk, dtype=torch.bool, device=x.device).tril()
             scores = scores + torch.where(cmask, 0.0, NEG_INF)
-        weights = dropout(torch.softmax(scores, dim=-1).to(cdt), cfg, training, seeds)
+        weights = dropout(torch.softmax(scores, dim=-1).to(cdt), cfg, training, seeds, self.site)
         out = (weights.float() @ v.float()).to(cdt)
         out = out.transpose(1, 2).reshape(B, Lq, cfg.num_heads * cfg.d_kv)
         return dense(out, self.o.weight, cdt), position_bias
 
 
 class T5FFN(nn.Module):
-    def __init__(self, cfg: T5StackConfig, device=None):
+    def __init__(self, cfg: T5StackConfig, device=None, site: int = 0):
         super().__init__()
         self.cfg = cfg
+        self.site = site  # the inner activation's dropout site
         self.wi = nn.Linear(cfg.d_model, cfg.d_ff, bias=False, device=device)
         self.wo = nn.Linear(cfg.d_ff, cfg.d_model, bias=False, device=device)
 
-    def forward(self, x: torch.Tensor, training: bool = False, seeds: Optional[DropoutSeeds] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, training: bool = False, seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         cdt = self.cfg.compute_dtype
-        h = dropout(torch.relu(dense(x, self.wi.weight, cdt)), self.cfg, training, seeds)
+        h = dropout(torch.relu(dense(x, self.wi.weight, cdt)), self.cfg, training, seeds, self.site)
         return dense(h, self.wo.weight, cdt)
 
 
 class T5Block(nn.Module):
+    """Dropout sites in call order from `site0`: self-attention weights, its
+    output, (decoder) cross-attention weights, its output, the FFN's inner
+    activation, its output."""
+
     def __init__(self, cfg: T5StackConfig, is_decoder: bool = False,
-                 has_relative_bias: bool = False, device=None):
+                 has_relative_bias: bool = False, device=None, site0: int = 0):
         super().__init__()
         self.cfg = cfg
         self.is_decoder = is_decoder
         eps = cfg.layer_norm_eps
         self.ln_self = RMSNorm(cfg.d_model, eps, device)
-        self.self_attn = T5Attention(cfg, has_relative_bias, not is_decoder, device)
+        self.self_attn = T5Attention(cfg, has_relative_bias, not is_decoder, device, site=site0)
+        site = site0 + 2
         if is_decoder:
             self.ln_cross = RMSNorm(cfg.d_model, eps, device)
-            self.cross_attn = T5Attention(cfg, device=device)
+            self.cross_attn = T5Attention(cfg, device=device, site=site)
+            site += 2
         self.ln_ffn = RMSNorm(cfg.d_model, eps, device)
-        self.ffn = T5FFN(cfg, device)
+        self.ffn = T5FFN(cfg, device, site=site)
+
+    @staticmethod
+    def sites(is_decoder: bool) -> int:
+        return 6 if is_decoder else 4
 
     def forward(self, x, enc_out=None, self_mask=None, enc_mask=None, position_bias=None,
-                beams: int = 1, cross_kv=None, training: bool = False, seeds: Optional[DropoutSeeds] = None):
-        drop = lambda h: dropout(h, self.cfg, training, seeds)
+                beams: int = 1, cross_kv=None, training: bool = False, seeds: Optional[torch.Tensor] = None):
+        drop = lambda h, site: dropout(h, self.cfg, training, seeds, site)
         h, position_bias = self.self_attn(
             self.ln_self(x), mask=self_mask, position_bias=position_bias, causal=self.is_decoder,
             training=training, seeds=seeds,
         )
-        x = x + drop(h)
+        x = x + drop(h, self.self_attn.site + 1)
         if self.is_decoder and (enc_out is not None or cross_kv is not None):
             xq = self.ln_cross(x)
             if beams > 1:
@@ -339,8 +368,8 @@ class T5Block(nn.Module):
                                    training=training, seeds=seeds)
             if beams > 1:
                 h = h.reshape(x.shape)
-            x = x + drop(h)
-        return x + drop(self.ffn(self.ln_ffn(x), training, seeds)), position_bias
+            x = x + drop(h, self.cross_attn.site + 1)
+        return x + drop(self.ffn(self.ln_ffn(x), training, seeds), self.ffn.site + 1), position_bias
 
 
 class DecodeWeights(NamedTuple):
@@ -378,14 +407,19 @@ class EncodeWeights(NamedTuple):
 
 
 class T5Stack(nn.Module):
-    """Encoder or decoder stack over pre-computed input embeddings."""
+    """Encoder or decoder stack over pre-computed input embeddings. Its
+    `n_sites` dropout sites are site0 (the input), the blocks' in order, and
+    the last (the output)."""
 
-    def __init__(self, cfg: T5StackConfig, is_decoder: bool = False, device=None):
+    def __init__(self, cfg: T5StackConfig, is_decoder: bool = False, device=None, site0: int = 0):
         super().__init__()
         self.cfg = cfg
         self.is_decoder = is_decoder
+        per_block = T5Block.sites(is_decoder)
+        self.site0 = site0
+        self.n_sites = 2 + per_block * cfg.num_layers
         self.block = nn.ModuleList(
-            T5Block(cfg, is_decoder, has_relative_bias=(i == 0), device=device)
+            T5Block(cfg, is_decoder, has_relative_bias=(i == 0), device=device, site0=site0 + 1 + per_block * i)
             for i in range(cfg.num_layers)
         )
         self.ln_final = RMSNorm(cfg.d_model, cfg.layer_norm_eps, device)
@@ -538,15 +572,19 @@ class T5Stack(nn.Module):
         beams: int = 1,  # decoder: input batch = beams * encoder batch
         cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # self.cross_kv()
         training: bool = False,
-        seeds: Optional[DropoutSeeds] = None,  # the dropout sites' seeds; needed when training with dropout
+        seeds: Optional[torch.Tensor] = None,  # the forward's seed row [>= sites] int32; needed for dropout
     ) -> torch.Tensor:
         cfg = self.cfg
         if self.use_fused_encode(inputs_embeds.shape[1], training):
             return self.fused_encode(inputs_embeds, self_mask)
-        x = dropout(inputs_embeds.to(cfg.compute_dtype), cfg, training, seeds)
+        x = dropout(inputs_embeds.to(cfg.compute_dtype), cfg, training, seeds, self.site0)
         position_bias = None
+        remat = cfg.remat and training and torch.is_grad_enabled()
         for i, blk in enumerate(self.block):
             layer_kv = None if cross_kv is None else (cross_kv[0][i], cross_kv[1][i])
-            x, position_bias = blk(x, enc_out, self_mask, enc_mask, position_bias, beams, layer_kv,
-                                   training, seeds)
-        return dropout(self.ln_final(x), cfg, training, seeds).float()
+            args = (x, enc_out, self_mask, enc_mask, position_bias, beams, layer_kv, training, seeds)
+            if remat:  # the RNG is not read (seeds are by site), so its state need not be kept
+                x, position_bias = checkpoint(blk, *args, use_reentrant=False, preserve_rng_state=False)
+            else:
+                x, position_bias = blk(*args)
+        return dropout(self.ln_final(x), cfg, training, seeds, self.site0 + self.n_sites - 1).float()

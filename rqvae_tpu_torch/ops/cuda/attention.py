@@ -25,9 +25,11 @@ Shapes (cdt = compute dtype, float32 or bfloat16):
   k, v    [B, H, Lk, dk]  cdt
   bias    [H, Lq, Lk]     f32 (zeros when there is no position bias)
   mask    [B, Lk]         int/bool, nonzero = attend
-  seed    int, or a 1-element int32 tensor (read only when dropout_rate > 0;
-          a tensor is read with .item(), which waits for the device: callers
-          on a hot path pass a host int)
+  seed    a 1-element int32 tensor on q's device, or a host int (read only
+          when dropout_rate > 0). The kernels take its address and each block
+          reads it, as the Pallas kernels read seed_ref[0]: nothing waits for
+          the host, and a captured launch reads the seed its buffer holds at
+          replay. A host int is copied to the device first.
   out     [B, H, Lq, dk]  cdt
 """
 
@@ -38,7 +40,7 @@ import ctypes
 import torch
 
 from rqvae_tpu_torch.ops.cuda._build import check_launch, launch_operand, load_library
-from rqvae_tpu_torch.ops.hash_dropout import attention_keep_mask, keep_threshold
+from rqvae_tpu_torch.ops.hash_dropout import attention_keep_mask, keep_threshold, seed_tensor
 
 NEG_INF = -1e9
 MAX_DK = 128  # the kernels' widest head (csrc/attention_core.cuh, csrc/attention_bwd.cu)
@@ -54,7 +56,7 @@ GROUP_TARGET_BLOCKS = {"whole_row": 264, "cuda_cores": 528}
 # at the ML-32M shape measured faster than 2, 5 or 8)
 TILED_PARTIAL_BYTES = 48 << 20
 _C = ctypes.c_void_p
-_ARGTYPES = [ctypes.c_int, ctypes.POINTER(_C), ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+_ARGTYPES = [ctypes.c_int, ctypes.POINTER(_C), ctypes.POINTER(ctypes.c_int), _C,
              ctypes.c_uint, ctypes.c_float, ctypes.c_int, _C]
 _FUNCTIONS = {"attention_forward": _ARGTYPES, "attention_route": [ctypes.c_int] * 3}
 _BWD_FUNCTIONS = {"attention_backward": _ARGTYPES, "attention_backward_route": [ctypes.c_int] * 4}
@@ -78,12 +80,6 @@ def _check(q, k, v, bias, mask, causal, dropout_rate):
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"dropout_rate {dropout_rate} outside [0, 1)")
     return B, H, Lq, Lk, dk
-
-
-def _seed_value(seed) -> int:
-    """The seed as a host int. A tensor seed is read with `.item()`, which
-    synchronises with the device; the training path passes host ints."""
-    return int(seed.reshape(-1)[0].item()) if isinstance(seed, torch.Tensor) else int(seed)
 
 
 def _chunks(B, H, Lq, Lk):
@@ -121,7 +117,7 @@ def t5_attention_plain(q, k, v, bias, mask, seed=0, *, causal: bool = False,
     for b0, b1 in _chunks(B, H, Lq, Lk):
         p = _plain_probs(q, k, bias, madd, cadd, b0, b1)
         if dropout_rate > 0.0:
-            keep = attention_keep_mask(_seed_value(seed), b1 - b0, H, Lq, Lk, dropout_rate, dev, b0)
+            keep = attention_keep_mask(seed, b1 - b0, H, Lq, Lk, dropout_rate, dev, b0)
             p = torch.where(keep, p, 0.0) * (1.0 / (1.0 - dropout_rate))
         out[b0:b1] = (p.to(cdt).float() @ v[b0:b1].float()).to(cdt)
     return out
@@ -144,7 +140,7 @@ def t5_attention_backward_plain(q, k, v, bias, mask, seed, do, *, causal: bool =
         dof = do[b0:b1].float()
         dpd = dof @ v[b0:b1].float().transpose(-1, -2)
         if dropout_rate > 0.0:
-            keep = attention_keep_mask(_seed_value(seed), b1 - b0, H, Lq, Lk, dropout_rate, dev, b0)
+            keep = attention_keep_mask(seed, b1 - b0, H, Lq, Lk, dropout_rate, dev, b0)
             pd = torch.where(keep, p, 0.0) * scale
             dp = torch.where(keep, dpd, 0.0) * scale
         else:
@@ -185,11 +181,13 @@ def _check_cuda(q, dk, tensors):
             raise ValueError("attention takes contiguous, 16-byte aligned tensors on one CUDA device")
 
 
-def _dropout_args(seed, dropout_rate):
+def _dropout_args(seed, dropout_rate, dev):
+    """(seed tensor or None, seed address, keep threshold, scale, on): with
+    dropout the kernels read the int32 seed at that device address."""
     if dropout_rate > 0.0:
-        seed32 = ((_seed_value(seed) + 2**31) % 2**32) - 2**31  # the int32 the reference casts to
-        return seed32, keep_threshold(dropout_rate), 1.0 / (1.0 - dropout_rate), 1
-    return 0, 0, 1.0, 0
+        seed = seed_tensor(seed, dev)
+        return seed, seed.data_ptr(), keep_threshold(dropout_rate), 1.0 / (1.0 - dropout_rate), 1
+    return None, None, 0, 1.0, 0
 
 
 def _forward_cuda(q, k, v, bias, mask, seed, causal, dropout_rate, with_stats):
@@ -213,9 +211,9 @@ def _forward_cuda(q, k, v, bias, mask, seed, causal, dropout_rate, with_stats):
     lib = load_library("attention", _FUNCTIONS)
     ptrs = (_C * 9)(*[t.data_ptr() for t in tensors], *([None] * (9 - len(tensors))))
     dims = (ctypes.c_int * 6)(B, H, Lq, Lk, dk, int(bool(causal)))
-    seed32, thresh, scale, on = _dropout_args(seed, dropout_rate)
+    seed, seed_ptr, thresh, scale, on = _dropout_args(seed, dropout_rate, q.device)
     with torch.cuda.device(q.device):  # the kernel launches on the current device
-        rc = lib.attention_forward(int(q.dtype == torch.bfloat16), ptrs, dims, seed32, thresh, scale, on,
+        rc = lib.attention_forward(int(q.dtype == torch.bfloat16), ptrs, dims, seed_ptr, thresh, scale, on,
                                    torch.cuda.current_stream(q.device).cuda_stream)
     t5_attention.launches += 1
     check_launch(lib, rc, "attention")
@@ -272,9 +270,9 @@ def _backward_cuda(q, k, v, bias, mask, seed, do, row_max, row_sum, causal, drop
     lib = load_library("attention_bwd", _BWD_FUNCTIONS)
     ptrs = (_C * 15)(*[t.data_ptr() for t in tensors], *([None] * (15 - len(tensors))))
     dims = (ctypes.c_int * 7)(B, H, Lq, Lk, dk, int(bool(causal)), groups)
-    seed32, thresh, scale, on = _dropout_args(seed, dropout_rate)
+    seed, seed_ptr, thresh, scale, on = _dropout_args(seed, dropout_rate, dev)
     with torch.cuda.device(dev):  # the kernels launch on the current device
-        rc = lib.attention_backward(int(q.dtype == torch.bfloat16), ptrs, dims, seed32, thresh, scale, on,
+        rc = lib.attention_backward(int(q.dtype == torch.bfloat16), ptrs, dims, seed_ptr, thresh, scale, on,
                                     torch.cuda.current_stream(dev).cuda_stream)
     t5_attention.backward_launches += 1
     check_launch(lib, rc, "attention backward")
@@ -283,29 +281,29 @@ def _backward_cuda(q, k, v, bias, mask, seed, do, row_max, row_sum, causal, drop
 
 class _T5Attention(torch.autograd.Function):
     """Kernel 4 forward, kernel 5 backward (plain versions for CPU tensors).
-    Saves q, k, v, bias, mask, the seed and, on the card, the forward's row
+    Saves q, k, v, bias, mask, the seed tensor and, on the card, the forward's row
     statistics (and on the tiled route with dropout its keep bits, 1 bit a
     score); never the [B, H, Lq, Lk] probabilities."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, mask, seed, causal, dropout_rate):
-        ctx.causal, ctx.dropout_rate, ctx.seed = causal, dropout_rate, seed
+        ctx.causal, ctx.dropout_rate = causal, dropout_rate
         if q.device.type == "cpu":
-            ctx.save_for_backward(q, k, v, bias, mask)
+            ctx.save_for_backward(q, k, v, bias, mask, seed)
             return t5_attention_plain(q, k, v, bias, mask, seed, causal=causal, dropout_rate=dropout_rate)
         out, *stats = _forward_cuda(q, k, v, bias, mask, seed, causal, dropout_rate, with_stats=True)
-        ctx.save_for_backward(q, k, v, bias, mask, *(t for t in stats if t is not None))
+        ctx.save_for_backward(q, k, v, bias, mask, seed, *(t for t in stats if t is not None))
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, bias, mask, *stats = ctx.saved_tensors
+        q, k, v, bias, mask, seed, *stats = ctx.saved_tensors
         kw = dict(causal=ctx.causal, dropout_rate=ctx.dropout_rate)
         if q.device.type == "cpu":
-            grads = t5_attention_backward_plain(q, k, v, bias, mask, ctx.seed, do, **kw)
+            grads = t5_attention_backward_plain(q, k, v, bias, mask, seed, do, **kw)
         else:
             row_max, row_sum, *bits = stats
-            grads = _backward_cuda(q, k, v, bias, mask, ctx.seed, do, row_max, row_sum,
+            grads = _backward_cuda(q, k, v, bias, mask, seed, do, row_max, row_sum,
                                    keep_bits=bits[0] if bits else None, **kw)
         return (*grads, None, None, None, None)
 
@@ -327,8 +325,7 @@ def t5_attention(q, k, v, bias, mask, seed=0, *, causal: bool = False,
         q, k, v, bias = (launch_operand(t) for t in (q, k, v, bias))
         mask = launch_operand(mask.to(torch.int32))
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, bias)):
-        if dropout_rate > 0.0:
-            seed = _seed_value(seed)  # saved for the backward as a host int
+        seed = seed_tensor(seed, q.device) if dropout_rate > 0.0 else None  # saved for the backward
         return _T5Attention.apply(q, k, v, bias, mask, seed, bool(causal), dropout_rate)
     if q.device.type == "cpu":
         return t5_attention_plain(q, k, v, bias, mask, seed, causal=causal, dropout_rate=dropout_rate)

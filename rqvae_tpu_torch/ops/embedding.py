@@ -9,7 +9,13 @@ and the [32, H] relative-position table.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
+
+
+def one_hot(ids: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
+    """[..., n] one-hot rows of integer `ids` at `dtype`, by comparison with
+    an iota on the ids' device (F.one_hot checks its ids' range on the host
+    for CPU tensors; this reads nothing back anywhere)."""
+    return (ids.long()[..., None] == torch.arange(n, device=ids.device)).to(dtype)
 
 
 class _EmbeddingLookup(torch.autograd.Function):
@@ -25,7 +31,7 @@ class _EmbeddingLookup(torch.autograd.Function):
         # a bf16 gradient takes a bf16 one-hot, any other a float32 one; the
         # products are summed in float32 and rounded to the table's dtype
         dt = torch.bfloat16 if g.dtype == torch.bfloat16 else torch.float32
-        onehot = F.one_hot(ids.reshape(-1), ctx.vocab).to(dt)
+        onehot = one_hot(ids.reshape(-1), ctx.vocab, dt)
         flat_g = g.reshape(-1, g.shape[-1]).to(dt)
         return (onehot.float().t() @ flat_g.float()).to(ctx.table_dtype), None
 

@@ -14,11 +14,17 @@ from typing import Optional
 import torch
 
 
+def gumbel_from_uniform(u: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
+    """Gumbel(0, 1) noise from uniforms on [0, 1): -log(-log(u + eps) + eps),
+    on u's device."""
+    return -torch.log(-torch.log(u + eps) + eps)
+
+
 def sample_gumbel(shape, generator: Optional[torch.Generator] = None, device=None,
                   dtype: torch.dtype = torch.float32, eps: float = 1e-20) -> torch.Tensor:
-    """Gumbel(0, 1) noise: -log(-log(U + eps) + eps), U ~ Uniform[0, 1)."""
-    u = torch.rand(shape, generator=generator, dtype=dtype).to(device)
-    return -torch.log(-torch.log(u + eps) + eps)
+    """Gumbel(0, 1) noise: -log(-log(U + eps) + eps), U ~ Uniform[0, 1) drawn
+    on the host and copied to `device` first."""
+    return gumbel_from_uniform(torch.rand(shape, generator=generator, dtype=dtype).to(device), eps)
 
 
 def gumbel_softmax_sample(logits: torch.Tensor, temperature: float, generator: Optional[torch.Generator] = None,

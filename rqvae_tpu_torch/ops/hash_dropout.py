@@ -6,6 +6,13 @@ counters live in int64 and every product is reduced with `& 0xFFFFFFFF`:
 the bits equal the JAX package's exactly, wrap-around included. The attention
 kernel (csrc/attention_core.cuh) computes the same hash in registers.
 
+The seed is a 1-element int32 tensor on the data's device, as the Pallas
+kernels read theirs from an SMEM operand: seed * 0x9E3779B9 is formed on the
+device, so nothing waits for the host and a CUDA graph that captures a site
+reads whatever seed its buffer holds at replay. A host int is taken too (it is
+copied to the device first). An int32 seed holds the uint32 seed's bits, so
+seeds of 2^31 and more are negative int32 values.
+
 `hash_dropout` is dropout whose keep mask is that hash of the element's linear
 index: an autograd function that saves nothing but the seed and rebuilds the
 mask in the backward pass. Its masks are built in wrapping int32 arithmetic
@@ -17,12 +24,16 @@ after flipping both sign bits. The bits are the same.
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Sequence
+from typing import Sequence, Union
 
 import torch
 
 _M32 = 0xFFFFFFFF
+_GOLDEN = 0x9E3779B9
+
+Seed = Union[int, torch.Tensor]
 
 
 def keep_threshold(rate: float) -> int:
@@ -30,10 +41,31 @@ def keep_threshold(rate: float) -> int:
     return min(int(round(rate * 2**32)), 2**32 - 1)
 
 
-def hash_keep_bits(counter: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+def _signed32(value: int) -> int:
+    """The int32 that holds the uint32 `value`'s bits."""
+    value &= _M32
+    return value - 2**32 if value >= 2**31 else value
+
+
+def seed_tensor(seed: Seed, device=None) -> torch.Tensor:
+    """`seed` as a 1-element int32 tensor on `device` (a tensor seed on
+    another device is copied there)."""
+    if isinstance(seed, torch.Tensor):
+        if seed.numel() != 1 or seed.dtype.is_floating_point:
+            raise ValueError(f"a seed is one integer, got {seed.dtype} {tuple(seed.shape)}")
+        return seed.reshape(1).to(device=device, dtype=torch.int32)
+    return torch.tensor([_signed32(int(seed))], dtype=torch.int32, device=device)
+
+
+def _seed_mix64(seed: Seed, device) -> torch.Tensor:
+    """(seed * 0x9E3779B9) mod 2^32 as a [1] int64 tensor, formed on the device."""
+    return ((seed_tensor(seed, device).long() & _M32) * _GOLDEN) & _M32
+
+
+def hash_keep_bits(counter: torch.Tensor, seed: Seed, rate: float) -> torch.Tensor:
     """Bool keep decision for int64 `counter`s holding uint32 values
     (callers reduce theirs with `& 0xFFFFFFFF`); `seed` is an int32 value."""
-    x = counter ^ (((int(seed) & _M32) * 0x9E3779B9) & _M32)
+    x = counter ^ _seed_mix64(seed, counter.device)
     x = x ^ (x >> 16)
     x = (x * 0x85EBCA6B) & _M32
     x = x ^ (x >> 13)
@@ -42,7 +74,7 @@ def hash_keep_bits(counter: torch.Tensor, seed: int, rate: float) -> torch.Tenso
     return x >= keep_threshold(rate)
 
 
-def keep_mask(seed: int, shape: Sequence[int], rate: float, device=None) -> torch.Tensor:
+def keep_mask(seed: Seed, shape: Sequence[int], rate: float, device=None) -> torch.Tensor:
     """[shape] bool keep mask: hash_keep_bits of the linear element index."""
     n = math.prod(shape)
     if n >= 2**32:
@@ -57,20 +89,14 @@ def keep_mask(seed: int, shape: Sequence[int], rate: float, device=None) -> torc
     return _keep_bits_i32(counter, seed, rate).reshape(tuple(shape))
 
 
-def _signed32(value: int) -> int:
-    """The int32 that holds the uint32 `value`'s bits."""
-    value &= _M32
-    return value - 2**32 if value >= 2**31 else value
-
-
 def _as_i32(counter: torch.Tensor) -> torch.Tensor:
     """int64 counters holding uint32 values -> the int32 with the same bits."""
     return torch.where(counter >= 2**31, counter - 2**32, counter).to(torch.int32)
 
 
-def _keep_bits_i32(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+def _keep_bits_i32(x: torch.Tensor, seed: Seed, rate: float) -> torch.Tensor:
     """hash_keep_bits on int32 counters that hold uint32 bits (consumed in place)."""
-    x.bitwise_xor_(_signed32((int(seed) & _M32) * 0x9E3779B9))
+    x.bitwise_xor_(_as_i32(_seed_mix64(seed, x.device)))
     x.bitwise_xor_((x >> 16).bitwise_and_(0xFFFF))
     x.mul_(_signed32(0x85EBCA6B))
     x.bitwise_xor_((x >> 13).bitwise_and_(0x7FFFF))
@@ -79,32 +105,40 @@ def _keep_bits_i32(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
     return x.bitwise_xor_(-(2**31)) >= _signed32(keep_threshold(rate) ^ 0x80000000)
 
 
+@functools.lru_cache(maxsize=None)
+def keep_scale(rate: float, dtype: torch.dtype) -> float:
+    """1 / (1 - rate) rounded to `dtype`, as a host float (computed once per
+    pair, so a step's body makes no tensor for it)."""
+    return float(torch.tensor(1.0 / (1.0 - rate), dtype=dtype))
+
+
 class _HashDropout(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, seed, rate):
-        ctx.seed, ctx.rate = seed, rate
+        ctx.save_for_backward(seed)
+        ctx.rate = rate
         return _drop(x, seed, rate)
 
     @staticmethod
     def backward(ctx, g):
-        return _drop(g, ctx.seed, ctx.rate), None, None
+        (seed,) = ctx.saved_tensors
+        return _drop(g, seed, ctx.rate), None, None
 
 
-def _drop(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+def _drop(x: torch.Tensor, seed: torch.Tensor, rate: float) -> torch.Tensor:
     keep = keep_mask(seed, x.shape, rate, x.device)
-    scale = float(torch.tensor(1.0 / (1.0 - rate), dtype=x.dtype))  # rounded to x's dtype first, on the host
-    return torch.where(keep, x, 0) * scale
+    return torch.where(keep, x, 0) * keep_scale(rate, x.dtype)
 
 
-def hash_dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+def hash_dropout(x: torch.Tensor, seed: Seed, rate: float) -> torch.Tensor:
     """Dropout(x) with keep probability 1 - rate, kept values scaled by
-    1/(1-rate) at x's dtype. `seed` is a host int (an int32 value). The
-    backward pass applies the same mask to the gradient, rebuilt from the
-    seed: no mask is saved."""
-    return _HashDropout.apply(x, int(seed), float(rate))
+    1/(1-rate) at x's dtype. `seed`: a 1-element int32 tensor on x's device
+    (or a host int). The backward pass applies the same mask to the
+    gradient, rebuilt from the seed: no mask is saved."""
+    return _HashDropout.apply(x, seed_tensor(seed, x.device), float(rate))
 
 
-def attention_keep_mask(seed: int, batch: int, heads: int, lq: int, lk: int, rate: float,
+def attention_keep_mask(seed: Seed, batch: int, heads: int, lq: int, lk: int, rate: float,
                         device=None, b0: int = 0) -> torch.Tensor:
     """[batch, heads, lq, lk] bool keep mask of the attention kernel: the
     counter is ((b * heads + h) * lq + q) * lk + k in wrapping uint32, for

@@ -11,25 +11,30 @@ the mean over micro-batches, equal to one batch of accum x B rows.
 
 All randomness of a step comes from the `torch.Generator` the caller passes (a
 CPU generator): the window draws, made on the host and copied to the device,
-and the dropout seeds (models/t5.py::DropoutSeeds).
+and the dropout seeds (models/t5.py::DropoutSeeds), in that order.
 
-The JAX package's `lax.scan` over several steps has no counterpart: a Python
-loop over the fused step is the same program here. Its `shard_map` step has
-no counterpart until the package runs on more than one GPU.
+`make_decoder_graph_train_step` is the counterpart of the JAX package's
+`make_decoder_scan_train_step`: chunks of steps through static device buffers,
+each step one replay of a CUDA graph of the fused step's body (train/
+step_graph.py), the chunk's metrics their mean over its steps. Its
+`shard_map` step has no counterpart until the package runs on more than one
+GPU.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
 from rqvae_tpu_torch.data.sampling import eval_windows, subsample_windows_from_draws
 from rqvae_tpu_torch.data.schemas import TokenizedSeqBatch
 from rqvae_tpu_torch.models.retrieval import EncoderDecoderRetrievalModel, GenerationOutput
+from rqvae_tpu_torch.models.t5 import DropoutSeeds
 from rqvae_tpu_torch.serving.beam import PrefixTable
 from rqvae_tpu_torch.tokenizer.semids import _tokenize_from_cache
 from rqvae_tpu_torch.train.state import AdamW
+from rqvae_tpu_torch.train.step_graph import Draws, StepChunks, step_generator, step_rows
 
 SEQ_LENGTH_QUANTILES = (0.25, 0.5, 0.75, 0.9, 1.0)
 
@@ -40,8 +45,8 @@ def _debug_metrics(batch: TokenizedSeqBatch) -> Dict[str, torch.Tensor]:
     return {f"seq_length_p{int(q * 100)}": torch.quantile(lengths, q) for q in SEQ_LENGTH_QUANTILES}
 
 
-def _loss_and_metrics(model, batch: TokenizedSeqBatch, generator):
-    out = model(batch, training=True, generator=generator)
+def _loss_and_metrics(model, batch: TokenizedSeqBatch, generator=None, seeds=None):
+    out = model(batch, training=True, generator=generator, seeds=seeds)
     metrics = {"total_loss": out.loss.detach(), "loss_d": out.loss_d.detach()}
     metrics.update(_debug_metrics(batch))
     return out.loss, metrics
@@ -80,6 +85,45 @@ def _make_micro_batch_fn(max_seq_len: int, leave_two_out: bool, subsample: bool)
     return build
 
 
+def _uses_dropout(model: EncoderDecoderRetrievalModel) -> bool:
+    return model.config.t5_dropout > 0.0
+
+
+def _make_fused_body(model: EncoderDecoderRetrievalModel, optimizer: AdamW, max_seq_len: int,
+                     leave_two_out: bool, subsample: bool, accum: int):
+    """body(tables, row_idx [accum, B], u_start, u_end [accum, B], seeds
+    [accum, C] or None) -> metrics: the fused step on device tensors, reading
+    nothing back (the body a step graph captures)."""
+    build = _make_micro_batch_fn(max_seq_len, leave_two_out, subsample)
+
+    def body(tables, row_idx, u_start, u_end, seeds=None):
+        model.train()
+        optimizer.zero_grad()
+        total: Dict[str, torch.Tensor] = {}
+        for a in range(accum):
+            batch = build(*tables, row_idx[a], u_start[a], u_end[a])
+            loss, metrics = _loss_and_metrics(model, batch, seeds=None if seeds is None else seeds[a])
+            (loss / accum).backward()  # grads add up in .grad: the mean over micro-batches
+            for k, v in metrics.items():
+                total[k] = v / accum if k not in total else total[k] + v / accum
+        optimizer.step()
+        return total
+
+    return body
+
+
+def draw_decoder_step(generator: torch.Generator, accum: int, batch_size: int,
+                      n_sites: Optional[int]) -> Dict[str, torch.Tensor]:
+    """A step's host draws from its generator, in the eager step's order:
+    u_start, u_end [accum, B], then the dropout seeds [accum, C] (one block
+    row per micro-batch; none when n_sites is None)."""
+    draws = {"u_start": torch.rand((accum, batch_size), generator=generator),
+             "u_end": torch.rand((accum, batch_size), generator=generator)}
+    if n_sites is not None:
+        draws["seeds"] = DropoutSeeds.draw(generator, accum, n_sites)
+    return draws
+
+
 def make_decoder_fused_train_step(
     model: EncoderDecoderRetrievalModel,
     optimizer: AdamW,
@@ -96,27 +140,85 @@ def make_decoder_fused_train_step(
            row_idx [accum * B], generator) -> metrics
 
     The tables and row_idx live on the model's device. Per-step host work is
-    sampling the row indices and 2 x accum x B uniforms."""
-    build = _make_micro_batch_fn(max_seq_len, leave_two_out, subsample)
+    sampling the row indices, 2 x accum x B uniforms and the dropout seeds."""
+    body = _make_fused_body(model, optimizer, max_seq_len, leave_two_out, subsample, accum)
 
     def train_step(seq_items, seq_lengths, user_ids, cached_ids, row_idx, generator: torch.Generator):
-        model.train()
         dev = seq_items.device
         row_idx = row_idx.reshape(accum, -1)
-        u_start = torch.rand(row_idx.shape, generator=generator).to(dev, non_blocking=True)
-        u_end = torch.rand(row_idx.shape, generator=generator).to(dev, non_blocking=True)
-        optimizer.zero_grad()
-        total: Dict[str, torch.Tensor] = {}
-        for a in range(accum):
-            batch = build(seq_items, seq_lengths, user_ids, cached_ids, row_idx[a], u_start[a], u_end[a])
-            loss, metrics = _loss_and_metrics(model, batch, generator)
-            (loss / accum).backward()  # grads add up in .grad: the mean over micro-batches
-            for k, v in metrics.items():
-                total[k] = v / accum if k not in total else total[k] + v / accum
-        optimizer.step()
-        return total
+        n_sites = model.n_dropout_sites if _uses_dropout(model) else None
+        draws = draw_decoder_step(generator, accum, row_idx.shape[1], n_sites)
+        draws = {k: v.to(dev, non_blocking=True) for k, v in draws.items()}
+        return body((seq_items, seq_lengths, user_ids, cached_ids), row_idx, **draws)
 
     return train_step
+
+
+def decoder_step_draws(seed: int, step: int, n_rows: int, batch_size: int, accum: int,
+                       n_sites: Optional[int]) -> Draws:
+    """Every host draw of training step `step`, a function of (seed, step):
+    its rows (train/step_graph.py::step_rows) and its generator's draws."""
+    rows = step_rows(seed, step, n_rows, accum * batch_size).reshape(accum, batch_size)
+    return {"row_idx": rows, **draw_decoder_step(step_generator(seed, step), accum, batch_size, n_sites)}
+
+
+class DecoderGraphTrainStep:
+    """Chunks of stage-2 steps (the counterpart of make_decoder_scan_train_step):
+
+      step(seq_items, seq_lengths, user_ids, cached_ids, draws) -> mean metrics
+
+    `draws` holds 1 to n_steps steps' `decoder_step_draws`. The tables are
+    bound at the first call (a captured graph reads them where they are) and
+    must be the same tensors at every later call. On the card each step is
+    one replay of a CUDA graph of the fused step (n_steps > 1), on the CPU
+    the same body eagerly; either way the chunk takes, bit for bit, the steps
+    that make_decoder_fused_train_step takes from the same draws."""
+
+    def __init__(self, model: EncoderDecoderRetrievalModel, optimizer: AdamW, max_seq_len: int, n_steps: int,
+                 batch_size: int, leave_two_out: bool = True, subsample: bool = True, accum: int = 1):
+        if not model.config.t5_hash_dropout and _uses_dropout(model) and model.device.type == "cuda" and n_steps > 1:
+            raise ValueError("a step graph needs hash dropout (t5_hash_dropout=True): the Bernoulli masks "
+                             "seed a generator on the host")
+        self.model, self.optimizer, self.accum, self.batch_size = model, optimizer, accum, batch_size
+        self.n_sites = model.n_dropout_sites if _uses_dropout(model) else None
+        body = _make_fused_body(model, optimizer, max_seq_len, leave_two_out, subsample, accum)
+        specs = {"row_idx": ((accum, batch_size), torch.long),
+                 "u_start": ((accum, batch_size), torch.float32), "u_end": ((accum, batch_size), torch.float32)}
+        if self.n_sites is not None:
+            specs["seeds"] = ((accum, DropoutSeeds.columns(self.n_sites)), torch.int32)
+        self.tables: Optional[tuple] = None
+        self.chunks = StepChunks(lambda **d: body(self.tables, **d), specs, optimizer.state_tensors,
+                                 model.device, n_steps)
+
+    def draws(self, seed: int, step: int, n_rows: int) -> Draws:
+        return decoder_step_draws(seed, step, n_rows, self.batch_size, self.accum, self.n_sites)
+
+    def bind(self, seq_items, seq_lengths, user_ids, cached_ids) -> None:
+        tables = (seq_items, seq_lengths, user_ids, cached_ids)
+        if self.tables is None:
+            self.tables = tables
+        elif any(a is not b for a, b in zip(self.tables, tables)):
+            raise ValueError("a step graph reads the tables it was first called with: pass the same tensors")
+
+    def __call__(self, seq_items, seq_lengths, user_ids, cached_ids, draws: List[Draws]) -> Dict[str, torch.Tensor]:
+        self.bind(seq_items, seq_lengths, user_ids, cached_ids)
+        return self.chunks.run(draws)
+
+
+def make_decoder_graph_train_step(
+    model: EncoderDecoderRetrievalModel,
+    optimizer: AdamW,
+    max_seq_len: int,
+    n_steps: int,
+    batch_size: int,
+    leave_two_out: bool = True,
+    subsample: bool = True,
+    accum: int = 1,
+) -> DecoderGraphTrainStep:
+    """Chunks of up to `n_steps` stage-2 steps, each one replay of a CUDA
+    graph of the fused step on the card (see DecoderGraphTrainStep)."""
+    return DecoderGraphTrainStep(model, optimizer, max_seq_len, n_steps, batch_size, leave_two_out, subsample,
+                                 accum)
 
 
 def make_decoder_eval_step(model: EncoderDecoderRetrievalModel):

@@ -3,42 +3,56 @@
 A train step is forward -> backward over A micro-batches -> AdamW: each
 micro-batch's loss is divided by A, so the gradients that add up in `.grad`
 are their mean, as the reference's `lax.scan` accumulation gives. The steps
-are plain functions closing over the model and the optimizer, which they
-update in place; they return metrics as device tensors and never read one
-back, so the caller decides when to wait for the device.
+update the model and the optimizer in place and return metrics as device
+tensors, never reading one back, so the caller decides when to wait for the
+device.
 
 - make_rqvae_train_step:        step(x [A, B, D], generator, gumbel_t)
 - make_rqvae_index_train_step:  step(features [N, D], idx [A, B], generator, gumbel_t)
   (the batch is gathered on the device: per-step host work is the indices)
+- make_rqvae_graph_train_step:  chunks of steps from features, the counterpart
+  of make_rqvae_scan_train_step: each step one replay of a CUDA graph of the
+  step's body on the card (train/step_graph.py), the temperature computed on
+  the device from the step number (`t_fn`), the chunk's metrics their means
 - make_rqvae_eval_step:         eval_step(x [B, D], gumbel_t)
 
-Gumbel noise, the step's only randomness, comes from the CPU generator the
-caller passes. The reference's multi-step `lax.scan` has no counterpart: a
-Python loop over the step is the same program here.
+Gumbel noise, the step's only randomness besides its rows, is drawn on the
+host from the CPU generator of the step, as uniforms in the order the eager
+forward used to draw them (micro-batch, then level), and turned into noise
+on the device inside the step (ops/gumbel.py::gumbel_from_uniform). The
+temperature is a float32 device scalar.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
+from rqvae_tpu_torch.models.quantize import QuantizeForwardMode
 from rqvae_tpu_torch.models.rqvae import RqVae
+from rqvae_tpu_torch.ops.gumbel import gumbel_from_uniform
 from rqvae_tpu_torch.train.state import AdamW
+from rqvae_tpu_torch.train.step_graph import Draws, StepChunks, step_generator, step_rows
 
 
-def make_rqvae_train_step(model: RqVae, optimizer: AdamW):
-    """step(x [A, B, D], generator, gumbel_t) -> metrics: one update from A
-    micro-batches (total_loss, reconstruction_loss, rqvae_loss,
-    p_unique_ids, gumbel_t, emb_norms [L]; means over the micro-batches)."""
+def _uses_noise(model: RqVae) -> bool:
+    return model.config.codebook_mode == QuantizeForwardMode.GUMBEL_SOFTMAX
 
-    def step(x: torch.Tensor, generator: Optional[torch.Generator] = None, gumbel_t: float = 0.2):
+
+def _make_body(model: RqVae, optimizer: AdamW):
+    """body(x [A, B, D], uniforms [A, L, B, K] or None, t (float32 device
+    scalar)) -> metrics: one update, reading nothing back (the body a step
+    graph captures)."""
+
+    def body(x: torch.Tensor, uniforms: Optional[torch.Tensor], t: torch.Tensor):
         model.train()
         optimizer.zero_grad()
         n_micro = x.shape[0]
         total: Dict[str, torch.Tensor] = {}
         for a in range(n_micro):
-            out = model(x[a], gumbel_t, training=True, generator=generator)
+            noise = None if uniforms is None else [gumbel_from_uniform(u) for u in uniforms[a]]
+            out = model(x[a], t, training=True, gumbel_noise=noise)
             (out.loss / n_micro).backward()
             metrics = {
                 "total_loss": out.loss.detach(), "reconstruction_loss": out.reconstruction_loss.detach(),
@@ -48,8 +62,41 @@ def make_rqvae_train_step(model: RqVae, optimizer: AdamW):
             for k, v in metrics.items():
                 total[k] = v / n_micro if k not in total else total[k] + v / n_micro
         optimizer.step()
-        total["gumbel_t"] = torch.tensor(float(gumbel_t))
+        total["gumbel_t"] = t.detach().clone()
         return total
+
+    return body
+
+
+def draw_uniforms(generator: torch.Generator, model: RqVae, accum: int, batch_size: int) -> torch.Tensor:
+    """The step's Gumbel uniforms [A, L, B, K], drawn micro-batch by
+    micro-batch and level by level from `generator`."""
+    cfg = model.config
+    return torch.stack([torch.stack([torch.rand((batch_size, cfg.codebook_size), generator=generator)
+                                     for _ in range(cfg.n_layers)]) for _ in range(accum)])
+
+
+def _temperature(t, device) -> torch.Tensor:
+    if isinstance(t, torch.Tensor):
+        return t.to(device=device, dtype=torch.float32)
+    return torch.full((), float(t), dtype=torch.float32, device=device)
+
+
+def make_rqvae_train_step(model: RqVae, optimizer: AdamW):
+    """step(x [A, B, D], generator, gumbel_t) -> metrics: one update from A
+    micro-batches (total_loss, reconstruction_loss, rqvae_loss,
+    p_unique_ids, gumbel_t, emb_norms [L]; means over the micro-batches).
+    Gumbel mode draws its noise from `generator`; gumbel_t is a float or a
+    device scalar."""
+    body = _make_body(model, optimizer)
+
+    def step(x: torch.Tensor, generator: Optional[torch.Generator] = None, gumbel_t=0.2):
+        uniforms = None
+        if _uses_noise(model):
+            if generator is None:
+                raise ValueError("GUMBEL_SOFTMAX mode needs a generator when training")
+            uniforms = draw_uniforms(generator, model, x.shape[0], x.shape[1]).to(x.device, non_blocking=True)
+        return body(x, uniforms, _temperature(gumbel_t, x.device))
 
     return step
 
@@ -60,10 +107,68 @@ def make_rqvae_index_train_step(model: RqVae, optimizer: AdamW):
     core = make_rqvae_train_step(model, optimizer)
 
     def step(features: torch.Tensor, idx: torch.Tensor, generator: Optional[torch.Generator] = None,
-             gumbel_t: float = 0.2):
+             gumbel_t=0.2):
         return core(features[idx.long()], generator, gumbel_t)
 
     return step
+
+
+def rqvae_step_draws(model: RqVae, seed: int, step: int, n_items: int, batch_size: int, accum: int) -> Draws:
+    """Every host draw of stage-1 step `step`, a function of (seed, step):
+    its rows [A, B], its number, and in Gumbel mode its uniforms."""
+    draws = {"idx": step_rows(seed, step, n_items, accum * batch_size).reshape(accum, batch_size),
+             "step": torch.tensor(int(step), dtype=torch.long)}
+    if _uses_noise(model):
+        draws["uniforms"] = draw_uniforms(step_generator(seed, step), model, accum, batch_size)
+    return draws
+
+
+class RqvaeGraphTrainStep:
+    """Chunks of stage-1 steps (the counterpart of make_rqvae_scan_train_step):
+
+      step(features [N, D], draws) -> mean metrics
+
+    `draws` holds 1 to n_steps steps' `rqvae_step_draws`. The temperature of
+    a step is t_fn(step) on the device (ops/schedules.py::
+    gumbel_temperature_at's tensor form, as the JAX scan's t_fn) or the fixed
+    `gumbel_t`. The features are bound at the first call. On the card each
+    step is one replay of a CUDA graph (n_steps > 1), on the CPU the same
+    body eagerly; either way a chunk takes, bit for bit, the steps that
+    make_rqvae_index_train_step takes from the same draws and temperature."""
+
+    def __init__(self, model: RqVae, optimizer: AdamW, n_steps: int, accum: int, batch_size: int,
+                 gumbel_t: float = 0.2, t_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None):
+        self.model, self.accum, self.batch_size = model, accum, batch_size
+        self.features: Optional[torch.Tensor] = None
+        cfg = model.config
+        body = _make_body(model, optimizer)
+        dev = next(model.parameters()).device
+
+        def step_body(idx, step, uniforms=None):
+            t = t_fn(step) if t_fn is not None else torch.full((), float(gumbel_t), dtype=torch.float32, device=dev)
+            return body(self.features[idx], uniforms, t.to(torch.float32))
+
+        specs = {"idx": ((accum, batch_size), torch.long), "step": ((), torch.long)}
+        if _uses_noise(model):
+            specs["uniforms"] = ((accum, cfg.n_layers, batch_size, cfg.codebook_size), torch.float32)
+        self.chunks = StepChunks(step_body, specs, optimizer.state_tensors, dev, n_steps)
+
+    def draws(self, seed: int, step: int, n_items: int) -> Draws:
+        return rqvae_step_draws(self.model, seed, step, n_items, self.batch_size, self.accum)
+
+    def __call__(self, features: torch.Tensor, draws: List[Draws]) -> Dict[str, torch.Tensor]:
+        if self.features is None:
+            self.features = features
+        elif features is not self.features:
+            raise ValueError("a step graph reads the features it was first called with: pass the same tensor")
+        return self.chunks.run(draws)
+
+
+def make_rqvae_graph_train_step(model: RqVae, optimizer: AdamW, n_steps: int, accum: int, batch_size: int,
+                                gumbel_t: float = 0.2, t_fn=None) -> RqvaeGraphTrainStep:
+    """Chunks of up to `n_steps` stage-1 steps, each one replay of a CUDA
+    graph of the step on the card (see RqvaeGraphTrainStep)."""
+    return RqvaeGraphTrainStep(model, optimizer, n_steps, accum, batch_size, gumbel_t, t_fn)
 
 
 def make_rqvae_eval_step(model: RqVae):

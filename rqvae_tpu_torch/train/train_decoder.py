@@ -16,11 +16,18 @@ files only (a JAX file's optimizer state is in optax's layout). Every
 step's randomness (rows, windows, dropout seeds) is a function of (`seed`,
 step), so a resumed run takes the steps an unbroken run takes.
 
+Training runs in chunks of `steps_per_loop` steps, by the JAX trainer's rule
+(train/step_graph.py::steps_per_loop: by default gcd of every cadence and
+500): on the card each step of a chunk is one replay of a CUDA graph of the
+whole step (train/decoder_steps.py::DecoderGraphTrainStep), and the metrics
+logged at a chunk's end are the means over its steps, as the JAX trainer
+logs its scan's means. `steps_per_loop=1` is the eager route, one step at a
+time; so is debug mode (`RQVAE_TPU_DEBUG=1`, utils/debug.py). Evaluations,
+checkpoints and resumes fall on chunk ends.
+
 Knobs with no meaning here are accepted so that the shipped config files bind:
 `split_batches`, `amp`, `mixed_precision_type` (compute dtype is `t5_dtype`),
-`push_vae_to_hf`, `vae_hf_model_name`, `wandb_logging` without wandb, and
-`steps_per_loop` (the JAX package scans several steps inside one dispatch; a
-Python loop over the step is the same program here).
+`push_vae_to_hf`, `vae_hf_model_name` and `wandb_logging` without wandb.
 
 CLI:  python -m rqvae_tpu_torch.train.train_decoder configs/decoder_synthetic.gin [param=value ...]
       (a trailing `pretrained_rqvae_path=None` trains over an RQ-VAE made from the seed)
@@ -33,7 +40,6 @@ import sys
 import time
 from typing import List, Optional
 
-import numpy as np
 import torch
 
 from rqvae_tpu_torch.data.datasets import ItemDataset, SeqDataset
@@ -47,23 +53,16 @@ from rqvae_tpu_torch.serving.beam import build_prefix_table
 from rqvae_tpu_torch.tokenizer.semids import SemanticIdTokenizer
 from rqvae_tpu_torch.train.decoder_steps import (
     make_decoder_eval_step,
-    make_decoder_fused_train_step,
+    make_decoder_graph_train_step,
     make_generate_fn,
 )
 from rqvae_tpu_torch.train.state import adamw
+from rqvae_tpu_torch.train.step_graph import step_generator, step_rows  # noqa: F401 (the trainers' step draws)
+from rqvae_tpu_torch.train.step_graph import steps_per_loop as chunk_steps
 from rqvae_tpu_torch.utils import checkpoint as ckpt_lib
+from rqvae_tpu_torch.utils.debug import assert_finite, maybe_init_debug
 from rqvae_tpu_torch.utils.device import DeviceLike, resolve_device
 from rqvae_tpu_torch.utils.logging import MetricLogger
-
-
-def step_generator(seed: int, step: int) -> torch.Generator:
-    """The CPU generator of one training step: a function of (seed, step)."""
-    return torch.Generator().manual_seed((int(seed) * 1_000_003 + int(step)) % (2**63))
-
-
-def step_rows(seed: int, step: int, n_rows: int, count: int) -> np.ndarray:
-    """The `count` training rows of one step, drawn from (seed, step)."""
-    return np.random.RandomState([int(seed) % (2**32), int(step) % (2**32)]).randint(0, n_rows, count).astype(np.int64)
 
 
 def load_rqvae(path: Optional[str], fallback: RqVaeConfig, device, seed: int) -> RqVae:
@@ -133,10 +132,11 @@ def train(
     full_eval_max_batches: Optional[int] = None,
     seed: int = 0,
     log_every: int = 100,
-    steps_per_loop: Optional[int] = None,  # accepted and ignored: every step is its own dispatch here
+    steps_per_loop: Optional[int] = None,  # steps per chunk (None: the JAX rule; 1: eager, step by step)
     auto_resume: bool = False,
     device: DeviceLike = None,  # None: the card
 ) -> dict:
+    debug = maybe_init_debug()
     dev = resolve_device(device)
     if auto_resume and pretrained_decoder_path is None:
         pretrained_decoder_path = ckpt_lib.latest_checkpoint(save_dir_root)
@@ -206,10 +206,18 @@ def train(
     seq_items_dev = torch.as_tensor(train_dataset.seq_items, device=dev)
     seq_lengths_dev = torch.as_tensor(train_dataset.seq_lengths, device=dev)
     seq_users_dev = torch.as_tensor(train_dataset.user_ids, device=dev)
-    train_step = make_decoder_fused_train_step(
+    # chunks of spl steps, each step one replay of the step's CUDA graph on the
+    # card; every cadence falls on a chunk end (the JAX trainer's rule)
+    spl = chunk_steps(steps_per_loop, [log_every, iterations, save_model_every, partial_eval_every, full_eval_every])
+    if debug and spl > 1:
+        print(f"RQVAE_TPU_DEBUG: anomaly detection cannot be captured; steps_per_loop {spl} -> 1 (eager)")
+        spl = 1
+    train_step = make_decoder_graph_train_step(
         model,
         optimizer,
         max_seq_len=train_dataset.max_seq_len,
+        n_steps=spl,
+        batch_size=batch_size,
         leave_two_out=(train_dataset.format == "leave_two_out"),
         subsample=train_data_subsample,
         accum=gradient_accumulate_every,
@@ -228,16 +236,16 @@ def train(
     ckpt_path = None
     end_iter = start_iter + iterations
 
-    for it in range(start_iter, end_iter):
-        row_idx = torch.as_tensor(
-            step_rows(seed, it, len(train_dataset), gradient_accumulate_every * batch_size)
-        ).to(dev, non_blocking=True)
-        metrics = train_step(
-            seq_items_dev, seq_lengths_dev, seq_users_dev, cached_ids, row_idx, step_generator(seed, it)
-        )
+    it = start_iter - 1
+    while it + 1 < end_iter:
+        draws = [train_step.draws(seed, step, len(train_dataset)) for step in range(it + 1, it + 1 + spl)]
+        metrics = train_step(seq_items_dev, seq_lengths_dev, seq_users_dev, cached_ids, draws)  # chunk means
+        it += spl
 
-        if (it + 1) % log_every == 0 or it == start_iter or it == end_iter - 1:
-            host = {k: v.detach().cpu() for k, v in metrics.items()}  # the step's one wait for the device
+        if (it + 1) % log_every == 0 or it < start_iter + spl or it >= end_iter - 1:
+            host = {k: v.detach().cpu() for k, v in metrics.items()}  # the chunk's one wait for the device
+            if debug:
+                assert_finite(host, f"train step {it}")
             log = {"total_loss": float(host["total_loss"])}
             log.update({f"loss_{d}": float(v) for d, v in enumerate(host["loss_d"])})
             log.update({f"train_{k}": float(v) for k, v in host.items() if k.startswith("seq_length_p")})

@@ -16,13 +16,23 @@ beside the diversity metrics, and `kmeans_init_ms` is in the summary.
 
 Every step's randomness (rows, Gumbel noise) and every restart's reseed draw
 is a function of (`seed`, step), and the temperature anneal is its closed
-form, so a resumed run takes the steps an unbroken run takes.
+form, computed on the device from the step number (the float32 arithmetic of
+the JAX scan's `t_fn`), so a resumed run takes the steps an unbroken run
+takes.
+
+Training runs in chunks of `steps_per_loop` steps, by the JAX trainer's rule
+(train/step_graph.py::steps_per_loop): on the card each step of a chunk is
+one replay of a CUDA graph of the whole step (train/rqvae_steps.py::
+RqvaeGraphTrainStep), and the metrics logged at a chunk's end are the means
+over its steps, as the JAX trainer logs its scan's means. Restarts,
+evaluations, checkpoints and resumes fall on chunk ends; k-means init,
+restarts and resumes write the parameters in place. `steps_per_loop=1` is
+the eager route; so is debug mode (`RQVAE_TPU_DEBUG=1`, utils/debug.py).
 
 Knobs with no meaning here are accepted so that the shipped config files bind:
-`split_batches`, `mixed_precision_type`, `wandb_logging` without wandb, and
-`steps_per_loop` (the JAX package scans several steps inside one dispatch; a
-Python loop over the step is the same program here). `amp=True` raises: no
-shipped config sets it, and its bf16 training path is not ported.
+`split_batches`, `mixed_precision_type` and `wandb_logging` without wandb.
+`amp=True` raises: no shipped config sets it, and its bf16 training path is
+not ported.
 
 CLI:  python -m rqvae_tpu_torch.train.train_rqvae configs/rqvae_synthetic.gin [param=value ...]
 """
@@ -32,6 +42,7 @@ from __future__ import annotations
 import os
 import sys
 import time
+from functools import partial
 from typing import List, Optional
 
 import numpy as np
@@ -44,10 +55,11 @@ from rqvae_tpu_torch.models.rqvae import RqVae, RqVaeConfig, kmeans_init_codeboo
 from rqvae_tpu_torch.ops.dedup import codebook_usage, pack_sem_id_tuples, tuple_entropy
 from rqvae_tpu_torch.ops.schedules import gumbel_temperature_at
 from rqvae_tpu_torch.tokenizer.semids import SemanticIdTokenizer
-from rqvae_tpu_torch.train.rqvae_steps import make_rqvae_eval_step, make_rqvae_index_train_step
+from rqvae_tpu_torch.train.rqvae_steps import make_rqvae_eval_step, make_rqvae_graph_train_step
 from rqvae_tpu_torch.train.state import adamw
-from rqvae_tpu_torch.train.train_decoder import step_generator, step_rows
+from rqvae_tpu_torch.train.step_graph import steps_per_loop as chunk_steps
 from rqvae_tpu_torch.utils import checkpoint as ckpt_lib
+from rqvae_tpu_torch.utils.debug import assert_finite, maybe_init_debug
 from rqvae_tpu_torch.utils.device import DeviceLike, resolve_device
 from rqvae_tpu_torch.utils.logging import MetricLogger
 
@@ -103,7 +115,7 @@ def train(
     seed: int = 0,
     log_every: int = 100,
     kmeans_init_samples: int = 20000,
-    steps_per_loop: Optional[int] = None,  # accepted and ignored: every step is its own dispatch here
+    steps_per_loop: Optional[int] = None,  # steps per chunk (None: the JAX rule; 1: eager, step by step)
     codebook_restart_every: Optional[int] = None,  # re-seed unused codes every N iterations (None: off)
     codebook_restart_until: Optional[int] = None,  # no restart after this iteration (None: never stop)
     auto_resume: bool = False,  # resume from the latest checkpoint in save_dir_root
@@ -112,6 +124,7 @@ def train(
     """Returns a summary dict with the last metrics and the checkpoint path."""
     if amp:
         raise NotImplementedError("amp=True (bf16 matmuls in stage-1 training) is not ported; train in float32")
+    debug = maybe_init_debug()
     dev = resolve_device(device)
     if auto_resume and pretrained_rqvae_path is None:
         pretrained_rqvae_path = ckpt_lib.latest_checkpoint(save_dir_root)
@@ -158,7 +171,21 @@ def train(
     features_dev = torch.as_tensor(train_items.features, device=dev)
     eval_dev = torch.as_tensor(eval_items.features, device=dev) if do_eval else None
     index_dev = torch.as_tensor(index_items.features, device=dev) if do_eval else None
-    train_step = make_rqvae_index_train_step(model, optimizer)
+    cadences = [log_every, iterations, save_model_every]
+    if do_eval:
+        cadences.append(eval_every)
+    if codebook_restart_every:
+        cadences.append(codebook_restart_every)
+    spl = chunk_steps(steps_per_loop, cadences)
+    if debug and spl > 1:
+        print(f"RQVAE_TPU_DEBUG: anomaly detection cannot be captured; steps_per_loop {spl} -> 1 (eager)")
+        spl = 1
+    t_fn = None
+    if gumbel_anneal_rate is not None:  # the anneal on the device, from the step number
+        t_fn = partial(gumbel_temperature_at, t0=gumbel_temperature, min_t=gumbel_min_t,
+                       anneal_rate=gumbel_anneal_rate, step_size=gumbel_anneal_step_size)
+    train_step = make_rqvae_graph_train_step(model, optimizer, n_steps=spl, accum=gradient_accumulate_every,
+                                             batch_size=batch_size, gumbel_t=gumbel_temperature, t_fn=t_fn)
     eval_step = make_rqvae_eval_step(model)
     tokenizer = SemanticIdTokenizer(model, device=dev)
 
@@ -168,16 +195,18 @@ def train(
     ckpt_path = None
     end_iter = start_iter + iterations
     t = gumbel_temperature
-    for it in range(start_iter, end_iter):
-        if gumbel_anneal_rate is not None:
-            t = gumbel_temperature_at(it, gumbel_temperature, gumbel_min_t, gumbel_anneal_rate,
-                                      gumbel_anneal_step_size)
-        idx = step_rows(seed, it, len(train_items), gradient_accumulate_every * batch_size)
-        idx = torch.as_tensor(idx.reshape(gradient_accumulate_every, batch_size)).to(dev, non_blocking=True)
-        metrics = train_step(features_dev, idx, step_generator(seed, it), t)
+    it = start_iter - 1
+    while it + 1 < end_iter:
+        draws = [train_step.draws(seed, step, len(train_items)) for step in range(it + 1, it + 1 + spl)]
+        metrics = train_step(features_dev, draws)  # the chunk's means
+        it += spl
+        if t_fn is not None:  # host mirror for logging and the eval passes
+            t = t_fn(it)
 
-        if (it + 1) % log_every == 0 or it == start_iter or it == end_iter - 1:
-            host = {k: v.detach().cpu() for k, v in metrics.items()}  # the step's one wait for the device
+        if (it + 1) % log_every == 0 or it < start_iter + spl or it >= end_iter - 1:
+            host = {k: v.detach().cpu() for k, v in metrics.items()}  # the chunk's one wait for the device
+            if debug:
+                assert_finite(host, f"train step {it}")
             log = {k: float(v) for k, v in host.items() if v.dim() == 0}
             log.update({f"emb_avg_norm_{i}": float(v) for i, v in enumerate(host["emb_norms"])})
             logger.push_rolling({k: log[k] for k in ("total_loss", "reconstruction_loss", "rqvae_loss")})

@@ -260,8 +260,7 @@ def test_config_surface():
     for name in ("t5_dropout", "t5_hash_dropout", "t5_remat", "t5_fused_attention", "t5_dtype"):
         assert getattr(cfg, name) == getattr(ref, name), name
     assert cfg.t5.dropout == 0.1 and cfg.t5.hash_dropout is True
-    with pytest.raises(NotImplementedError, match="t5_remat"):
-        tr.RetrievalConfig(t5_remat=True)
+    assert tr.RetrievalConfig(t5_remat=True).t5.remat is True and cfg.t5.remat is False
     assert tr.RetrievalConfig(t5_fused_attention="on", t5_fused_decode="on", t5_fused_encode="on").t5.fused_attention == "on"
     with pytest.raises(ValueError, match="fused_attention"):
         tr.RetrievalConfig(t5_fused_attention="interpret").t5

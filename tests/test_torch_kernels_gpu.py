@@ -973,3 +973,139 @@ def test_engine_capture_failure_raises(cuda, monkeypatch):
     eng = RetrievalEngine(r, max_items=8, batch_buckets=(4,))
     with pytest.raises(RuntimeError, match="capture"):
         eng.retrieve_many([np.arange(5)])
+
+
+# ---- kernels 4 and 5 with the seed in device memory; step graphs ----
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", [80, 300])
+def test_attention_kernels_read_a_device_seed(cuda, dtype, L):
+    """The seed as a 1-element int32 tensor on the card (a view into a seed
+    row, as the model passes it): forward and backward equal their plain
+    versions with the same tensor, for a seed below and one at or above 2^31;
+    another seed gives other outputs; the kernels read the seed when they run
+    (a graph captured with one seed and replayed after the buffer changed
+    gives the new seed's output)."""
+    q, k, v, bias, mask = _attention_inputs(3, 2, L, L, 64, dtype, cuda)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(2)).to(dtype).to(cuda)
+    tol, gtol, dbias_tol = (2e-5, 4e-6, 4e-6) if dtype == torch.float32 else (3.2e-2, 2.0 ** -7, 1e-4)
+    row = torch.tensor([5, 11, -(2**31) + 7, -3], dtype=torch.int32, device=cuda)  # -3: 2^32 - 3
+    for seed in (row[1:2], row[2:3]):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, bias)]
+        out = t5_attention(*leaves, mask, seed, dropout_rate=0.1)
+        out.backward(do)
+        want = t5_attention_plain(q, k, v, bias, mask, seed, dropout_rate=0.1)
+        assert (out.detach().float() - want.float()).abs().max() <= tol
+        plain = t5_attention_backward_plain(q, k, v, bias, mask, seed, do, dropout_rate=0.1)
+        for i, (leaf, w) in enumerate(zip(leaves, plain)):
+            rel = dbias_tol if i == 3 else gtol
+            assert (leaf.grad.float() - w.float()).abs().max() <= rel * w.float().abs().max(), i
+    assert not torch.equal(t5_attention(q, k, v, bias, mask, row[1:2], dropout_rate=0.1),
+                           t5_attention(q, k, v, bias, mask, row[0:1], dropout_rate=0.1))
+    buf = row[3:4].clone()
+    with torch.no_grad():
+        t5_attention(q, k, v, bias, mask, buf, dropout_rate=0.1)  # loads and sets up the kernel
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = t5_attention(q, k, v, bias, mask, buf, dropout_rate=0.1)
+        buf.copy_(row[2:3])
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, t5_attention(q, k, v, bias, mask, row[2:3], dropout_rate=0.1))
+
+
+def _small_store(device, rows=48, T=14, n_items=40, K=16):
+    r = np.random.RandomState(0)
+    seq_items = r.randint(0, n_items, (rows, T)).astype(np.int64)
+    seq_lengths = r.randint(5, T + 1, rows).astype(np.int64)
+    seq_items[np.arange(T)[None, :] >= seq_lengths[:, None]] = -1
+    cached = r.randint(0, K, (n_items, 4)).astype(np.int32)
+    cached[:, -1] = 0
+    return [torch.as_tensor(a, device=device) for a in (seq_items, seq_lengths, np.arange(rows), cached)]
+
+
+@pytest.mark.parametrize("dtype,accum", [("bfloat16", 1), ("float32", 2)])
+def test_stage2_graph_chunk_equals_eager_steps(cuda, dtype, accum):
+    """6 stage-2 steps at small widths with dropout 0.1 (kernels 4 and 5 in
+    the graph), eagerly one by one against 2 chunks of 3 replays of the
+    step's CUDA graph, from one state: parameters, moments and the chunk
+    means bit-equal; the replays do not tick the wrappers' counters."""
+    from rqvae_tpu_torch.ops.schedules import inverse_sqrt_schedule
+    from rqvae_tpu_torch.train.decoder_steps import make_decoder_graph_train_step
+    from rqvae_tpu_torch.train.state import adamw
+
+    cfg = RetrievalConfig(num_hierarchies=3, codebook_size=16, t5_d_model=64, t5_d_kv=64, t5_num_heads=2,
+                          t5_d_ff=128, t5_num_layers=2, t5_dropout=0.1, t5_dtype=dtype)
+    store = _small_store(cuda)
+    runs = {}
+    for name, n_steps in (("eager", 1), ("graph", 3)):
+        model = EncoderDecoderRetrievalModel(cfg, device=cuda, seed=2)
+        opt = adamw(model.parameters(), inverse_sqrt_schedule(1e-3, 2), weight_decay=0.1, max_grad_norm=1.0)
+        step = make_decoder_graph_train_step(model, opt, max_seq_len=6, n_steps=n_steps, batch_size=8, accum=accum)
+        draws = [step.draws(3, s, 48) for s in range(6)]
+        before = t5_attention.launches
+        means = [step(*store, draws[i:i + n_steps]) for i in range(0, 6, n_steps)]
+        runs[name] = (model, opt, means, t5_attention.launches - before, step)
+    (me, oe, eager, _, _), (mg, og, chunks, launched, gstep) = runs["eager"], runs["graph"]
+    assert gstep.chunks.graph is not None and gstep.chunks.replays == 6
+    assert launched == 2 * 2 * accum  # the capture's eager run and the capture itself; replays tick nothing
+    for (n, a), b in zip(me.named_parameters(), mg.parameters()):
+        assert torch.equal(a, b), n
+    for a, b in zip(oe.mu + oe.nu, og.mu + og.nu):
+        assert torch.equal(a, b)
+    for c, chunk in enumerate(chunks):
+        for key, v in chunk.items():
+            total = torch.zeros_like(v)
+            for m in eager[3 * c:3 * c + 3]:
+                total = total + m[key]
+            assert torch.equal(v, total / 3), key
+
+
+def test_stage1_graph_chunk_equals_eager_steps(cuda):
+    """Stage 1, Gumbel mode with the anneal on the device and 2 micro-batches:
+    6 eager steps against 2 chunks of 3 replays, bit-equal."""
+    import functools
+
+    from rqvae_tpu_torch.ops.schedules import gumbel_temperature_at
+    from rqvae_tpu_torch.train.rqvae_steps import make_rqvae_graph_train_step
+    from rqvae_tpu_torch.train.state import adamw
+
+    cfg = RqVaeConfig(**SMALL_VAE, codebook_mode=QuantizeForwardMode.GUMBEL_SOFTMAX)
+    x = torch.randn(256, 32, generator=torch.Generator().manual_seed(1)).to(cuda)
+    t_fn = functools.partial(gumbel_temperature_at, t0=1.0, min_t=0.1, anneal_rate=0.05, step_size=2)
+    runs = {}
+    for name, n_steps in (("eager", 1), ("graph", 3)):
+        model = RqVae(cfg, device=cuda, seed=4)
+        opt = adamw(model.parameters(), 1e-3, weight_decay=0.01)
+        step = make_rqvae_graph_train_step(model, opt, n_steps=n_steps, accum=2, batch_size=32, t_fn=t_fn)
+        draws = [step.draws(5, s, 256) for s in range(6)]
+        runs[name] = (model, opt, [step(x, draws[i:i + n_steps]) for i in range(0, 6, n_steps)])
+    (me, oe, eager), (mg, og, chunks) = runs["eager"], runs["graph"]
+    for (n, a), b in zip(me.named_parameters(), mg.parameters()):
+        assert torch.equal(a, b), n
+    for a, b in zip(oe.mu + oe.nu, og.mu + og.nu):
+        assert torch.equal(a, b)
+    total = eager[3]["total_loss"] + eager[4]["total_loss"] + eager[5]["total_loss"]
+    assert torch.equal(chunks[1]["total_loss"], (torch.zeros_like(total) + eager[3]["total_loss"]
+                                                 + eager[4]["total_loss"] + eager[5]["total_loss"]) / 3)
+
+
+def test_step_graph_capture_failure_raises(cuda, monkeypatch):
+    """No eager fallback on the card: a step body that reads the device from
+    the host cannot be captured, and the chunk says so."""
+    from rqvae_tpu_torch.train.rqvae_steps import make_rqvae_graph_train_step
+    from rqvae_tpu_torch.train.state import adamw
+
+    model = RqVae(RqVaeConfig(**SMALL_VAE, codebook_mode=QuantizeForwardMode.STE), device=cuda, seed=0)
+    step = make_rqvae_graph_train_step(model, adamw(model.parameters(), 1e-3), n_steps=2, accum=1, batch_size=16)
+    body = step.chunks.body
+
+    def host_read(**draws):
+        out = body(**draws)
+        out["total_loss"].item()  # a host read: illegal while capturing
+        return out
+
+    monkeypatch.setattr(step.chunks, "body", host_read)
+    x = torch.randn(64, 32, device=cuda)
+    with pytest.raises(RuntimeError, match="capture"):
+        step(x, [step.draws(0, s, 64) for s in range(2)])

@@ -177,11 +177,16 @@ def test_topk_hit_metrics_equality():
 
 
 def test_dropout_seeds_come_from_the_generator_only():
-    a = DropoutSeeds(torch.Generator().manual_seed(5))
-    b = DropoutSeeds(torch.Generator().manual_seed(5))
     torch.manual_seed(0)  # global state is not read
-    first = [a.next() for _ in range(70)]
+    first = DropoutSeeds.draw(torch.Generator().manual_seed(5), 2, 70)
     torch.manual_seed(1)
-    assert first == [b.next() for _ in range(70)]
-    assert len(set(first)) > 60 and all(0 <= s < 2**31 - 1 for s in first)
-    assert first[:5] != [DropoutSeeds(torch.Generator().manual_seed(6)).next() for _ in range(5)]
+    assert torch.equal(first, DropoutSeeds.draw(torch.Generator().manual_seed(5), 2, 70))
+    assert first.shape == (2, 128) and first.dtype == torch.int32 and DropoutSeeds.columns(44) == 64
+    flat = first.flatten().tolist()
+    assert len(set(flat)) > 250 and all(0 <= s < 2**31 - 1 for s in flat)
+    assert not torch.equal(first, DropoutSeeds.draw(torch.Generator().manual_seed(6), 2, 70))
+    # blocks of 64 drawn row after row: the draws of a generator that handed
+    # out one block per forward pass, in the same order
+    g = torch.Generator().manual_seed(5)
+    blocks = [torch.randint(0, 2**31 - 1, (64,), generator=g) for _ in range(4)]
+    assert torch.equal(first.flatten().long(), torch.cat(blocks))
