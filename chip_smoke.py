@@ -204,6 +204,39 @@ bf16, top-k 10, batches of 64 histories.
       4 launched 8 times with remat (each encoder layer's forward again in
       the backward), 4 without; the peak memory of both.
 
+  The trainers as rqvae_tpu's are configured and resumed, at the Amazon
+  widths, run after phase 27:
+  31. train_amp: amp=True (ops/amp.py: bf16 operands, float32 sums, cuBLAS)
+      in stage 2 at t5_dtype="float32" (batch 640, Le 80, dropout 0.1, 4
+      steps) and in stage 1 at configs/rqvae_amazon.gin (8 steps): from one
+      state, the amp steps one by one twice against the amp step graph
+      (bit-equal, as in 25), the graph without amp, and the graph without
+      amp from the bf16-rounded parameters; losses within rtol 2e-2 of the
+      float32 run's and the parameters no further from it than 1.5 x the
+      rounded start's run is (AMP_PARAM_FACTOR); the graph's bf16 GEMM nodes
+      (cuBLAS `nvjet` kernels) equal to one step's bf16 products and none
+      without amp; kernels 4 and 5 in both stage-2 graphs on their float32
+      route (cuda_cores); replay ms of every graph; perf.py's step time and
+      MFU of both routes in both stages; 20 amp=True steps of
+      train_rqvae.train;
+  32. resume_jax_layout: train_decoder.train at decoder_amazon.gin's
+      settings (bf16) for 4 steps unbroken against 2 steps, the checkpoint
+      rewritten as the JAX package's file with its optax opt_state
+      (export_jax_checkpoint) and 2 more steps of a trainer resuming from
+      it; train_rqvae.train at rqvae_amazon.gin's, 20 against 10 + 10: step,
+      count, parameters and both moments bit-equal to the unbroken run;
+  33. sampled_eval: train_decoder.train with sample_candidates=True (2
+      steps, the full evaluation once on one batch of 640): its beams
+      (recorded as its generate returns them) and its hits@k and NDCG equal
+      those of a generate fed the same noise (the generator of (seed,
+      999)); kernel 2's launches in that generate held against their plain
+      version; the share of queries whose beams equal the deterministic
+      generate's; sampled and deterministic generate ms;
+  34. hub_export: the same run with push_vae_to_hf=True prints that the push
+      failed and the local export is kept at save_dir_root/rqvae_export;
+      utils/hub.py::from_pretrained on it gives an RQ-VAE whose bf16 index
+      build (kernel 1) equals the trainer's RQ-VAE's, ID for ID.
+
 Each phase prints one JSON line. Then the `kernels` line, the card's
 `nvidia-smi` name and power limit, and last `{"ok": true, "device": ...}`.
 Any failed check raises: the script exits non-zero and prints no last line.
@@ -212,7 +245,9 @@ Without a CUDA device it exits with code 1 before printing anything.
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import gc
 import json
 import os
 import re
@@ -1915,6 +1950,469 @@ def train_perf_phase(x_cpu: torch.Tensor, dev) -> None:
     emit({"phase": "train_perf", "peak": "h100_sxm_bf16", **rows, "train_rqvae_200_steps": runs})
 
 
+# ---- the trainers as rqvae_tpu's are configured and resumed: amp, optax-layout resume, sampled eval, hub ----
+
+AMP_STEPS = {"stage2": 4, "stage1": 8}  # steps of each route from one state
+AMP_LOSS_RTOL = 2e-2  # the stage-2 bf16 tests' loss tolerance (tests/test_torch_decoder_steps.py)
+# AdamW's first updates are lr x sign(g), so any bf16-sized perturbation flips the entries whose gradient
+# is below it: the amp run's parameters are held to no further from the f32 run (mean over tensors of
+# |p - p_f32| / |p_f32 - p_0|) than 1.5 x an f32 run started from the bf16-rounded parameters is, as
+# tests/test_torch_decoder_steps.py holds a bf16 gradient to 1.5 x JAX's own bf16 gradient's distance
+AMP_PARAM_FACTOR = 1.5
+RESUME_STEPS = {"stage2": 4, "stage1": 20}  # unbroken, against half + a resume from the JAX-format file
+
+
+def bf16_gemms_in(names: dict) -> int:
+    """cuBLAS's bf16 GEMM kernels among kernel names: on the H100 the
+    `nvjet` kernels (float32 products with TF32 off run `sm80_xmma_gemm_f32f32`
+    and CUTLASS `simt_sgemm` kernels; a split-K reduction is a kernel of its
+    own and not counted)."""
+    return sum(c for n, c in names.items() if n.startswith("nvjet") or ("gemm" in n and "bf16" in n))
+
+
+def amp_distance(model_amp, model_f32, params0: dict) -> dict:
+    """Per tensor |p_amp - p_f32| / |p_f32 - p_0| (tensors that moved): the
+    mean, the largest and its name."""
+    ratios = {}
+    for (name, a), b in zip(model_amp.named_parameters(), model_f32.parameters()):
+        moved = float((b.detach() - params0[name]).norm())
+        if moved > 0:
+            ratios[name] = float((a.detach() - b.detach()).norm()) / moved
+    worst = max(ratios, key=ratios.get)
+    return {"mean": float(np.mean(list(ratios.values()))), "max": ratios[worst], "max_at": worst,
+            "tensors": len(ratios)}
+
+
+def one_step_at_a_time(step, run_step, draws: list) -> list:
+    """Each step's metrics from a chunk runner: one draw per call (a chunk
+    of one step), each a replay of its graph on the card."""
+    return [run_step(step, [d]) for d in draws]
+
+
+def gemm_names(names: dict) -> dict:
+    """The GEMM-like kernels among kernel names, for a failure's message."""
+    return {n[:80]: c for n, c in names.items() if re.search(r"gemm|nvjet|xmma|cutlass", n, re.I)}
+
+
+def round_to_bf16_(model) -> None:
+    """Every parameter rounded to bf16 and back, in place."""
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(p.to(torch.bfloat16).float())
+
+
+def graph_launches(nodes: dict) -> dict:
+    """The port's kernels among a graph's nodes, kernels 4 and 5 apart."""
+    ours = our_kernels(nodes)
+    return {"rq_encode": ours["rq_encode"], "decoder_stack": ours["decoder_stack"],
+            "encoder_stack": ours["encoder_stack"], **attention_launches_in(nodes)}
+
+
+def add_launches(*parts: dict) -> dict:
+    out = {}
+    for part in parts:
+        for k, v in part.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def capture_uncounted(chunks, counts) -> None:
+    """The capture of `chunks`' graph (at its first replay) leaves the
+    wrappers' counters as they were: a capture records launches without
+    making them, and its eager warm-up is set-up, as in train_graph_phase.
+    A graph's launches are its nodes x its replays (replayed_launches)."""
+    capture = chunks.capture
+
+    def run():
+        before = counts.read()
+        capture()
+        counts.restore(before)
+    chunks.capture = run
+
+
+def replayed_launches(steps: list, tmp: str) -> dict:
+    """The port's kernels launched by the graph replays of step runners:
+    each graph's nodes x its replays (a runner without a graph: nothing)."""
+    parts = [{k: v * s.chunks.replays for k, v in graph_launches(graph_nodes(s.chunks.graph, tmp)).items()}
+             for s in steps if s.chunks.graph is not None]
+    return add_launches(*parts)
+
+
+@contextlib.contextmanager
+def recorded_steps(module, factory: str, counts, steps: list):
+    """`module.factory` (a trainer's step-runner factory) wrapped while the
+    block runs: each runner it makes is appended to `steps`, its capture
+    uncounted (capture_uncounted)."""
+    make = getattr(module, factory)
+
+    def recording(*args, **kwargs):
+        step = make(*args, **kwargs)
+        capture_uncounted(step.chunks, counts)
+        steps.append(step)
+        return step
+
+    setattr(module, factory, recording)
+    try:
+        yield steps
+    finally:
+        setattr(module, factory, make)
+
+
+def amp_routes(phase: str, make, run_step, k: int, params0: dict, tmp: str, counts) -> dict:
+    """From one state, k steps with amp one by one twice, through the step
+    graph, through the graph without amp, and without amp from the
+    bf16-rounded state (the yardstick of AMP_PARAM_FACTOR): the graph against
+    the eager steps (bit-equal, or no further apart than two eager runs),
+    losses and parameters against the float32 route by the bf16 measure, the
+    graph's bf16 GEMM nodes equal to the bf16 products of one step, kernels
+    4 and 5 in the graphs, then the replay times. Returns the routes' rows
+    and, under "launches", the port's kernels that every step of the phase
+    launched: the eager steps' counters and each graph's nodes x replays
+    (the counters, zeroed after the eager steps, must not tick again)."""
+    from rqvae_tpu_torch.ops import amp as amp_lib
+
+    n0 = amp_lib.products
+    counts.zero()
+    me, oe, se, eager, eager_ms, draws = eager_runs(functools.partial(make, amp=True), run_step, k)
+    products = (amp_lib.products - n0) / k
+    again = eager_runs(functools.partial(make, amp=True), run_step, k)
+    eager_launches = counts.read()
+    counts.zero()
+    runs, rows = {}, {}
+    for name, amp in (("amp", True), ("f32", False), ("f32_bf16_start", False)):
+        model, opt, step = make(k, amp=amp)
+        capture_uncounted(step.chunks, counts)
+        if name == "f32_bf16_start":
+            round_to_bf16_(model)
+        metrics = one_step_at_a_time(step, run_step, draws)
+        sync()
+        nodes = graph_nodes(step.chunks.graph, tmp)
+        runs[name] = (model, opt, step)
+        rows[name] = {"losses": [float(m["total_loss"]) for m in metrics], "bf16_gemm_nodes": bf16_gemms_in(nodes),
+                      "nodes": sum(nodes.values()), "attention_nodes": attention_launches_in(nodes),
+                      "gemm_kernels": gemm_names(nodes)}
+    amp_row, f32_row = rows["amp"], rows["f32"]
+    gate = graph_gate(phase, same_state(me, oe, *again[:2]), same_state(me, oe, *runs["amp"][:2]))
+    eager_losses = [float(m["total_loss"]) for m in eager]
+    check(amp_row["losses"] == eager_losses or not gate["eager_twice"]["bit_equal"],
+          f"{phase}: graph losses {amp_row['losses']} against eager {eager_losses}")
+    check(products > 0 and amp_row["bf16_gemm_nodes"] == products,
+          f"{phase}: {amp_row['bf16_gemm_nodes']} bf16 GEMM nodes in the graph for {products} bf16 products a "
+          f"step; GEMM kernels {amp_row['gemm_kernels']}")
+    check(f32_row["bf16_gemm_nodes"] == 0,
+          f"{phase}: {f32_row['bf16_gemm_nodes']} bf16 GEMM nodes without amp: {f32_row['gemm_kernels']}")
+    check(all(np.isfinite(amp_row["losses"])), f"{phase}: losses {amp_row['losses']}")
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(amp_row["losses"], f32_row["losses"])]
+    check(max(loss_rel) <= AMP_LOSS_RTOL, f"{phase}: amp losses {amp_row['losses']} against f32 {f32_row['losses']}")
+    dist = amp_distance(runs["amp"][0], runs["f32"][0], params0)
+    yardstick = amp_distance(runs["f32_bf16_start"][0], runs["f32"][0], params0)
+    check(dist["mean"] <= AMP_PARAM_FACTOR * yardstick["mean"],
+          f"{phase}: parameters against the f32 route {dist}, the bf16-rounded start's {yardstick}")
+    for name, (_, _, step) in runs.items():
+        step.chunks.stage(draws)
+        rows[name].update(replay_timing(step.chunks, k))
+        rows[name]["replays"] = step.chunks.replays
+    ticked = counts.read()
+    check(not any(ticked.values()), f"{phase}: wrappers ticked during the graphs' replays: {ticked}")
+    launches = add_launches(eager_launches, replayed_launches([step for _, _, step in runs.values()], tmp))
+    out = {"steps": k, "bf16_products_per_step": products, **gate, "launches": launches,
+           "eager_launches": eager_launches, "eager_host_ms": eager_ms,
+           "eager_losses": eager_losses, "loss_rel_diff_vs_f32": loss_rel, "params_vs_f32": dist,
+           "params_vs_f32_of_the_bf16_rounded_start": yardstick, **rows}
+    del me, oe, se, again, runs
+    gc.collect()  # the step runners close over themselves: free their graphs and pools now
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_amp_phase(rq, x, corpus_cpu: torch.Tensor, counts, dev) -> dict:
+    """amp=True at the Amazon widths, on the card: stage 2 at
+    t5_dtype="float32" (batch 640, Le 80, dropout 0.1) and stage 1 at
+    configs/rqvae_amazon.gin through the replayed step graphs (amp_routes),
+    perf.py's step time and MFU of both routes in both stages, and a few
+    amp=True stage-1 trainer steps. Returns the launches of the port's
+    kernels in the routes' steps (counters of the eager steps, nodes x
+    replays of the graphs) and in the trainer run (its counters, its step
+    graph's nodes x replays); perf.py's timed steps are not counted."""
+    from rqvae_tpu_torch.data.registry import RecDataset
+    from rqvae_tpu_torch.models.rqvae import RqVae, RqVaeConfig
+    from rqvae_tpu_torch.ops.cuda.attention import attention_route
+    from rqvae_tpu_torch.ops.schedules import inverse_sqrt_schedule
+    from rqvae_tpu_torch.tokenizer.semids import SemanticIdTokenizer
+    from rqvae_tpu_torch.train import perf
+    from rqvae_tpu_torch.train import train_rqvae as T
+    from rqvae_tpu_torch.train.decoder_steps import make_decoder_graph_train_step
+    from rqvae_tpu_torch.train.rqvae_steps import make_rqvae_graph_train_step
+    from rqvae_tpu_torch.train.state import adamw
+    from rqvae_tpu_torch.utils.config import apply_config, parse_config_file
+
+    geo = TRAIN_AMAZON
+    seq_items, seq_lengths = make_sequences(geo, x.shape[0], seed=23)
+    cached = SemanticIdTokenizer(rq, device=dev).precompute_corpus_ids(x)
+    tables = [torch.as_tensor(a, device=dev) for a in (seq_items, seq_lengths, np.arange(geo["users"]))] + [cached]
+
+    def make2(n_steps, amp):
+        model = retrieval_model("float32", dev, t5_dropout=0.1)
+        opt = adamw(model.parameters(), inverse_sqrt_schedule(1e-3, 10000), weight_decay=1e-4)
+        step = make_decoder_graph_train_step(model, opt, max_seq_len=geo["max_seq_len"], n_steps=n_steps,
+                                             batch_size=geo["batch"], amp=amp)
+        step.draws = functools.partial(step.draws, n_rows=geo["users"])
+        return model, opt, step
+
+    params0 = {n: p.detach().clone() for n, p in retrieval_model("float32", dev).named_parameters()}
+    with tempfile.TemporaryDirectory() as tmp:
+        stage2 = amp_routes("train_amp stage2", make2, lambda step, d: step(*tables, d), AMP_STEPS["stage2"],
+                            params0, tmp, counts)
+    routes = {"forward": attention_route(80, 80, 64, torch.float32),
+              "backward": attention_route(80, 80, 64, torch.float32, backward=True)}
+    check(routes == {"forward": "cuda_cores", "backward": "cuda_cores"}, f"train_amp: f32 attention routes {routes}")
+    for name in ("amp", "f32"):
+        check(stage2[name]["attention_nodes"] == {"attention": 4, "attention_bwd": 4},
+              f"train_amp stage2 {name}: kernels 4 and 5 in the graph {stage2[name]['attention_nodes']}")
+    eager = stage2["eager_launches"]
+    check(eager["attention"] == eager["attention_bwd"] == 4 * 2 * AMP_STEPS["stage2"],
+          f"train_amp stage2: the eager steps' launches {eager}")
+    del params0, tables, cached
+    torch.cuda.empty_cache()
+
+    gin = "configs/rqvae_amazon.gin"
+    st = parse_config_file(gin)
+    cfg = RqVaeConfig(input_dim=st["vae_input_dim"], embed_dim=st["vae_embed_dim"],
+                      hidden_dims=tuple(st["vae_hidden_dims"]), codebook_size=st["vae_codebook_size"],
+                      n_layers=st["vae_n_layers"], commitment_weight=st["commitment_weight"],
+                      n_cat_feats=st["vae_n_cat_feats"], codebook_mode=st["vae_codebook_mode"])
+    xs = corpus_cpu.to(dev)
+
+    def make1(n_steps, amp):
+        model = RqVae(cfg, device=dev, seed=5)
+        init_codebooks_from_data(model, xs, seed=6)
+        opt = adamw(model.parameters(), st["learning_rate"], weight_decay=st["weight_decay"])
+        step = make_rqvae_graph_train_step(model, opt, n_steps=n_steps, accum=1, batch_size=st["batch_size"],
+                                           amp=amp)
+        step.draws = functools.partial(step.draws, n_items=xs.shape[0])
+        return model, opt, step
+
+    model0 = RqVae(cfg, device=dev, seed=5)
+    init_codebooks_from_data(model0, xs, seed=6)
+    params0 = {n: p.detach().clone() for n, p in model0.named_parameters()}
+    with tempfile.TemporaryDirectory() as tmp:
+        stage1 = amp_routes("train_amp stage1", make1, lambda step, d: step(xs, d), AMP_STEPS["stage1"], params0, tmp,
+                            counts)
+    del model0, params0
+
+    perf_rows = {
+        "stage2_f32": perf.measure_stage2_step(dtype="float32", r1=2, r2=12, device=dev),
+        "stage2_f32_amp": perf.measure_stage2_step(dtype="float32", bf16=True, r1=2, r2=12, device=dev),
+        "stage1": perf.measure_stage1_step(device=dev),
+        "stage1_amp": perf.measure_stage1_step(bf16=True, device=dev),
+    }
+    for name, r in perf_rows.items():
+        check(r["seconds_per_step"] > 0 and 0 < r["mfu"] < 1, f"train_amp perf {name}: {r}")
+    with tempfile.TemporaryDirectory() as root:
+        folder = write_item_dataset(os.path.join(root, "data"), corpus_cpu, seed=13)
+        counts.zero()
+        with recorded_steps(T, "make_rqvae_graph_train_step", counts, []) as steps:
+            s = apply_config(T.train, gin, iterations=20, eval_every=20, save_model_every=20, log_every=10, amp=True,
+                             dataset=RecDataset.SYNTHETIC, dataset_folder=folder,
+                             save_dir_root=os.path.join(root, "rq"), device=dev)
+        sync()
+        trainer = add_launches(counts.read(), replayed_launches(steps, root))
+        replays = [st.chunks.replays for st in steps]
+        del steps
+    check(bool(np.isfinite(s["total_loss"])) and bool(np.isfinite(s["eval_total_loss"])),
+          f"train_amp: amp=True trainer losses {s['total_loss']}, {s['eval_total_loss']}")
+    check(trainer["rq_encode"] >= 1, f"train_amp: the trainer's evaluation launched no index build: {trainer}")
+    emit({"phase": "train_amp", "stage2": {"config": "decoder_amazon.gin widths, t5_dtype float32",
+                                           "batch": geo["batch"], "Le": geo["max_seq_len"] * 4, "dropout": 0.1,
+                                           **stage2},
+          "stage1": {"config": gin, "batch": st["batch_size"], **stage1}, "attention_routes_f32": routes,
+          "perf": perf_rows, "trainer_amp_20_steps": {**{k: s[k] for k in ("total_loss", "eval_total_loss",
+                                                                          "iterations_per_sec", "index_build_ms")},
+                                                       "graph_replays": replays, "launches": trainer}})
+    return add_launches(stage2["launches"], stage1["launches"], trainer)
+
+
+def resume_jax_layout_phase(rq, x_cpu, corpus_cpu: torch.Tensor, dev) -> None:
+    """Both trainers at their shipped Amazon settings: N steps unbroken
+    against N/2 steps, the checkpoint rewritten as the JAX package's file
+    (params and optax opt_state, utils/checkpoint.py::export_jax_checkpoint),
+    and a new trainer resuming from that file for N/2 steps: step, count,
+    parameters and both moments bit-equal."""
+    from rqvae_tpu_torch.data.registry import RecDataset
+    from rqvae_tpu_torch.train import train_rqvae as T
+    from rqvae_tpu_torch.train.train_decoder import train
+    from rqvae_tpu_torch.utils.checkpoint import export_jax_checkpoint, load_checkpoint
+    from rqvae_tpu_torch.utils.config import apply_config
+
+    def compare(stage: str, whole: dict, rest: dict, jax_file: str) -> dict:
+        a, b = load_checkpoint(whole["checkpoint_path"]), load_checkpoint(rest["checkpoint_path"])
+        j = load_checkpoint(jax_file)
+        same = {"step": a["step"] == b["step"], "count": a["opt_state"]["count"] == b["opt_state"]["count"],
+                "params": all(torch.equal(a["params"][k], b["params"][k]) for k in a["params"]),
+                "moments": all(torch.equal(x, y) for x, y in zip(a["opt_state"]["mu"] + a["opt_state"]["nu"],
+                                                                  b["opt_state"]["mu"] + b["opt_state"]["nu"]))}
+        check(all(same.values()), f"resume_jax_layout {stage}: against the unbroken run {same}")
+        return {"bit_equal": same, "step": b["step"], "count": b["opt_state"]["count"],
+                "jax_file": os.path.basename(jax_file), "jax_file_bytes": os.path.getsize(jax_file),
+                "opt_state_keys": sorted(j["opt_state"]), "total_loss": [whole["total_loss"], rest["total_loss"]]}
+
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        n = RESUME_STEPS["stage2"]
+        folder, rq_ckpt, _ = write_training_inputs(os.path.join(root, "s2"), TRAIN_AMAZON, rq, x_cpu, seed=12)
+        kw = dict(train_kwargs(TRAIN_AMAZON, AMAZON, folder, rq_ckpt), partial_eval_every=1000, full_eval_every=1000,
+                  full_eval_max_batches=1, save_model_every=1000, log_every=2, device=dev)
+        t0 = time.perf_counter()
+        whole = train(iterations=n, save_dir_root=os.path.join(root, "whole"), **kw)
+        half = train(iterations=n // 2, save_dir_root=os.path.join(root, "half"), **kw)
+        jax_file = export_jax_checkpoint(half["checkpoint_path"], os.path.join(root, "jax"))
+        rest = train(iterations=n // 2, pretrained_decoder_path=jax_file, save_dir_root=os.path.join(root, "rest"),
+                     **kw)
+        out["stage2"] = {"config": "decoder_amazon.gin (bf16)", "steps": [n, n // 2, n // 2],
+                         "train_calls_s": time.perf_counter() - t0, **compare("stage2", whole, rest, jax_file)}
+
+        n = RESUME_STEPS["stage1"]
+        folder = write_item_dataset(os.path.join(root, "s1"), corpus_cpu, seed=13)
+        gin = "configs/rqvae_amazon.gin"
+        run = lambda save, **kw1: apply_config(  # noqa: E731
+            T.train, gin, dataset=RecDataset.SYNTHETIC, dataset_folder=folder, eval_every=10**6,
+            save_model_every=10**6, log_every=n // 2, save_dir_root=os.path.join(root, save), device=dev, **kw1)
+        t0 = time.perf_counter()
+        whole = run("rq_whole", iterations=n)
+        half = run("rq_half", iterations=n // 2)
+        jax_file = export_jax_checkpoint(half["checkpoint_path"], os.path.join(root, "rq_jax"))
+        rest = run("rq_rest", iterations=n // 2, pretrained_rqvae_path=jax_file)
+        out["stage1"] = {"config": gin, "steps": [n, n // 2, n // 2], "train_calls_s": time.perf_counter() - t0,
+                         **compare("stage1", whole, rest, jax_file)}
+    emit({"phase": "resume_jax_layout", **out})
+
+
+def sampled_eval_and_hub_phases(rq, x_cpu, x, counts, dev) -> dict:
+    """One stage-2 trainer run at the Amazon settings with
+    sample_candidates=True and push_vae_to_hf=True (2 steps, the full
+    evaluation once, one batch of 640): it finishes; its beams, hits@k and
+    NDCG equal a generate fed the same noise (the generator of (seed, 999));
+    kernel 2 held against its plain version on that call's operands; the
+    sampled and the deterministic generate's ms. Then the export: the kept
+    path printed, and the tokenizer from_pretrained gives builds its bf16
+    index (kernel 1) ID for ID as the trainer's RQ-VAE. Returns the trainer
+    run's launches (the path; not the checks' calls after it): its counters,
+    its step graph's capture uncounted, and the graph's nodes x replays."""
+    import dataclasses
+    import io
+
+    from rqvae_tpu_torch.data.datasets import SeqDataset
+    from rqvae_tpu_torch.data.registry import RecDataset, ensure_dataset
+    from rqvae_tpu_torch.models.retrieval import EncoderDecoderRetrievalModel
+    from rqvae_tpu_torch.models.rqvae import RqVae
+    from rqvae_tpu_torch.ops.metrics import TopKAccumulator
+    from rqvae_tpu_torch.serving.beam import build_prefix_table
+    from rqvae_tpu_torch.tokenizer.semids import SemanticIdTokenizer
+    from rqvae_tpu_torch.train import train_decoder as TD
+    from rqvae_tpu_torch.train.decoder_steps import make_generate_fn
+    from rqvae_tpu_torch.train.train_decoder import eval_noise
+    from rqvae_tpu_torch.utils import hub
+    from rqvae_tpu_torch.utils.checkpoint import load_checkpoint
+
+    geo = TRAIN_AMAZON
+    with tempfile.TemporaryDirectory() as root:
+        folder, rq_ckpt, _ = write_training_inputs(root, geo, rq, x_cpu, seed=12)
+        kw = train_kwargs(geo, AMAZON, folder, rq_ckpt)
+        printed, beams = io.StringIO(), []
+        make_generate = TD.make_generate_fn
+
+        def recording_generate_fn(model):  # the trainer's beams, recorded as they are
+            generate = make_generate(model)
+
+            def run(batch, table, noise=None):
+                out = generate(batch, table, noise)
+                beams.append(out.sem_ids.clone())
+                return out
+            return run
+
+        counts.zero()
+        t0 = time.perf_counter()
+        TD.make_generate_fn = recording_generate_fn
+        try:
+            with contextlib.redirect_stdout(printed), \
+                    recorded_steps(TD, "make_decoder_graph_train_step", counts, []) as steps:
+                s = TD.train(iterations=2, sample_candidates=True, push_vae_to_hf=True, full_eval_every=2,
+                             full_eval_max_batches=1, partial_eval_every=1000, save_model_every=1000, log_every=2,
+                             save_dir_root=os.path.join(root, "dec"), device=dev, **kw)
+        finally:
+            TD.make_generate_fn = make_generate
+        sync()
+        train_s = time.perf_counter() - t0
+        counted = counts.read()
+        check(counted["attention"] == counted["attention_bwd"] == 0,
+              f"sampled_eval: the wrappers ticked outside the step graph's capture: {counted}")
+        replays = [st.chunks.replays for st in steps]
+        check(replays == [2], f"sampled_eval: the trainer's step graph replays {replays}")
+        got = add_launches(counted, replayed_launches(steps, root))
+        del steps
+        export = os.path.join(root, "dec", "rqvae_export")
+        hub_lines = [line for line in printed.getvalue().splitlines() if line.startswith("[hub]")]
+        check(len(hub_lines) == 1 and hub_lines[0].endswith(f"local export kept at {export}"),
+              f"hub_export: printed {hub_lines}")
+        check_summary("sampled_eval", s)
+        check(got["decoder_stack"] == 3 and got["rq_encode"] >= 1
+              and got["attention"] == got["attention_bwd"] == 4 * 2, f"sampled_eval: launches {got}")
+
+        restored = load_checkpoint(s["checkpoint_path"])
+        cfg = restored["config"]
+        check(cfg.sample_candidates and cfg.n_candidates < cfg.codebook_size, f"sampled_eval: config {cfg}")
+        model = EncoderDecoderRetrievalModel(cfg, device=dev)
+        model.load_state_dict(restored["params"])
+        tokenizer = SemanticIdTokenizer(rq, device=dev)
+        cached = tokenizer.precompute_corpus_ids(x)
+        prefix_table = build_prefix_table(cached[:, :3], 256)
+        eval_data = SeqDataset(ensure_dataset(folder, RecDataset.SYNTHETIC), split="test")
+        eb, valid = next(iter(eval_data.iter_eval_batches(geo["batch"], with_features=False)))
+        tok = tokenizer(eb)
+        noise = eval_noise(model, tok, kw["seed"], 0)
+        generate = make_generate_fn(model)
+        gen = generate(tok, prefix_table, noise)
+        acc = TopKAccumulator(ks=[1, 5, 10])
+        acc.accumulate(actual=tok.sem_ids_fut[:valid, :3].cpu(), top_k=gen.sem_ids[:valid].cpu())
+        want = acc.reduce()
+        check(want == {k: s[k] for k in want}, f"sampled_eval: trainer {s} against generate fed its noise {want}")
+        same_as_trainer = len(beams) == 1 and bool(torch.equal(beams[0], gen.sem_ids))
+        check(same_as_trainer, "sampled_eval: the trainer's beams differ from a generate fed the same noise")
+        rows = kernels_against_plain(lambda: generate(tok, prefix_table, noise), counts)
+        check(len(rows) == 3 and all(r["kernel"] == "decoder_stack" for r in rows),
+              f"sampled_eval: kernel-2 launches held {rows}")
+        det = EncoderDecoderRetrievalModel(dataclasses.replace(cfg, sample_candidates=False), device=dev)
+        det.load_state_dict(restored["params"])
+        det_generate = make_generate_fn(det)
+        det_ids = det_generate(tok, prefix_table).sem_ids
+        same_beams = float((det_ids == gen.sem_ids).all(-1).all(-1).float().mean())
+        times = {"sampled_generate_ms": host_ms(lambda: generate(tok, prefix_table, noise)),
+                 "deterministic_generate_ms": host_ms(lambda: det_generate(tok, prefix_table)),
+                 "noise_draw_ms": host_ms(lambda: eval_noise(model, tok, kw["seed"], 0))}
+        emit({"phase": "sampled_eval", "batch": geo["batch"], "n_candidates": cfg.n_candidates,
+              "metrics": {k: s[k] for k in want}, "generate_fed_the_same_noise": want,
+              "trainer_beams_equal_generate_fed_the_same_noise": same_as_trainer, "launches": got,
+              "train_calls_s": train_s, "kernel_2_against_plain": rows,
+              "queries_with_the_deterministic_beams": same_beams, **times})
+
+        files = {f: os.path.getsize(os.path.join(export, f)) for f in sorted(os.listdir(export))}
+        check(set(files) == {"config.json", "flax_model.msgpack"}, f"hub_export: files {files}")
+        vcfg, state = hub.from_pretrained(export)
+        check(vcfg == rq.config, f"hub_export: config {vcfg}")
+        rq2 = RqVae(vcfg, device=dev)
+        rq2.load_state_dict(state)
+        before = counts.read()["rq_encode"]
+        ids = SemanticIdTokenizer(rq2, device=dev).precompute_corpus_ids(x)
+        check(counts.read()["rq_encode"] == before + 1, "hub_export: the index build did not launch kernel 1")
+        same = bool(torch.equal(ids, cached))
+        check(same, f"hub_export: {int((ids != cached).any(1).sum())} items differ from the trainer's RQ-VAE")
+        emit({"phase": "hub_export", "printed": hub_lines[0], "files": files, "items": int(x.shape[0]),
+              "index_ids_equal": same, "precision": "bf16"})
+        del model, det, rq2
+    torch.cuda.empty_cache()
+    return got
+
+
 # ---- serving as it is deployed: checkpoints, saved index, bucket graphs, growth, queue ----
 
 FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures", "jax_synthetic")
@@ -2587,7 +3085,15 @@ def main() -> int:
     train_rqvae_graph_phase("train_rqvae_graph_amazon_gumbel", *corpora["amazon"], dev,
                             mode=QuantizeForwardMode.GUMBEL_SOFTMAX, anneal=True)
     train_perf_phase(corpora["amazon"][1], dev)
+
+    # ---- 31-34. the trainers as rqvae_tpu's are configured and resumed ----
+    rq, x_cpu, x = make_rqvae(AMAZON, dev)
+    launches["train_amp"] = train_amp_phase(rq, x, corpora["amazon"][1], counts, dev)
+    resume_jax_layout_phase(rq, x_cpu, corpora["amazon"][1], dev)
+    launches["sampled_eval"] = sampled_eval_and_hub_phases(rq, x_cpu, x, counts, dev)
+    del rq, x_cpu, x
     del corpora
+    gc.collect()  # the trainers' and perf.py's step runners close over themselves: free their graphs
     torch.cuda.empty_cache()
     for name, geo, vae in (("amazon", TRAIN_AMAZON, AMAZON), ("ml32m", TRAIN_ML32M, ML32M)):
         rq, x_cpu, x = make_rqvae(vae, dev)

@@ -1,7 +1,9 @@
 """Bias-free MLP encoder/decoder (port of rqvae_tpu/models/mlp.py).
 
 Linear(bias=False) + ReLU stack with an optional final L2 normalization.
-Inference only: the JAX module's dropout is a training feature.
+Inference only: the JAX module's dropout is a training feature. Inside an amp
+step on the card the Linear products take bf16 operands with f32 sums
+(ops/amp.py).
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from rqvae_tpu_torch.ops import amp
 from rqvae_tpu_torch.ops.normalize import l2norm
 
 
@@ -32,7 +35,7 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i, layer in enumerate(self.layers):
-            x = layer(x)
+            x = amp.linear(x, layer.weight)
             if i != len(self.layers) - 1:
                 x = torch.relu(x)
         if self.normalize:

@@ -30,6 +30,7 @@ from torch import nn
 
 from rqvae_tpu_torch.data.schemas import TokenizedSeqBatch
 from rqvae_tpu_torch.models.t5 import DropoutSeeds, T5Stack, T5StackConfig
+from rqvae_tpu_torch.ops import amp
 from rqvae_tpu_torch.ops.embedding import embedding_lookup
 from rqvae_tpu_torch.ops.gumbel import sample_without_replacement
 from rqvae_tpu_torch.serving.beam import PrefixTable, extend_keys, valid_children
@@ -216,7 +217,10 @@ class EncoderDecoderRetrievalModel(nn.Module):
         enc, enc_mask = self.encoder_forward(input_ids, mask, batch.user_ids, training, seeds)
         dec = self.decoder_forward(fut, enc, enc_mask, training=training, seeds=seeds)[:, :-1]  # [B, L, d]
 
-        logits = torch.einsum("bld,ldk->blk", dec, self.heads)  # [B, L, K]
+        if amp.active(dec):  # bf16 operands, f32 sums (ops/amp.py)
+            logits = amp.matmul(dec.transpose(0, 1), self.heads).transpose(0, 1)
+        else:
+            logits = torch.einsum("bld,ldk->blk", dec, self.heads)  # [B, L, K]
         logp = torch.log_softmax(logits.float(), dim=-1)
         nll = -torch.gather(logp, 2, fut.long()[:, :, None])[..., 0]  # [B, L]
         loss_d = nll.mean(0)  # [L]

@@ -60,6 +60,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from rqvae_tpu_torch.ops import amp
 from rqvae_tpu_torch.ops.cuda.attention import t5_attention
 from rqvae_tpu_torch.ops.cuda.decoder_stack import t5_decoder_stack_infer
 from rqvae_tpu_torch.ops.cuda.encoder_stack import t5_encoder_stack_infer
@@ -117,9 +118,10 @@ class T5StackConfig:
 
 def dense(x: torch.Tensor, weight: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
     """x @ weight.T at the compute dtype: operands rounded to cdt, products
-    summed in f32, the result rounded to cdt once."""
+    summed in f32, the result rounded to cdt once. At float32 inside an amp
+    step on the card, bf16 operands with f32 sums (ops/amp.py)."""
     if cdt == torch.float32:
-        return F.linear(x.float(), weight.float())
+        return amp.linear(x.float(), weight.float())
     return F.linear(x.to(cdt).float(), weight.to(cdt).float()).to(cdt)
 
 

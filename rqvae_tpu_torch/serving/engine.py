@@ -12,23 +12,27 @@ On the card each bucket runs as one CUDA graph of the whole query
 beam level and the inverse lookup), captured once, at `warmup()` or at the
 bucket's first use, after one eager run on the engine's side stream (which
 builds the kernel libraries and sets their launch attributes outside the
-capture). All graphs share one memory pool: their replays run one after
-another on that stream. A dispatch writes its requests into pinned host
-memory, copies them into the graph's static inputs without blocking,
-replays, and copies the three results into pinned host buffers of its own,
-then records an event; `finalize_many` waits on the event. A capture that
+capture), with unreachable objects collected first (a graph of a dead
+reference cycle, such as a training step runner's, destroyed by Python's
+collector during a capture would invalidate it). All graphs share one
+memory pool: their replays run one after another on that stream. A dispatch
+writes its requests into pinned host memory, copies them into the graph's
+static inputs without blocking, replays, and copies the three results into
+pinned host buffers of its own, then records an event; `finalize_many` waits on the event. A capture that
 fails raises: the card has no eager fallback. CPU tensors run eagerly, as
 the tests run them.
 """
 
 from __future__ import annotations
 
+import gc
 from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from rqvae_tpu_torch.serving.retriever import RetrievalResult, Retriever
+from rqvae_tpu_torch.utils.device import end_failed_capture
 
 
 def _default_item_buckets(max_items: int) -> tuple:
@@ -110,6 +114,7 @@ class RetrievalEngine:
         with torch.no_grad(), torch.cuda.stream(self.stream):
             r._retrieve_body(hist, uids, noise)  # eager: builds, loads and sets up every kernel first
         graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept, so its nodes can be read (debug_dump)
+        gc.collect()  # no graph of a dead cycle may be destroyed while this one captures
         try:
             # thread_local: a resolver thread's event waits do not void a capture
             with torch.no_grad(), torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
@@ -117,6 +122,7 @@ class RetrievalEngine:
                 out = r._retrieve_body(hist, uids, noise)
             graph.instantiate()
         except Exception as e:
+            end_failed_capture(self.device)
             raise RuntimeError(f"CUDA graph capture of bucket (batch {bb}, items {ib}) failed: {e}") from e
         return BucketGraph(hist, uids, noise, graph, out)
 

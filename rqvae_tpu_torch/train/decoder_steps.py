@@ -23,7 +23,7 @@ GPU.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -31,6 +31,7 @@ from rqvae_tpu_torch.data.sampling import eval_windows, subsample_windows_from_d
 from rqvae_tpu_torch.data.schemas import TokenizedSeqBatch
 from rqvae_tpu_torch.models.retrieval import EncoderDecoderRetrievalModel, GenerationOutput
 from rqvae_tpu_torch.models.t5 import DropoutSeeds
+from rqvae_tpu_torch.ops import amp as amp_lib
 from rqvae_tpu_torch.serving.beam import PrefixTable
 from rqvae_tpu_torch.tokenizer.semids import _tokenize_from_cache
 from rqvae_tpu_torch.train.state import AdamW
@@ -90,12 +91,15 @@ def _uses_dropout(model: EncoderDecoderRetrievalModel) -> bool:
 
 
 def _make_fused_body(model: EncoderDecoderRetrievalModel, optimizer: AdamW, max_seq_len: int,
-                     leave_two_out: bool, subsample: bool, accum: int):
+                     leave_two_out: bool, subsample: bool, accum: int, amp: bool = False):
     """body(tables, row_idx [accum, B], u_start, u_end [accum, B], seeds
     [accum, C] or None) -> metrics: the fused step on device tensors, reading
-    nothing back (the body a step graph captures)."""
+    nothing back (the body a step graph captures). With `amp`, the float32
+    products and the heads take bf16 operands with f32 sums on the card
+    (ops/amp.py)."""
     build = _make_micro_batch_fn(max_seq_len, leave_two_out, subsample)
 
+    @amp_lib.bf16_products(amp)
     def body(tables, row_idx, u_start, u_end, seeds=None):
         model.train()
         optimizer.zero_grad()
@@ -172,16 +176,18 @@ class DecoderGraphTrainStep:
     must be the same tensors at every later call. On the card each step is
     one replay of a CUDA graph of the fused step (n_steps > 1), on the CPU
     the same body eagerly; either way the chunk takes, bit for bit, the steps
-    that make_decoder_fused_train_step takes from the same draws."""
+    that make_decoder_fused_train_step takes from the same draws. `amp`: the
+    trainer's knob (ops/amp.py), inside the graph too."""
 
     def __init__(self, model: EncoderDecoderRetrievalModel, optimizer: AdamW, max_seq_len: int, n_steps: int,
-                 batch_size: int, leave_two_out: bool = True, subsample: bool = True, accum: int = 1):
+                 batch_size: int, leave_two_out: bool = True, subsample: bool = True, accum: int = 1,
+                 amp: bool = False):
         if not model.config.t5_hash_dropout and _uses_dropout(model) and model.device.type == "cuda" and n_steps > 1:
             raise ValueError("a step graph needs hash dropout (t5_hash_dropout=True): the Bernoulli masks "
                              "seed a generator on the host")
         self.model, self.optimizer, self.accum, self.batch_size = model, optimizer, accum, batch_size
         self.n_sites = model.n_dropout_sites if _uses_dropout(model) else None
-        body = _make_fused_body(model, optimizer, max_seq_len, leave_two_out, subsample, accum)
+        body = _make_fused_body(model, optimizer, max_seq_len, leave_two_out, subsample, accum, amp)
         specs = {"row_idx": ((accum, batch_size), torch.long),
                  "u_start": ((accum, batch_size), torch.float32), "u_end": ((accum, batch_size), torch.float32)}
         if self.n_sites is not None:
@@ -214,11 +220,12 @@ def make_decoder_graph_train_step(
     leave_two_out: bool = True,
     subsample: bool = True,
     accum: int = 1,
+    amp: bool = False,
 ) -> DecoderGraphTrainStep:
     """Chunks of up to `n_steps` stage-2 steps, each one replay of a CUDA
     graph of the fused step on the card (see DecoderGraphTrainStep)."""
     return DecoderGraphTrainStep(model, optimizer, max_seq_len, n_steps, batch_size, leave_two_out, subsample,
-                                 accum)
+                                 accum, amp)
 
 
 def make_decoder_eval_step(model: EncoderDecoderRetrievalModel):
@@ -234,10 +241,14 @@ def make_decoder_eval_step(model: EncoderDecoderRetrievalModel):
 
 
 def make_generate_fn(model: EncoderDecoderRetrievalModel):
-    """generate(batch, prefix_table) -> GenerationOutput (constrained beam search)."""
+    """generate(batch, prefix_table, noise=None) -> GenerationOutput
+    (constrained beam search). With `sample_candidates`, `noise` is each
+    level's Gumbel noise (EncoderDecoderRetrievalModel.sampling_noise_shapes),
+    the counterpart of the JAX generate's `rng`."""
 
-    def generate(batch: TokenizedSeqBatch, prefix_table: PrefixTable) -> GenerationOutput:
+    def generate(batch: TokenizedSeqBatch, prefix_table: PrefixTable,
+                 noise: Optional[Sequence[torch.Tensor]] = None) -> GenerationOutput:
         model.eval()
-        return model.generate(batch.sem_ids, batch.seq_mask, batch.user_ids, prefix_table)
+        return model.generate(batch.sem_ids, batch.seq_mask, batch.user_ids, prefix_table, noise)
 
     return generate

@@ -14,9 +14,12 @@ one parameter plus the chunk's metric sums, which the steps compute (the
 stage-1 p_unique_ids sort, the stage-2 sequence-length quantiles included).
 
 The defaults are the Amazon flagship (configs/rqvae_amazon.gin,
-configs/decoder_amazon.gin). MFU is against the H100 SXM's dense bf16 peak
-(utils/flops.py::PEAK_FLOPS), whatever the step's dtype, so that the two
-stages and both dtypes read on one scale. Runs on the card; on the CPU (for
+configs/decoder_amazon.gin). `bf16=True` is the JAX measure's bf16 matmul
+precision, the trainers' `amp` (ops/amp.py): bf16 operands with float32
+sums in stage 1's MLPs, and in stage 2's float32 products and heads. MFU is
+against the H100 SXM's dense bf16 peak (utils/flops.py::PEAK_FLOPS),
+whatever the step's dtype, so that the two stages, both dtypes and both
+routes read on one scale. Runs on the card; on the CPU (for
 the tests, at small sizes) the same chunks run eagerly, and the returned
 times are the CPU's.
 """
@@ -81,14 +84,13 @@ def measure_stage1_step(
     r2: int = 550,
     device: DeviceLike = None,
 ) -> dict:
-    """Stage-1 (RQ-VAE, STE) train-step time and MFU at the given geometry."""
+    """Stage-1 (RQ-VAE, STE) train-step time and MFU at the given geometry;
+    `bf16`: the amp route."""
     from rqvae_tpu_torch.models.quantize import QuantizeForwardMode
     from rqvae_tpu_torch.models.rqvae import RqVae, RqVaeConfig
     from rqvae_tpu_torch.train.rqvae_steps import make_rqvae_graph_train_step
     from rqvae_tpu_torch.train.state import adamw
 
-    if bf16:
-        raise NotImplementedError("bf16 stage-1 training (amp) is not ported")
     dev = resolve_device(device)
     cfg = RqVaeConfig(
         input_dim=input_dim, embed_dim=embed_dim, hidden_dims=tuple(hidden_dims),
@@ -99,7 +101,7 @@ def measure_stage1_step(
     rng = np.random.RandomState(0)
     features = torch.as_tensor(rng.randn(n_items, input_dim).astype(np.float32), device=dev)
     step = make_rqvae_graph_train_step(model, adamw(model.parameters(), 1e-3, weight_decay=1e-4),
-                                       n_steps=r2, accum=1, batch_size=batch)
+                                       n_steps=r2, accum=1, batch_size=batch, amp=bf16)
     step.features = features
     draws = [step.draws(7, i, n_items) for i in range(r2)]
     run = _runner(step.chunks, draws, next(model.parameters()), ("total_loss", "p_unique_ids"))
@@ -129,6 +131,7 @@ def measure_stage2_step(
     n_rows: int = 2000,
     n_corpus: int = 20000,
     dtype: str = "bfloat16",
+    bf16: bool = False,
     r1: int = 5,
     r2: int = 55,
     device: DeviceLike = None,
@@ -137,7 +140,8 @@ def measure_stage2_step(
     """Stage-2 (retrieval) fused train-step time and MFU: on-device window
     subsampling, cached-table tokenization, forward / backward with dropout
     0.1 (kernels 4 and 5 for the attention), AdamW. Defaults: the Amazon
-    flagship (bf16)."""
+    flagship (bf16). `bf16`: the amp route (with dtype="float32", the
+    products of `dense` and the heads in bf16 with f32 sums)."""
     from rqvae_tpu_torch.models.retrieval import EncoderDecoderRetrievalModel, RetrievalConfig
     from rqvae_tpu_torch.train.decoder_steps import make_decoder_graph_train_step
     from rqvae_tpu_torch.train.state import adamw
@@ -159,7 +163,7 @@ def measure_stage2_step(
     cached = torch.as_tensor(np.concatenate([ids, np.zeros((n_corpus, 1), np.int64)], 1), dtype=torch.int32,
                              device=dev)
     step = make_decoder_graph_train_step(model, adamw(model.parameters(), 1e-3, weight_decay=0.01), max_seq_len,
-                                         n_steps=r2, batch_size=batch)
+                                         n_steps=r2, batch_size=batch, amp=bf16)
     step.bind(seq_items, seq_lengths, user_ids, cached)
     draws = [step.draws(7, i, n_rows) for i in range(r2)]
     run = _runner(step.chunks, draws, next(model.parameters()), ("total_loss", "seq_length_p50"))

@@ -31,6 +31,7 @@ import torch
 
 from rqvae_tpu_torch.models.quantize import QuantizeForwardMode
 from rqvae_tpu_torch.models.rqvae import RqVae
+from rqvae_tpu_torch.ops import amp as amp_lib
 from rqvae_tpu_torch.ops.gumbel import gumbel_from_uniform
 from rqvae_tpu_torch.train.state import AdamW
 from rqvae_tpu_torch.train.step_graph import Draws, StepChunks, step_generator, step_rows
@@ -40,11 +41,13 @@ def _uses_noise(model: RqVae) -> bool:
     return model.config.codebook_mode == QuantizeForwardMode.GUMBEL_SOFTMAX
 
 
-def _make_body(model: RqVae, optimizer: AdamW):
+def _make_body(model: RqVae, optimizer: AdamW, amp: bool = False):
     """body(x [A, B, D], uniforms [A, L, B, K] or None, t (float32 device
     scalar)) -> metrics: one update, reading nothing back (the body a step
-    graph captures)."""
+    graph captures). With `amp`, the MLP products take bf16 operands with
+    f32 sums on the card (ops/amp.py)."""
 
+    @amp_lib.bf16_products(amp)
     def body(x: torch.Tensor, uniforms: Optional[torch.Tensor], t: torch.Tensor):
         model.train()
         optimizer.zero_grad()
@@ -134,14 +137,16 @@ class RqvaeGraphTrainStep:
     `gumbel_t`. The features are bound at the first call. On the card each
     step is one replay of a CUDA graph (n_steps > 1), on the CPU the same
     body eagerly; either way a chunk takes, bit for bit, the steps that
-    make_rqvae_index_train_step takes from the same draws and temperature."""
+    make_rqvae_index_train_step takes from the same draws and temperature.
+    `amp`: the trainer's knob (ops/amp.py), inside the graph too."""
 
     def __init__(self, model: RqVae, optimizer: AdamW, n_steps: int, accum: int, batch_size: int,
-                 gumbel_t: float = 0.2, t_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None):
+                 gumbel_t: float = 0.2, t_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+                 amp: bool = False):
         self.model, self.accum, self.batch_size = model, accum, batch_size
         self.features: Optional[torch.Tensor] = None
         cfg = model.config
-        body = _make_body(model, optimizer)
+        body = _make_body(model, optimizer, amp)
         dev = next(model.parameters()).device
 
         def step_body(idx, step, uniforms=None):
@@ -165,10 +170,10 @@ class RqvaeGraphTrainStep:
 
 
 def make_rqvae_graph_train_step(model: RqVae, optimizer: AdamW, n_steps: int, accum: int, batch_size: int,
-                                gumbel_t: float = 0.2, t_fn=None) -> RqvaeGraphTrainStep:
+                                gumbel_t: float = 0.2, t_fn=None, amp: bool = False) -> RqvaeGraphTrainStep:
     """Chunks of up to `n_steps` stage-1 steps, each one replay of a CUDA
     graph of the step on the card (see RqvaeGraphTrainStep)."""
-    return RqvaeGraphTrainStep(model, optimizer, n_steps, accum, batch_size, gumbel_t, t_fn)
+    return RqvaeGraphTrainStep(model, optimizer, n_steps, accum, batch_size, gumbel_t, t_fn, amp)
 
 
 def make_rqvae_eval_step(model: RqVae):

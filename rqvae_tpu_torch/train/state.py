@@ -9,6 +9,16 @@ The decay is decoupled, scaled by the LR and applied to every parameter (optax's
 `adamw` has no mask here); eps sits outside the square root; the LR of update i
 (0-based) is `learning_rate(i)` when a schedule is given. Moments are float32.
 
+`optax_state` / `load_optax_state` map the optimizer to and from the JAX
+package's `opt_state` (`rqvae_tpu/train/state.py::adamw`, optax 0.2.6) as
+flax writes it into a checkpoint: `{'0': ScaleByAdamState(count, mu, nu),
+'1': {} (the weight decay's EmptyState), '2': {} or {'count'} (a constant LR
+or a schedule's ScaleByScheduleState)}`, inside `{'0': {} (clip's
+EmptyState), '1': ...}` when `max_grad_norm` is set. `mu` and `nu` mirror
+the flax params tree `{'params': ...}`, mapped by parameter name with the
+transposes of utils/convert.py, and each `count` is an int32 scalar: both
+are `step_count`, so the LR position carries over exactly.
+
 The update count lives on the device, as optax's count does, and the LR,
 1 - b1^t and sqrt(1 - b2^t) are float32 device scalars computed from it
 (`torch.optim.AdamW(capturable=True)` does the same): a step reads nothing
@@ -19,8 +29,9 @@ place too, so a captured graph still holds them after a resume.
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, List, Optional, Union
+from typing import Callable, Dict, Iterable, List, Mapping, Optional, Union
 
+import numpy as np
 import torch
 
 
@@ -105,3 +116,69 @@ def adamw(params, learning_rate, weight_decay: float = 0.01, b1: float = 0.9, b2
     is a float or a schedule of ops/schedules.py (a function of the update
     count that also takes the count as a device tensor)."""
     return AdamW(params, learning_rate, weight_decay, b1, b2, eps, max_grad_norm)
+
+
+def _moment_names(optimizer: AdamW, model: torch.nn.Module) -> List[str]:
+    """The model's name of each of the optimizer's parameters, in its order."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    missing = [i for i, p in enumerate(optimizer.params) if id(p) not in names]
+    if missing:
+        raise ValueError(f"optimizer parameters {missing} are not parameters of the model")
+    return [names[id(p)] for p in optimizer.params]
+
+
+def optax_state(optimizer: AdamW, model: torch.nn.Module) -> Dict:
+    """The optimizer's state as the flax state dict of the JAX package's
+    optax `opt_state` for the same settings (a constant LR or a schedule,
+    clipping or none), numpy leaves: what `rqvae_tpu.utils.checkpoint.
+    save_checkpoint` writes for that state and `load_checkpoint` restores
+    into its template."""
+    from rqvae_tpu_torch.utils.convert import jax_params_from_state_dict
+
+    names = _moment_names(optimizer, model)
+    count = np.asarray(optimizer.count, dtype=np.int32)
+    adam = {"count": count}
+    for key, moments in (("mu", optimizer.mu), ("nu", optimizer.nu)):
+        adam[key] = jax_params_from_state_dict(model, dict(zip(names, moments)))
+    inner = {"0": adam, "1": {}, "2": {"count": count.copy()} if callable(optimizer.learning_rate) else {}}
+    return {"0": {}, "1": inner} if optimizer.max_grad_norm is not None else inner
+
+
+def _expect(node, keys: set, where: str) -> None:
+    if not isinstance(node, Mapping) or set(node) != keys:
+        got = sorted(node) if isinstance(node, Mapping) else type(node).__name__
+        raise ValueError(f"opt_state{where}: expected keys {sorted(keys)} for this optimizer's settings "
+                         f"(schedule, max_grad_norm), got {got}")
+
+
+def load_optax_state(optimizer: AdamW, model: torch.nn.Module, tree: Mapping) -> None:
+    """Write a JAX `opt_state` (the tree `optax_state` describes, as a
+    checkpoint holds it) into the optimizer in place. A tree that does not
+    fit the optimizer's settings, or whose two counts differ, raises, as the
+    JAX package's restore into its template would."""
+    from rqvae_tpu_torch.utils.convert import grads_from_jax
+
+    inner, where = tree, ""
+    if optimizer.max_grad_norm is not None:
+        _expect(tree, {"0", "1"}, "")
+        _expect(tree["0"], set(), "['0']")
+        inner, where = tree["1"], "['1']"
+    _expect(inner, {"0", "1", "2"}, where)
+    _expect(inner["1"], set(), f"{where}['1']")
+    schedule = callable(optimizer.learning_rate)
+    _expect(inner["2"], {"count"} if schedule else set(), f"{where}['2']")
+    adam = inner["0"]
+    _expect(adam, {"count", "mu", "nu"}, f"{where}['0']")
+    counts = {int(np.asarray(adam["count"]))}
+    if schedule:
+        counts.add(int(np.asarray(inner["2"]["count"])))
+    if len(counts) != 1:
+        raise ValueError(f"opt_state: the Adam count and the schedule's count differ: {sorted(counts)}")
+    names = _moment_names(optimizer, model)
+    moments = {}
+    for key in ("mu", "nu"):
+        by_name = grads_from_jax(adam[key])
+        if set(by_name) != set(names):
+            raise ValueError(f"opt_state {key}: parameters {sorted(set(by_name) ^ set(names))} do not match")
+        moments[key] = [by_name[n] for n in names]
+    optimizer.load_state_dict({"count": counts.pop(), **moments})

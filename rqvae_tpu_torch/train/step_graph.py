@@ -26,17 +26,22 @@ Capture follows the serving engine's rules (serving/engine.py): one eager run
 of the body on a side stream first (it builds and loads the kernels, sets
 their attributes, sets up cuBLAS and allocates the gradients and sums), its
 update undone in place; one graph pool; captured state is only ever updated
-in place. A capture or replay that fails raises: there is no quiet eager
-fallback.
+in place. Unreachable objects are collected first: a graph left in a dead
+reference cycle (a step runner closes over itself) that Python's collector
+destroyed during the capture would invalidate it. A capture or replay that
+fails raises: there is no quiet eager fallback.
 """
 
 from __future__ import annotations
 
+import gc
 import math
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from rqvae_tpu_torch.utils.device import end_failed_capture
 
 Draws = Dict[str, object]  # name -> host array of one step (numpy or torch)
 
@@ -60,6 +65,14 @@ def steps_per_loop(requested: Optional[int], cadences: Sequence[int]) -> int:
 def step_generator(seed: int, step: int) -> torch.Generator:
     """The CPU generator of one training step: a function of (seed, step)."""
     return torch.Generator().manual_seed((int(seed) * 1_000_003 + int(step)) % (2**63))
+
+
+def stream_generator(seed: int, stream: int, step: int = 0) -> torch.Generator:
+    """A CPU generator for draws other than a step's (k-means init, restarts,
+    sampled-candidate evaluation): a function of (seed, stream, step), apart
+    from every step's generator."""
+    state = np.random.SeedSequence([int(seed) % 2**32, stream, int(step) % 2**32]).generate_state(2, np.uint32)
+    return torch.Generator().manual_seed((int(state[0]) << 31) ^ int(state[1]))
 
 
 def step_rows(seed: int, step: int, n_rows: int, count: int) -> np.ndarray:
@@ -122,6 +135,7 @@ class StepChunks:
         if not self.use_graph or self.graph is not None:
             return
         dev = self.device
+        gc.collect()  # no graph of a dead cycle may be destroyed while this one captures
         state = self.state()
         with torch.no_grad():
             saved = [t.detach().clone() for t in state]
@@ -139,6 +153,7 @@ class StepChunks:
                 self._one_step()
             graph.instantiate()
         except Exception as e:
+            end_failed_capture(dev)
             raise RuntimeError(f"CUDA graph capture of the training step failed: {e}") from e
         self.graph = graph
 

@@ -11,10 +11,29 @@ unless `device="cpu"`.
 The frozen RQ-VAE comes from a checkpoint of either format (utils/checkpoint.py:
 this package's `.pt`, or the `.msgpack` file that every shipped
 `configs/decoder_*.gin` names, as the JAX stage-1 trainer writes it) or, with
-no path, from `seed` (untrained). A run resumes from this package's `.pt`
-files only (a JAX file's optimizer state is in optax's layout). Every
+no path, from `seed` (untrained). A run resumes from a checkpoint of either
+format too: this package's `.pt`, or the JAX trainer's `.msgpack` with its
+optax opt_state (`auto_resume` takes the newest of either suffix). Every
 step's randomness (rows, windows, dropout seeds) is a function of (`seed`,
 step), so a resumed run takes the steps an unbroken run takes.
+
+With `sample_candidates`, the full evaluation's beam search samples each
+level's candidates with Gumbel noise drawn for eval batch `bi` from a CPU
+generator of (`seed`, 999 + bi), the counterpart of the JAX trainer's
+`fold_in(root_key, 999 + bi)` (the bits differ: JAX draws with threefry).
+
+`amp=True` is the JAX trainer's bf16 matmul precision: on the card, at
+`t5_dtype="float32"`, each step's `dense` products and output heads take
+bf16 operands with float32 sums (ops/amp.py), in the step graph too; the
+attention kernels keep their float32 route, and the evaluations stay
+float32. On the CPU it changes nothing, as the JAX flag changes nothing
+there. (At `t5_dtype="bfloat16"` the heads take the bf16 route and the
+rest is as without it.)
+
+`push_vae_to_hf=True` writes the frozen RQ-VAE to `save_dir_root/rqvae_export`
+(utils/hub.py::save_pretrained, the JAX package's layout) and then tries the
+push, which the port does not have: it prints that the push failed and that
+the local export is kept, as the JAX trainer does offline.
 
 Training runs in chunks of `steps_per_loop` steps, by the JAX trainer's rule
 (train/step_graph.py::steps_per_loop: by default gcd of every cadence and
@@ -26,8 +45,8 @@ time; so is debug mode (`RQVAE_TPU_DEBUG=1`, utils/debug.py). Evaluations,
 checkpoints and resumes fall on chunk ends.
 
 Knobs with no meaning here are accepted so that the shipped config files bind:
-`split_batches`, `amp`, `mixed_precision_type` (compute dtype is `t5_dtype`),
-`push_vae_to_hf`, `vae_hf_model_name` and `wandb_logging` without wandb.
+`split_batches`, `mixed_precision_type` (compute dtype is `t5_dtype`) and
+`wandb_logging` without wandb.
 
 CLI:  python -m rqvae_tpu_torch.train.train_decoder configs/decoder_synthetic.gin [param=value ...]
       (a trailing `pretrained_rqvae_path=None` trains over an RQ-VAE made from the seed)
@@ -47,6 +66,7 @@ from rqvae_tpu_torch.data.registry import RecDataset, ensure_dataset
 from rqvae_tpu_torch.models.quantize import QuantizeForwardMode
 from rqvae_tpu_torch.models.retrieval import EncoderDecoderRetrievalModel, RetrievalConfig
 from rqvae_tpu_torch.models.rqvae import RqVae, RqVaeConfig
+from rqvae_tpu_torch.ops.gumbel import sample_gumbel
 from rqvae_tpu_torch.ops.metrics import TopKAccumulator
 from rqvae_tpu_torch.ops.schedules import inverse_sqrt_schedule
 from rqvae_tpu_torch.serving.beam import build_prefix_table
@@ -59,7 +79,10 @@ from rqvae_tpu_torch.train.decoder_steps import (
 from rqvae_tpu_torch.train.state import adamw
 from rqvae_tpu_torch.train.step_graph import step_generator, step_rows  # noqa: F401 (the trainers' step draws)
 from rqvae_tpu_torch.train.step_graph import steps_per_loop as chunk_steps
+from rqvae_tpu_torch.train.step_graph import stream_generator
 from rqvae_tpu_torch.utils import checkpoint as ckpt_lib
+from rqvae_tpu_torch.utils import hub
+from rqvae_tpu_torch.utils.convert import jax_params_from_state_dict
 from rqvae_tpu_torch.utils.debug import assert_finite, maybe_init_debug
 from rqvae_tpu_torch.utils.device import DeviceLike, resolve_device
 from rqvae_tpu_torch.utils.logging import MetricLogger
@@ -78,6 +101,17 @@ def load_rqvae(path: Optional[str], fallback: RqVaeConfig, device, seed: int) ->
     rq.load_state_dict(ckpt_lib.params_state_dict(restored))
     print(f"---Loaded RQVAE iter {restored['step']}---")
     return rq
+
+
+def eval_noise(model: EncoderDecoderRetrievalModel, batch, seed: int, bi: int) -> Optional[List[torch.Tensor]]:
+    """The Gumbel noise of full-evaluation batch `bi` with sampled candidates
+    (None without): every level's, drawn from the CPU generator of (seed,
+    999 + bi) and moved to the model's device."""
+    if not model.config.sample_candidates:
+        return None
+    g = stream_generator(seed, 999 + bi)
+    shapes = model.sampling_noise_shapes(batch.sem_ids.shape[0])
+    return [sample_gumbel(shape, g, device=model.device) for shape in shapes]
 
 
 def train(
@@ -161,6 +195,14 @@ def train(
     vae_cfg = rq_model.config
     tokenizer = SemanticIdTokenizer(rq_model, device=dev)
     cached_ids = tokenizer.precompute_corpus_ids(item_dataset.features)
+    if push_vae_to_hf:
+        export_dir = hub.save_pretrained(os.path.join(save_dir_root, "rqvae_export"),
+                                         jax_params_from_state_dict(rq_model), vae_cfg)
+        try:
+            url = hub.push_to_hub(export_dir, vae_hf_model_name or "rqvae-tokenizer")
+            print(f"Pushed tokenizer to {url}")
+        except RuntimeError as e:  # no hub client here: keep the local export
+            print(f"[hub] push failed ({e}); local export kept at {export_dir}")
     prefix_table = build_prefix_table(cached_ids[:, : vae_cfg.n_layers], vae_cfg.codebook_size)
 
     # --- retrieval model ---
@@ -195,11 +237,10 @@ def train(
     )
     start_iter = 0
     if pretrained_decoder_path is not None:
-        ckpt_lib.refuse_jax_resume(pretrained_decoder_path)
         restored = ckpt_lib.load_checkpoint(pretrained_decoder_path)
-        model.load_state_dict(restored["params"])
-        optimizer.load_state_dict(restored["opt_state"])
-        start_iter = restored["step"] + 1
+        if not isinstance(restored["config"], RetrievalConfig):
+            raise ValueError(f"{pretrained_decoder_path} is not a retrieval-model checkpoint")
+        start_iter = ckpt_lib.restore_training_state(restored, model, optimizer)
 
     # device-resident sequence store: per-step host work is sampling row
     # indices; window subsampling and tokenization run on the device
@@ -221,6 +262,7 @@ def train(
         leave_two_out=(train_dataset.format == "leave_two_out"),
         subsample=train_data_subsample,
         accum=gradient_accumulate_every,
+        amp=amp,
     )
     eval_step = make_decoder_eval_step(model)
     generate = make_generate_fn(model)
@@ -271,7 +313,7 @@ def train(
                 if full_eval_max_batches is not None and bi >= full_eval_max_batches:
                     break
                 tok = tokenizer(eb)
-                gen = generate(tok, prefix_table)
+                gen = generate(tok, prefix_table, eval_noise(model, tok, seed, bi))
                 actual = tok.sem_ids_fut[:valid, : vae_cfg.n_layers]
                 accumulator.accumulate(actual=actual.cpu(), top_k=gen.sem_ids[:valid].cpu())
             eval_metrics = accumulator.reduce()

@@ -29,10 +29,17 @@ evaluations, checkpoints and resumes fall on chunk ends; k-means init,
 restarts and resumes write the parameters in place. `steps_per_loop=1` is
 the eager route; so is debug mode (`RQVAE_TPU_DEBUG=1`, utils/debug.py).
 
+`amp=True` is the JAX trainer's bf16 matmul precision: on the card each
+step's MLP products take bf16 operands with float32 sums (ops/amp.py), in the
+step graph too; the quantizer, k-means and the evaluations stay float32. On
+the CPU it changes nothing, as the JAX flag changes nothing there.
+
+A run resumes from a checkpoint of either format (utils/checkpoint.py): this
+package's `.pt`, or the JAX stage-1 trainer's `.msgpack` with its optax
+opt_state (or without one, as the JAX trainer resumes too).
+
 Knobs with no meaning here are accepted so that the shipped config files bind:
 `split_batches`, `mixed_precision_type` and `wandb_logging` without wandb.
-`amp=True` raises: no shipped config sets it, and its bf16 training path is
-not ported.
 
 CLI:  python -m rqvae_tpu_torch.train.train_rqvae configs/rqvae_synthetic.gin [param=value ...]
 """
@@ -45,7 +52,6 @@ import time
 from functools import partial
 from typing import List, Optional
 
-import numpy as np
 import torch
 
 from rqvae_tpu_torch.data.datasets import ItemDataset
@@ -58,19 +64,13 @@ from rqvae_tpu_torch.tokenizer.semids import SemanticIdTokenizer
 from rqvae_tpu_torch.train.rqvae_steps import make_rqvae_eval_step, make_rqvae_graph_train_step
 from rqvae_tpu_torch.train.state import adamw
 from rqvae_tpu_torch.train.step_graph import steps_per_loop as chunk_steps
+from rqvae_tpu_torch.train.step_graph import stream_generator
 from rqvae_tpu_torch.utils import checkpoint as ckpt_lib
 from rqvae_tpu_torch.utils.debug import assert_finite, maybe_init_debug
 from rqvae_tpu_torch.utils.device import DeviceLike, resolve_device
 from rqvae_tpu_torch.utils.logging import MetricLogger
 
 KMEANS_STREAM, RESTART_STREAM = 2, 777  # the reference's fold_in constants for these draws
-
-
-def stream_generator(seed: int, stream: int, step: int = 0) -> torch.Generator:
-    """A CPU generator for draws other than a step's (k-means init, restarts):
-    a function of (seed, stream, step), apart from every step's generator."""
-    state = np.random.SeedSequence([int(seed) % 2**32, stream, int(step) % 2**32]).generate_state(2, np.uint32)
-    return torch.Generator().manual_seed((int(state[0]) << 31) ^ int(state[1]))
 
 
 def sync(dev: torch.device) -> None:
@@ -122,8 +122,6 @@ def train(
     device: DeviceLike = None,  # None: the card
 ) -> dict:
     """Returns a summary dict with the last metrics and the checkpoint path."""
-    if amp:
-        raise NotImplementedError("amp=True (bf16 matmuls in stage-1 training) is not ported; train in float32")
     debug = maybe_init_debug()
     dev = resolve_device(device)
     if auto_resume and pretrained_rqvae_path is None:
@@ -148,12 +146,10 @@ def train(
     start_iter = 0
     sample = torch.as_tensor(train_items.head(kmeans_init_samples), device=dev)  # k-means init and restarts
     if pretrained_rqvae_path is not None:
-        ckpt_lib.refuse_jax_resume(pretrained_rqvae_path)
         restored = ckpt_lib.load_checkpoint(pretrained_rqvae_path)
-        model.load_state_dict(restored["params"])
-        if "opt_state" in restored:
-            optimizer.load_state_dict(restored["opt_state"])
-        start_iter = restored["step"] + 1
+        if not isinstance(restored["config"], RqVaeConfig):
+            raise ValueError(f"{pretrained_rqvae_path} is not an RQ-VAE checkpoint")
+        start_iter = ckpt_lib.restore_training_state(restored, model, optimizer, need_opt_state=False)
         print(f"---Loaded RQVAE iter {restored['step']}---")
     elif use_kmeans_init:
         sync(dev)
@@ -185,7 +181,7 @@ def train(
         t_fn = partial(gumbel_temperature_at, t0=gumbel_temperature, min_t=gumbel_min_t,
                        anneal_rate=gumbel_anneal_rate, step_size=gumbel_anneal_step_size)
     train_step = make_rqvae_graph_train_step(model, optimizer, n_steps=spl, accum=gradient_accumulate_every,
-                                             batch_size=batch_size, gumbel_t=gumbel_temperature, t_fn=t_fn)
+                                             batch_size=batch_size, gumbel_t=gumbel_temperature, t_fn=t_fn, amp=amp)
     eval_step = make_rqvae_eval_step(model)
     tokenizer = SemanticIdTokenizer(model, device=dev)
 

@@ -11,11 +11,14 @@ Two formats, told apart by the suffix:
   length, the JSON meta {"config", "step"}, then the flax-msgpack blob of
   {step, params, opt_state?, extra?}, read and written without JAX, flax or
   msgpack (utils/flax_msgpack.py). Its params are the flax tree
-  ({'params': {...}}, numpy leaves, bf16 leaves as torch tensors);
-  `params_state_dict` turns either format's params into the port's
-  `state_dict`. The port writes this format's params, config and step
-  (`save_checkpoint(..., fmt="msgpack")`), not an optimizer state in
-  optax's layout.
+  ({'params': {...}}, numpy leaves, bf16 leaves as torch tensors) and its
+  opt_state optax's (train/state.py::optax_state); `params_state_dict`
+  turns either format's params into the port's `state_dict`.
+
+Both trainers resume from either format (`restore_training_state`), and
+`latest_checkpoint` sees both suffixes. `export_jax_checkpoint` rewrites a
+port `.pt` checkpoint as the JAX file, params and opt_state, for a JAX run
+to continue.
 
 The RQ-VAE checkpoint is the contract between the two training stages: the
 decoder trainer rebuilds the RQ-VAE from the stored config and loads the
@@ -90,14 +93,14 @@ def save_checkpoint(save_dir: str, step: int, params, opt_state: Any = None, con
     fmt="pt": `params` a state_dict (tensors moved to the CPU), `opt_state`
     the optimizer's state_dict. fmt="msgpack": the JAX package's file, which
     its `load_checkpoint` restores; `params` the flax tree
-    (`utils/convert.py::jax_params_from_state_dict`); an `opt_state` is
-    refused (optax's layout is not written)."""
+    (`utils/convert.py::jax_params_from_state_dict`), `opt_state` optax's
+    tree (`train/state.py::optax_state`)."""
     os.makedirs(save_dir, exist_ok=True)
     config_json = _config_to_jsonable(config)
     if fmt == "msgpack":
-        if opt_state is not None:
-            raise ValueError("the JAX format's opt_state is optax's layout, which the port does not write")
         payload = {"step": np.int64(step), "params": params}
+        if opt_state is not None:
+            payload["opt_state"] = opt_state
         if extra:
             payload["extra"] = extra
         blob = flax_msgpack.msgpack_serialize(payload)
@@ -177,10 +180,58 @@ def latest_checkpoint(save_dir: str) -> Optional[str]:
     return best[1]
 
 
-def refuse_jax_resume(path: str) -> None:
-    """A trainer resumes from its own `.pt` files only: a JAX checkpoint's
-    optimizer state is in optax's layout, which the port does not read."""
-    if is_jax_format(path):
-        raise NotImplementedError(
-            f"{path}: resuming from a JAX-format checkpoint needs its optax opt_state, which the port does not "
-            "read; resume from a .pt checkpoint of this package")
+def restore_training_state(restored: Dict[str, Any], model: torch.nn.Module, optimizer,
+                           need_opt_state: bool = True) -> int:
+    """Load a checkpoint of either format (`load_checkpoint`'s dict) into a
+    trainer's model and AdamW, in place; returns the step to start from.
+    A `.msgpack` file's opt_state is optax's tree (train/state.py::
+    load_optax_state), which must fit the optimizer's settings. Without an
+    opt_state the moments stay as they are, if `need_opt_state` is False
+    (the JAX stage-1 trainer resumes so), else it raises."""
+    from rqvae_tpu_torch.train.state import load_optax_state
+
+    model.load_state_dict(params_state_dict(restored))
+    opt_state = restored.get("opt_state")
+    if opt_state is None:
+        if need_opt_state:
+            raise ValueError("the checkpoint holds no opt_state to resume the optimizer from")
+    elif "mu" in opt_state:  # the port's AdamW.state_dict
+        optimizer.load_state_dict(opt_state)
+    else:
+        load_optax_state(optimizer, model, opt_state)
+    return restored["step"] + 1
+
+
+def export_jax_checkpoint(src: str, dst_dir: str, max_grad_norm: Optional[float] = None) -> str:
+    """Rewrite a port `.pt` checkpoint as the JAX package's file
+    (checkpoint_{step}.msgpack under dst_dir): the flax params tree and, if
+    the file has an optimizer state, optax's opt_state in the layout of the
+    JAX trainer of its stage: a constant LR for an RQ-VAE (stage 1), the
+    schedule for a retrieval model (stage 2), clipping if `max_grad_norm` is
+    given, as the JAX trainer it continues in is configured. Returns the
+    path. The counterpart of rqvae_tpu/utils/torch_export.py's
+    export_checkpoint, the other way round."""
+    from rqvae_tpu_torch.models.retrieval import EncoderDecoderRetrievalModel, RetrievalConfig
+    from rqvae_tpu_torch.models.rqvae import RqVae, RqVaeConfig
+    from rqvae_tpu_torch.train.state import AdamW, optax_state
+    from rqvae_tpu_torch.utils.convert import jax_params_from_state_dict
+
+    if is_jax_format(src):
+        raise ValueError(f"{src} is a JAX-format checkpoint already")
+    restored = load_checkpoint(src)
+    cfg = restored["config"]
+    if isinstance(cfg, RqVaeConfig):
+        model, schedule = RqVae(cfg, device="cpu"), False
+    elif isinstance(cfg, RetrievalConfig):
+        model, schedule = EncoderDecoderRetrievalModel(cfg, device="cpu"), True
+    else:
+        raise ValueError(f"{src} holds neither an RQ-VAE nor a retrieval model config")
+    model.load_state_dict(restored["params"])
+    opt_state = None
+    if restored.get("opt_state") is not None:
+        # only the layout is read from the LR: a schedule or a constant
+        opt = AdamW(model.parameters(), (lambda count: 0.0) if schedule else 0.0, max_grad_norm=max_grad_norm)
+        opt.load_state_dict(restored["opt_state"])
+        opt_state = optax_state(opt, model)
+    return save_checkpoint(dst_dir, restored["step"], jax_params_from_state_dict(model), opt_state, cfg,
+                           fmt="msgpack")

@@ -20,7 +20,7 @@ seed gives the same weights on every device.
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -55,16 +55,18 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     return state
 
 
-def jax_params_from_state_dict(model: torch.nn.Module) -> Dict[str, Dict]:
+def jax_params_from_state_dict(model: torch.nn.Module,
+                               state: Optional[Mapping[str, torch.Tensor]] = None) -> Dict[str, Dict]:
     """The inverse of `state_dict_from_jax`: the flax params tree
     {'params': {...}} of `model`, numpy leaves. An nn.Linear `weight` [out,
     in] goes back to a Dense `kernel` [in, out]; every other parameter (an
     RMSNorm's `weight` included) keeps its name and layout. The module's
-    type decides, not the name."""
+    type decides, not the name. `state` (default: the model's state_dict)
+    may be any tensors under the model's names, optimizer moments too."""
     linear = {f"{name}.weight" if name else "weight"
               for name, m in model.named_modules() if isinstance(m, torch.nn.Linear)}
     tree: Dict = {}
-    for key, t in model.state_dict().items():
+    for key, t in (model.state_dict() if state is None else state).items():
         parts = key.split(".")
         path, leaf = [], parts[-1]
         i = 0

@@ -273,9 +273,11 @@ def _pack(out: bytearray, x) -> None:
 
 
 def _chunk_tree(d):
-    """Arrays above MAX_CHUNK_SIZE bytes split as flax splits them."""
+    """The tree as flax packs it: every dict's keys sorted (flax's tree_map
+    copy sorts them), then arrays above MAX_CHUNK_SIZE bytes split as flax
+    splits them, into marker dicts in flax's insertion order."""
     if isinstance(d, dict):
-        return {k: _chunk_tree(v) for k, v in d.items()}
+        return {k: _chunk_tree(d[k]) for k in sorted(d)}
     if isinstance(d, (np.ndarray, torch.Tensor)):
         nbytes = d.numel() * d.element_size() if isinstance(d, torch.Tensor) else d.nbytes
         itemsize = d.element_size() if isinstance(d, torch.Tensor) else d.dtype.itemsize
@@ -290,8 +292,10 @@ def _chunk_tree(d):
 
 def msgpack_serialize(tree) -> bytes:
     """The bytes `flax.serialization.msgpack_serialize` writes for `tree`
-    (nested dicts with array, scalar, str and None leaves), which
-    `flax.serialization.msgpack_restore` and `from_bytes` read."""
+    (nested dicts with array, scalar, str and None leaves; empty dicts, such
+    as optax's EmptyState, stay empty maps), which
+    `flax.serialization.msgpack_restore` and `from_bytes` read. Keys are
+    written in sorted order, as flax's copy of the tree sorts them."""
     out = bytearray()
     _pack(out, _chunk_tree(tree))
     return bytes(out)

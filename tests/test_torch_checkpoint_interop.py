@@ -152,6 +152,21 @@ def test_port_writer_matches_flax_bytes():
     assert flax_msgpack.msgpack_serialize(tree) == fser.msgpack_serialize(tree)
 
 
+def test_port_writer_matches_flax_bytes_for_chunked_leaves(monkeypatch):
+    # the chunk marker dicts keep flax's insertion order ('10' after '9'), the tree's keys are sorted
+    r = np.random.RandomState(1)
+    tree = {"params": {"w": r.randn(200).astype(np.float32), "b": np.arange(3, dtype=np.int32),
+                       "h": jnp.asarray(r.randn(50), jnp.bfloat16)}, "step": np.int64(7)}
+    monkeypatch.setattr(fser, "MAX_CHUNK_SIZE", 64)
+    monkeypatch.setattr(flax_msgpack, "MAX_CHUNK_SIZE", 64)
+    host = jax.device_get(tree)
+    want = fser.msgpack_serialize(host)
+    assert flax_msgpack.msgpack_serialize(host) == want
+    ported = {"params": {k: torch.from_numpy(np.asarray(v, np.float32)).to(torch.bfloat16) if k == "h"
+                         else torch.from_numpy(v) for k, v in host["params"].items()}, "step": host["step"]}
+    assert flax_msgpack.msgpack_serialize(ported) == want  # torch leaves, bf16 too
+
+
 @pytest.mark.parametrize("which", ["rqvae", "decoder"])
 def test_jax_package_restores_the_ports_files(tmp_path, which):
     """An nn.Linear weight goes back to a transposed kernel, an RMSNorm
@@ -171,8 +186,21 @@ def test_jax_package_restores_the_ports_files(tmp_path, which):
     assert set(sd) == set(model.state_dict())
     for k, v in model.state_dict().items():
         assert torch.equal(sd[k], v), k
-    with pytest.raises(ValueError, match="optax"):
-        tckpt.save_checkpoint(str(tmp_path), 12, tree, opt_state={"count": 1}, fmt="msgpack")
+    # with the port optimizer's state in optax's layout, which the JAX template restores
+    from rqvae_tpu.train.state import adamw as jadamw
+    from rqvae_tpu_torch.train.state import adamw, optax_state
+
+    opt = adamw(model.parameters(), 1e-3)
+    for m in opt.mu + opt.nu:
+        m.normal_()
+    opt.step_count.fill_(4)
+    path = tckpt.save_checkpoint(str(tmp_path), 12, tree, optax_state(opt, model), model.config, fmt="msgpack")
+    got = jckpt.load_checkpoint(path, params_template=template, opt_state_template=jadamw(1e-3).init(template))
+    adam = got["opt_state"][0]
+    assert int(adam.count) == 4 and adam.count.dtype == jnp.int32
+    mu = state_dict_from_jax(jax.device_get(adam.mu))
+    for name, m in zip((n for n, _ in model.named_parameters()), opt.mu):
+        assert torch.equal(mu[name], m), name
 
 
 def test_latest_checkpoint_sees_both_suffixes(tmp_path):

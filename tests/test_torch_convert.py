@@ -122,8 +122,10 @@ def test_port_never_imports_jax():
             "utils/checkpoint.py", "ops/schedules.py", "ops/metrics.py", "ops/embedding.py",
             "train/train_rqvae.py", "train/rqvae_steps.py", "ops/kmeans.py", "ops/losses.py", "ops/gumbel.py"} <= rel
     assert {"utils/flax_msgpack.py", "serving/engine.py", "serving/queue.py"} <= rel
-    # the card machine has no JAX, flax or msgpack: checkpoints are read by utils/flax_msgpack.py
-    banned = {"jax", "flax", "rqvae_tpu", "jaxlib", "optax", "msgpack"}
+    assert {"ops/amp.py", "utils/hub.py", "utils/torch_import.py", "utils/torch_export.py"} <= rel
+    # the card machine has no JAX, flax, msgpack, safetensors or hub client: checkpoints are read by
+    # utils/flax_msgpack.py, .safetensors files by utils/hub.py::read_safetensors
+    banned = {"jax", "flax", "rqvae_tpu", "jaxlib", "optax", "msgpack", "safetensors", "huggingface_hub"}
     for path in files:
         for mod in _imports(path):
             assert mod.split(".")[0] not in banned, f"{path.relative_to(ROOT)} imports {mod}"

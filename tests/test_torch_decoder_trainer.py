@@ -135,7 +135,8 @@ def test_untrained_rqvae_from_seed_and_refusals(tmp_path, rqvae_checkpoint):
     with pytest.raises(FileNotFoundError):
         train(iterations=1, dataset_folder=str(tmp_path / "ds"), save_dir_root=str(tmp_path / "x"),
               pretrained_rqvae_path="out/rqvae/checkpoint_9.msgpack", **SMALL)
-    with pytest.raises(NotImplementedError, match="optax"):
+    # a JAX-format file resumes a run now (tests/test_torch_optax_state.py), but an RQ-VAE's is refused
+    with pytest.raises(ValueError, match="not a retrieval"):
         train(iterations=1, dataset_folder=ds, save_dir_root=str(tmp_path / "x"), pretrained_decoder_path=jax_path,
               **SMALL)
     with pytest.raises(ValueError, match="not an RQ-VAE"):
@@ -189,3 +190,102 @@ def test_synthetic_data_and_dataset_views_equal_the_jax_package(tmp_path):
         assert jv == tv
         np.testing.assert_array_equal(tb.ids, jb.ids)
         np.testing.assert_array_equal(tb.ids_fut, jb.ids_fut)
+
+
+def test_sampled_candidate_evaluation_equals_generate_fed_the_same_noise(tmp_path, rqvae_checkpoint, monkeypatch):
+    """sample_candidates=True: the full evaluation finishes, and its beams
+    and metrics equal those of `generate` fed each eval batch's noise from
+    the generator of (seed, 999 + bi), the counterpart of the JAX trainer's
+    fold_in(root_key, 999 + bi) (whose threefry bits the port cannot draw)."""
+    from rqvae_tpu_torch.data.datasets import SeqDataset
+    from rqvae_tpu_torch.models.retrieval import EncoderDecoderRetrievalModel
+    from rqvae_tpu_torch.ops.gumbel import sample_gumbel
+    from rqvae_tpu_torch.ops.metrics import TopKAccumulator
+    from rqvae_tpu_torch.serving.beam import build_prefix_table
+    from rqvae_tpu_torch.tokenizer.semids import SemanticIdTokenizer
+    from rqvae_tpu_torch.train.decoder_steps import make_generate_fn
+    from rqvae_tpu_torch.train.step_graph import stream_generator
+
+    ds, rq_path = rqvae_checkpoint
+    beams = []
+
+    def recording_generate_fn(model):  # the trainer's beams, recorded as they are
+        generate = make_generate_fn(model)
+
+        def run(batch, table, noise=None):
+            out = generate(batch, table, noise)
+            beams.append(out.sem_ids.clone())
+            return out
+        return run
+
+    monkeypatch.setattr(train_decoder, "make_generate_fn", recording_generate_fn)
+    s = train(iterations=2, dataset_folder=ds, pretrained_rqvae_path=rq_path, save_dir_root=str(tmp_path / "dec"),
+              sample_candidates=True, full_eval_every=2, full_eval_max_batches=2, partial_eval_every=1000,
+              save_model_every=1000, seed=4, **SMALL)
+    assert len(beams) == 2
+    restored = ckpt.load_checkpoint(s["checkpoint_path"])
+    assert restored["config"].sample_candidates
+    model = EncoderDecoderRetrievalModel(restored["config"], device="cpu")
+    model.load_state_dict(restored["params"])
+    rq = train_decoder.load_rqvae(rq_path, None, "cpu", 0)
+    data = ensure_dataset(ds, RecDataset.SYNTHETIC)
+    tokenizer = SemanticIdTokenizer(rq, device="cpu")
+    cached = tokenizer.precompute_corpus_ids(tdata.ItemDataset(data, "all").features)
+    prefix_table = build_prefix_table(cached[:, :3], 16)
+    generate, acc = make_generate_fn(model), TopKAccumulator(ks=[1, 5, 10])
+    for bi, (eb, valid) in enumerate(SeqDataset(data, split="test").iter_eval_batches(16, with_features=False)):
+        if bi >= 2:
+            break
+        tok = tokenizer(eb)
+        g = stream_generator(4, 999 + bi)
+        noise = [sample_gumbel(shape, g) for shape in model.sampling_noise_shapes(tok.sem_ids.shape[0])]
+        gen = generate(tok, prefix_table, noise)
+        assert torch.equal(gen.sem_ids, beams[bi])
+        acc.accumulate(actual=tok.sem_ids_fut[:valid, :3], top_k=gen.sem_ids[:valid])
+    want = acc.reduce()
+    assert {k: s[k] for k in want} == want
+    with pytest.raises(ValueError, match="Gumbel noise"):
+        generate(tok, prefix_table)
+
+
+def _jax_decoder_kwargs(ds):
+    from rqvae_tpu.data.registry import RecDataset as JRecDataset
+
+    return dict(batch_size=8, dataset=JRecDataset.SYNTHETIC, dataset_folder=ds, t5_d_model=32, t5_num_heads=4,
+                t5_d_ff=64, t5_num_layers=1, top_k_for_generation=5, warmup_steps=5, t5_dropout=0.0,
+                max_grad_norm=1.0, partial_eval_every=1000, full_eval_every=1000, full_eval_max_batches=1,
+                save_model_every=1000, steps_per_loop=1, **VAE)
+
+
+def test_runs_resume_across_the_two_packages(tmp_path):
+    """A JAX trainer's checkpoint, optax opt_state and all, resumes the
+    port's trainer; a port checkpoint rewritten by export_jax_checkpoint
+    resumes the JAX trainer. Each resumed run starts at the saved step + 1
+    with the update count and the schedule's LR position carried over."""
+    from rqvae_tpu.train import train_decoder as jtrain
+    from rqvae_tpu.utils import checkpoint as jckpt
+
+    from rqvae_tpu_torch.ops.schedules import inverse_sqrt_schedule
+
+    ds = str(tmp_path / "ds")
+    jkw = _jax_decoder_kwargs(ds)
+    tkw = {**{k: v for k, v in jkw.items() if k not in ("dataset", "steps_per_loop")}, "dataset": RecDataset.SYNTHETIC,
+           "device": "cpu"}
+    lr_at_2 = inverse_sqrt_schedule(1e-3, 5)(2)
+
+    j1 = jtrain.train(iterations=2, save_dir_root=str(tmp_path / "jax"), **jkw)
+    assert j1["checkpoint_path"].endswith("checkpoint_1.msgpack")
+    t2 = train(iterations=1, pretrained_decoder_path=j1["checkpoint_path"], save_dir_root=str(tmp_path / "port"),
+               **tkw)
+    got = ckpt.load_checkpoint(t2["checkpoint_path"])
+    assert t2["checkpoint_path"].endswith("checkpoint_2.pt") and got["opt_state"]["count"] == 3
+    assert t2["learning_rate"] == lr_at_2
+
+    t1 = train(iterations=2, save_dir_root=str(tmp_path / "port_a"), **tkw)
+    exported = ckpt.export_jax_checkpoint(t1["checkpoint_path"], str(tmp_path / "exported"), max_grad_norm=1.0)
+    j2 = jtrain.train(iterations=1, pretrained_decoder_path=exported, save_dir_root=str(tmp_path / "jax_b"), **jkw)
+    assert j2["checkpoint_path"].endswith("checkpoint_2.msgpack")
+    jgot = jckpt.load_checkpoint(j2["checkpoint_path"])
+    adam, sched = jgot["opt_state"]["1"]["0"], jgot["opt_state"]["1"]["2"]
+    assert int(adam["count"]) == int(sched["count"]) == 3
+    assert j2["learning_rate"] == pytest.approx(t2["learning_rate"], rel=1e-6)

@@ -973,6 +973,7 @@ def test_engine_capture_failure_raises(cuda, monkeypatch):
     eng = RetrievalEngine(r, max_items=8, batch_buckets=(4,))
     with pytest.raises(RuntimeError, match="capture"):
         eng.retrieve_many([np.arange(5)])
+    torch.rand(4, device=cuda)  # the failed capture left the device's generator usable
 
 
 # ---- kernels 4 and 5 with the seed in device memory; step graphs ----
@@ -1109,3 +1110,137 @@ def test_step_graph_capture_failure_raises(cuda, monkeypatch):
     x = torch.randn(64, 32, device=cuda)
     with pytest.raises(RuntimeError, match="capture"):
         step(x, [step.draws(0, s, 64) for s in range(2)])
+    torch.rand(4, device=cuda)  # the failed capture left the device's generator usable
+
+
+# ---- amp: bf16 operands with float32 sums (ops/amp.py) ----
+
+AMP_CASES = [((640, 80, 384), (1024, 384), True), ((640, 768), (512, 768), False), ((96, 40), (24, 40), True)]
+
+
+def _rel_err(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("x_shape,w_shape,x_grad", AMP_CASES)
+def test_amp_linear_matches_f32_products_of_bf16_operands(cuda, x_shape, w_shape, x_grad):
+    """amp.linear on the card (torch.mm with out_dtype=float32 on bf16
+    operands, backward written out): forward, dx and dW against float32
+    products of the bf16-rounded operands (TF32 off), within 1e-5 of the
+    tensor's largest entry for the forward and dx (sums of up to 1,024 terms
+    in another order) and 1e-4 for dW (sums over all 51,200 rows); 3 products
+    (2 when x needs no gradient); reduced-precision reduction off inside the
+    flag and restored after."""
+    from rqvae_tpu_torch.ops import amp
+
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(x_shape, generator=g).to(cuda).requires_grad_(x_grad)
+    w = (torch.randn(w_shape, generator=g) * 0.05).to(cuda).requires_grad_(True)
+    gy = torch.randn(*x_shape[:-1], w_shape[0], generator=g).to(cuda)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    before = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    n0 = amp.products
+    with amp.bf16_products(True):
+        assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+        y = amp.linear(x, w)
+        y.backward(gy)
+    assert torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction == before
+    assert amp.products - n0 == (3 if x_grad else 2) and y.dtype == torch.float32
+    xb, wb, gb = (t.detach().to(torch.bfloat16).float() for t in (x, w, gy))
+    assert _rel_err(y, xb @ wb.t()) <= 1e-5
+    assert _rel_err(w.grad, gb.reshape(-1, w_shape[0]).t() @ xb.reshape(-1, w_shape[1])) <= 1e-4
+    if x_grad:
+        assert _rel_err(x.grad, gb @ wb) <= 1e-5
+    else:
+        assert x.grad is None
+    assert _rel_err(y, x.detach() @ w.detach().t()) > 1e-4  # the operands were rounded: not the float32 product
+
+
+def test_amp_batched_heads_match_f32_products_of_bf16_operands(cuda):
+    from rqvae_tpu_torch.ops import amp
+
+    g = torch.Generator().manual_seed(8)
+    a = torch.randn(3, 640, 384, generator=g).to(cuda).requires_grad_(True)
+    b = (torch.randn(3, 384, 256, generator=g) * 0.05).to(cuda).requires_grad_(True)
+    gy = torch.randn(3, 640, 256, generator=g).to(cuda)
+    with amp.bf16_products(True):
+        y = amp.matmul(a, b)
+        y.backward(gy)
+    ab, bb, gb = (t.detach().to(torch.bfloat16).float() for t in (a, b, gy))
+    assert _rel_err(y, ab @ bb) <= 1e-5
+    assert _rel_err(a.grad, gb @ bb.transpose(1, 2)) <= 1e-5
+    assert _rel_err(b.grad, ab.transpose(1, 2) @ gb) <= 1e-4
+
+
+@pytest.mark.parametrize("stage", ["stage1", "stage2"])
+def test_amp_graph_chunk_equals_eager_steps(cuda, stage):
+    """amp=True inside the step graph: 6 steps one by one against 2 chunks of
+    3 replays, bit-equal (more than one step, so a bf16 copy of the weights
+    kept across updates would show), and the steps differ from the float32
+    route's (the products took the bf16 route)."""
+    from rqvae_tpu_torch.ops.schedules import inverse_sqrt_schedule
+    from rqvae_tpu_torch.train.decoder_steps import make_decoder_graph_train_step
+    from rqvae_tpu_torch.train.rqvae_steps import make_rqvae_graph_train_step
+    from rqvae_tpu_torch.train.state import adamw
+
+    store = _small_store(cuda)
+    x = torch.randn(256, 32, generator=torch.Generator().manual_seed(1)).to(cuda)
+
+    def run(n_steps, amp):
+        if stage == "stage2":
+            cfg = RetrievalConfig(num_hierarchies=3, codebook_size=16, t5_d_model=64, t5_d_kv=64, t5_num_heads=2,
+                                  t5_d_ff=128, t5_num_layers=2, t5_dropout=0.1, t5_dtype="float32")
+            model = EncoderDecoderRetrievalModel(cfg, device=cuda, seed=2)
+            opt = adamw(model.parameters(), inverse_sqrt_schedule(1e-3, 2), weight_decay=0.1, max_grad_norm=1.0)
+            step = make_decoder_graph_train_step(model, opt, max_seq_len=6, n_steps=n_steps, batch_size=8, amp=amp)
+            draws = [step.draws(3, s, 48) for s in range(6)]
+            means = [step(*store, draws[i:i + n_steps]) for i in range(0, 6, n_steps)]
+        else:
+            model = RqVae(RqVaeConfig(**SMALL_VAE, codebook_mode=QuantizeForwardMode.STE), device=cuda, seed=4)
+            opt = adamw(model.parameters(), 1e-3, weight_decay=0.01)
+            step = make_rqvae_graph_train_step(model, opt, n_steps=n_steps, accum=1, batch_size=32, amp=amp)
+            draws = [step.draws(5, s, 256) for s in range(6)]
+            means = [step(x, draws[i:i + n_steps]) for i in range(0, 6, n_steps)]
+        return model, opt, means
+
+    me, oe, _ = run(1, True)
+    mg, og, _ = run(3, True)
+    mf, _, _ = run(3, False)
+    for (n, a), b in zip(me.named_parameters(), mg.parameters()):
+        assert torch.equal(a, b), n
+    for a, b in zip(oe.mu + oe.nu, og.mu + og.nu):
+        assert torch.equal(a, b)
+    assert any(not torch.equal(a, b) for a, b in zip(mg.parameters(), mf.parameters()))
+
+
+def test_a_dead_step_graph_does_not_break_a_later_capture(cuda):
+    """A step runner whose graph is left in a dead reference cycle (the
+    runner closes over itself) must not be destroyed during a later capture:
+    with the collector made to run on almost every allocation, a second
+    runner still captures and replays."""
+    import gc
+
+    from rqvae_tpu_torch.train.rqvae_steps import make_rqvae_graph_train_step
+    from rqvae_tpu_torch.train.state import adamw
+
+    x = torch.randn(128, 32, generator=torch.Generator().manual_seed(2)).to(cuda)
+
+    def runner():
+        model = RqVae(RqVaeConfig(**SMALL_VAE, codebook_mode=QuantizeForwardMode.STE), device=cuda, seed=0)
+        step = make_rqvae_graph_train_step(model, adamw(model.parameters(), 1e-3), n_steps=2, accum=1,
+                                           batch_size=16)
+        step.cycle = step  # the dead cycle
+        return step
+
+    first = runner()
+    first(x, [first.draws(0, s, 128) for s in range(2)])
+    assert first.chunks.graph is not None
+    del first
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        second = runner()
+        metrics = second(x, [second.draws(0, s, 128) for s in range(2)])
+    finally:
+        gc.set_threshold(*thresholds)
+    assert second.chunks.replays == 2 and bool(torch.isfinite(metrics["total_loss"]))

@@ -86,8 +86,15 @@ def test_measures_return_the_jax_packages_keys():
     assert s2["enc_len"] == 16 and s2["flops_per_step"] == jflops.retrieval_train_step_flops(
         4, 16, 4, 32, 2, 16, 64, 1, 8, 3)
     assert s2["examples_per_sec"] == pytest.approx(4 / s2["seconds_per_step"])
-    with pytest.raises(NotImplementedError, match="bf16"):
-        perf.measure_stage1_step(bf16=True, device="cpu")
+    # bf16=True is the amp route; on the CPU it is the float32 step (the JAX flag changes nothing there)
+    s1_amp = perf.measure_stage1_step(batch=16, input_dim=24, hidden_dims=(16,), embed_dim=8, codebook_size=8,
+                                      n_items=64, r1=2, r2=6, bf16=True, device="cpu")
+    s2_amp = perf.measure_stage2_step(batch=4, max_seq_len=4, d_model=32, num_heads=2, d_kv=16, d_ff=64,
+                                      num_layers=1, codebook_size=8, n_rows=40, n_corpus=50, dtype="float32",
+                                      bf16=True, r1=1, r2=3, device="cpu")
+    for amp_row, row in ((s1_amp, s1), (s2_amp, s2)):
+        assert amp_row["flops_per_step"] == row["flops_per_step"] and amp_row["peak"] == "h100_sxm_bf16"
+        assert amp_row["seconds_per_step"] > 0 and 0 < amp_row["mfu"]
 
 
 def test_assert_finite_raises_on_a_nan():

@@ -106,8 +106,10 @@ def test_anneal_follows_the_closed_form_and_amp_is_refused(tmp_path, dataset):
     s = train(iterations=7, eval_every=1000, log_every=1, dataset_folder=dataset, save_dir_root=str(tmp_path / "rq"),
               **{**SMALL, "vae_codebook_mode": QuantizeForwardMode.GUMBEL_SOFTMAX}, **kw)
     assert s["gumbel_t"] == pytest.approx(gumbel_temperature_at(6, 1.0, 0.1, 0.05, 2)) and s["gumbel_t"] < 1.0
-    with pytest.raises(NotImplementedError, match="amp"):
-        train(iterations=1, amp=True, dataset_folder=dataset, save_dir_root=str(tmp_path / "x"), **SMALL)
+    # amp=True trains (bf16 products on the card); on the CPU it is the float32 run, as JAX's flag is there
+    runs = [train(iterations=2, amp=amp, eval_every=1000, dataset_folder=dataset,
+                  save_dir_root=str(tmp_path / f"amp{amp}"), **SMALL) for amp in (False, True)]
+    assert runs[0]["total_loss"] == runs[1]["total_loss"]
     g = [torch.rand(3, generator=stream_generator(1, 777, it)) for it in (5, 5, 6)]
     assert torch.equal(g[0], g[1]) and not torch.equal(g[0], g[2])
 
@@ -147,3 +149,37 @@ def test_signature_matches_the_jax_trainer():
     for name, p in jp.items():
         want, got = p.default, tp[name].default
         assert (got.name if hasattr(got, "name") else got) == (want.name if hasattr(want, "name") else want), name
+
+
+def test_runs_resume_across_the_two_packages(tmp_path, dataset):
+    """The JAX stage-1 trainer's checkpoint resumes the port's trainer, with
+    its optax opt_state or, as the JAX trainer also resumes, without one; a
+    port checkpoint rewritten by export_jax_checkpoint resumes the JAX
+    trainer. Each resumed run starts at the saved step + 1 with the update
+    count carried over."""
+    from rqvae_tpu.data.registry import RecDataset as JRecDataset
+    from rqvae_tpu.models.quantize import QuantizeForwardMode as JMode
+    from rqvae_tpu.utils import checkpoint as jckpt
+
+    kw = dict(eval_every=1000, save_model_every=1000, dataset_folder=dataset, steps_per_loop=1)
+    jkw = {**SMALL, **kw, "dataset": JRecDataset.SYNTHETIC, "vae_codebook_mode": JMode.STE}
+    del jkw["device"]
+    j1 = jtrain.train(iterations=2, save_dir_root=str(tmp_path / "jax"), **jkw)
+    assert j1["checkpoint_path"].endswith("checkpoint_1.msgpack")
+    t2 = train(iterations=1, pretrained_rqvae_path=j1["checkpoint_path"], save_dir_root=str(tmp_path / "port"),
+               **SMALL, **kw)
+    got = ckpt.load_checkpoint(t2["checkpoint_path"])
+    assert t2["checkpoint_path"].endswith("checkpoint_2.pt") and got["opt_state"]["count"] == 3
+
+    no_opt = jckpt.load_checkpoint(j1["checkpoint_path"])
+    bare = jckpt.save_checkpoint(str(tmp_path / "bare"), 4, no_opt["params"], None, no_opt["config"])
+    t5 = train(iterations=1, pretrained_rqvae_path=bare, save_dir_root=str(tmp_path / "port_bare"), **SMALL, **kw)
+    got = ckpt.load_checkpoint(t5["checkpoint_path"])
+    assert t5["checkpoint_path"].endswith("checkpoint_5.pt") and got["opt_state"]["count"] == 1
+
+    t1 = train(iterations=2, save_dir_root=str(tmp_path / "port_a"), **SMALL, **kw)
+    exported = ckpt.export_jax_checkpoint(t1["checkpoint_path"], str(tmp_path / "exported"))
+    j2 = jtrain.train(iterations=1, pretrained_rqvae_path=exported, save_dir_root=str(tmp_path / "jax_b"), **jkw)
+    assert j2["checkpoint_path"].endswith("checkpoint_2.msgpack")
+    adam = jckpt.load_checkpoint(j2["checkpoint_path"])["opt_state"]["0"]
+    assert int(adam["count"]) == 3
