@@ -290,6 +290,14 @@ BF16_TOP1_MIN, BF16_OVERLAP_MIN = 0.8, 0.9  # two bf16 routes: first beam equal;
 DEVICE = "cuda"  # the card; a CPU rehearsal of the control flow may set "cpu"
 PTXAS = {}  # each source's ptxas rows, from phase 1
 DEVICE_COPY = "device copy or memset"  # profile_call's one name for them
+RANK_TIMEOUT_S = 240  # a data-parallel phase's processes, together
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))  # the ranks run the trainers' CLI from here
+# two ranks' logged losses against one process's, relative: bf16 kernels (stage 2) or f32
+# (stage 1), the batch split in two and summed in another order. A few times the sound runs'
+# reading on an H100 (3.04e-5 and 2.99e-7, the same in every run); the planted faults of
+# dp_two_ranks_phase and dp_stage1_phase read 5.9e-4 and 8.8e-4 and must stay above
+DP_BF16_RTOL = 1e-4
+DP_F32_RTOL = 3e-6
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
                "bound_ms", "bound_by", "library_ms")
 
@@ -329,6 +337,15 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def abba_ms(name_a: str, fa, name_b: str, fb, reps: int) -> dict:
+    """Two functions' cuda_ms timed in the order a, b, b, a, each the mean
+    of its two: a drift across the four (the first timed paying for a warm
+    up) cancels in their comparison."""
+    ta = cuda_ms(fa, reps, warmup=1)
+    tb = cuda_ms(fb, reps, warmup=1) + cuda_ms(fb, reps, warmup=1)
+    return {name_a: (ta + cuda_ms(fa, reps, warmup=1)) / 2, name_b: tb / 2}
 
 
 def bound_ms(flops: float, peak: float, nbytes: float):
@@ -791,7 +808,10 @@ def device_seed_keep_bits(dev) -> dict:
     attention_keep_mask's bits from the same tensor on unmasked keys; bf16 at
     L = 80 (whole rows) and 800 (tiled), f32 (CUDA cores) at 80. Seeds 77,
     78 and 2^31 + 5 (a negative int32, the reference's uint32 bits): each
-    equal to the plain version's bits, 77 and 78 different from each other."""
+    equal to the plain version's bits, 77 and 78 different from each other.
+    Then seed 77 with b0 = B (the launch's rows are global rows B .. 2B - 1,
+    as a data-parallel rank's): equal to attention_keep_mask's bits at b0 =
+    B, and other bits than at b0 = 0."""
     from rqvae_tpu_torch.ops.cuda import attention as A
     from rqvae_tpu_torch.ops.hash_dropout import attention_keep_mask
 
@@ -821,13 +841,89 @@ def device_seed_keep_bits(dev) -> dict:
                         and bool(torch.equal(bwd, want[:, :, :64, :] & keys)))
             kernel_bits.append(fwd)
         differ = not torch.equal(kernel_bits[0], kernel_bits[1])
+        want = attention_keep_mask(seeds[:1], B, H, L, L, rate, dev, b0=B)
+        with torch.no_grad():
+            out, m, l, _ = A._forward_cuda(q, k, eye, bias, mask, seeds[:1], False, rate, True, b0=B)
+            dv = A._backward_cuda(q, k, eye, bias, mask, seeds[:1], eye, m, l, False, rate, b0=B)[2]
+        fwd_b0 = (out != 0) & keys[..., :64]
+        same_b0 = (bool(torch.equal(fwd_b0, want[..., :64] & keys[..., :64]))
+                   and bool(torch.equal((dv.transpose(-1, -2) != 0) & keys, want[:, :, :64, :] & keys)))
+        differ_b0 = not torch.equal(fwd_b0, kernel_bits[0])
         what = f"device seed keep bits {dtype_name(dt)} L={L} ({A.attention_route(L, L, 64, dt)})"
         check(all(same), f"{what}: kernel bits against the plain version's for seeds 77, 78, 2^31 + 5: {same}")
         check(differ, f"{what}: seeds 77 and 78 keep the same bits")
+        check(same_b0, f"{what}: kernel bits at b0 = {B} against the plain version's")
+        check(differ_b0, f"{what}: b0 = {B} keeps the bits of b0 = 0")
         rows.append({"dtype": dtype_name(dt), "L": L, "route": A.attention_route(L, L, 64, dt),
-                     "equal_to_plain": same, "seeds_77_78_differ": differ,
+                     "equal_to_plain": same, "seeds_77_78_differ": differ, "b0": B,
+                     "b0_equal_to_plain": same_b0, "b0_differs_from_0": differ_b0,
                      "kept_share": float(kernel_bits[0].sum()) / float(keys[..., :64].expand_as(fwd).sum())})
     return {"seeds": [77, 78, 2**31 + 5], "rate": rate, "rows": rows}
+
+
+def attention_b0_phase(dev) -> dict:
+    """Kernels 4 and 5 launched with b0 = B, the first global row of a
+    data-parallel rank that holds B rows, at both attention geometries
+    ([640, 6, 80, 64], whole rows; [64, 6, 800, 64], key tiles; bf16 and f32,
+    dropout 0.1): the output and dq, dk, dv are bit-equal to rows B .. 2B - 1
+    of the same launches over the batch doubled at b0 = 0 (the global batch
+    whose slice the rank holds; dbias sums over the rows, so it is held to
+    the plain version only); they are within the attention tolerances of the
+    plain versions at b0 = B, and other than at b0 = 0. Returns each row with
+    the kernels' times at b0 = 0 and b0 = B (bf16 rows: the training
+    geometries' dtype)."""
+    from rqvae_tpu_torch.ops.cuda import attention as A
+
+    H, dk, rate = 6, 64, 0.1
+    seed = torch.tensor([77], dtype=torch.int32, device=dev)
+    rows = []
+    for name, B, L in (("amazon", TRAIN_AMAZON["batch"], AMAZON["history"] * 4), ("ml32m", BATCH, ML32M["history"] * 4)):
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v, bias, mask, do = attention_bwd_inputs(B, H, L, dk, dt, dev, seed=6)
+            what = f"attention b0 {name} {dtype_name(dt)}"
+
+            def fwd(b0, ops=(q, k, v, mask)):
+                return A._forward_cuda(ops[0], ops[1], ops[2], bias, ops[3], seed, False, rate, True, b0=b0)
+
+            def bwd(b0, f, ops=(q, k, v, mask, do)):
+                qq, kk, vv, mm, dd = ops
+                return A._backward_cuda(qq, kk, vv, bias, mm, seed, dd, f[1], f[2], False, rate, keep_bits=f[3], b0=b0)
+
+            with torch.no_grad():
+                f_b, f_0 = fwd(B), fwd(0)
+                g_b = bwd(B, f_b)
+                doubled = tuple(torch.cat([t, t]) for t in (q, k, v, mask, do))
+                f_2 = fwd(0, doubled[:4])
+                g_2 = bwd(0, f_2, doubled)
+                slice_equal = bool(torch.equal(f_b[0], f_2[0][B:])) and all(
+                    torch.equal(a, b[B:]) for a, b in zip(g_b[:3], g_2[:3]))
+                check(slice_equal, f"{what}: b0 = {B} differs from rows {B}.. of the doubled batch at b0 = 0")
+                check(not torch.equal(f_b[0], f_0[0]), f"{what}: b0 = {B} gives the output of b0 = 0")
+                want = A.t5_attention_plain(q, k, v, bias, mask, seed, dropout_rate=rate, b0=B)
+                err = float((f_b[0].float() - want.float()).abs().max().item())
+                check(err <= ATTENTION_TOL[dt], f"{what}: forward max abs err {err} against the plain version")
+                errs = {}
+                for gname, g, w in zip(("dq", "dk", "dv", "dbias"), g_b,
+                                       A.t5_attention_backward_plain(q, k, v, bias, mask, seed, do,
+                                                                     dropout_rate=rate, b0=B)):
+                    top = float(w.float().abs().max().item())
+                    gerr = float((g.float() - w.float()).abs().max().item())
+                    tol = ATTENTION_BWD_TOL[dt][gname == "dbias"]
+                    check(gerr <= tol * top, f"{what}: {gname} max abs err {gerr} over {tol} x {top}")
+                    errs[gname] = gerr
+                del doubled, f_2, g_2, want
+                times = abba_ms("forward_ms_b0_0", lambda: fwd(0), "forward_ms_b0_B", lambda: fwd(B), reps=5)
+                times.update(abba_ms("backward_ms_b0_0", lambda: bwd(0, f_0), "backward_ms_b0_B",
+                                     lambda: bwd(B, f_b), reps=3))
+            rows.append({"shape": name, "dtype": dtype_name(dt), "B": B, "L": L, "b0": B,
+                         "route": A.attention_route(L, L, dk, dt), "backward_route":
+                         A.attention_route(L, L, dk, dt, backward=True), "slice_of_doubled_bit_equal": slice_equal,
+                         "forward_max_abs_err": err, "backward_max_abs_err": errs, **times})
+            del q, k, v, bias, mask, do, f_b, f_0, g_b
+            torch.cuda.empty_cache()
+    emit({"phase": "attention_b0", "H": H, "dk": dk, "dropout_rate": rate, "rows": rows})
+    return {r["shape"]: {k: r[k] for k in r if k.endswith("_ms_b0_0") or k.endswith("_ms_b0_B")}
+            for r in rows if r["dtype"] == "bfloat16"}
 
 
 def encoder_stack_phase(models: dict, dev) -> dict:
@@ -2667,7 +2763,7 @@ def serve_phase(phase: str, geo: dict, counts, dev, seed: int):
             "reserved_bytes": torch.cuda.memory_reserved() - reserved, "peak_bytes": peak_memory() - before}
     counts.zero()  # the warm-up's captures tick the wrappers but launch nothing
     buckets = []
-    for i, ((bb, ib), g) in enumerate(sorted(eng.graphs.items())):
+    for i, ((bb, ib), (g,)) in enumerate(sorted(eng.graphs.items())):  # one graph a bucket: no mesh
         hist = bucket_histories(geo["items"], bb, ib, seed + i)
         users = np.zeros(bb, np.int32)
         eager = r.retrieve(hist)
@@ -2861,6 +2957,483 @@ def queue_phase(eng, n_items: int) -> None:
                        "deadline_ms": QUEUE["overload_deadline_ms"], "offer_s": offer_s, **outcome,
                        "latency_p50_ms": stats.get("latency_p50_s", float("nan")) * 1e3,
                        "latency_p99_ms": stats.get("latency_p99_s", float("nan")) * 1e3}})
+
+
+# ---- scale-out: data-parallel ranks (one process each) and sharded serving ----
+
+LAUNCH_MARKERS = ("RQVAE_TPU_NUM_PROCESSES", "RQVAE_TPU_PROCESS_ID", "JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS",
+                  "RQVAE_TPU_DISTRIBUTED", "WORLD_SIZE", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR",
+                  "MASTER_PORT")
+
+
+def graph_dump(graph, root: str) -> dict:
+    """A step graph's node kinds and kernels by demangled name, read from its
+    debug dump without graph_nodes' checks (a graph that holds collectives
+    may carry other node kinds)."""
+    path = os.path.join(root, "step_graph.dot")
+    graph.debug_dump(path)
+    with open(path) as f:
+        text = f.read()
+    kinds, names = {}, {}
+    for kind in re.findall(r'label="\{\n?([A-Z_]+)\n', text):
+        kinds[kind] = kinds.get(kind, 0) + 1
+    for name in re.findall(r'label="\{KERNEL\n\| \{ID \| \d+ \(topoId: \d+\) \| ([^}\\]*)', text):
+        name = demangle(name)
+        names[name] = names.get(name, 0) + 1
+    return {"kinds": kinds, "kernels": names}
+
+
+def plant_fault(fault) -> None:
+    """A data-parallel fault planted in this rank, for a gate's control run:
+    "rank1_dropout_from_0", rank 1's dropout sites (hash dropout and kernels
+    4 and 5) count from global row 0, as rank 0's do; "rank1_grads_left_out",
+    rank 1 adds zeros to the gradients' all-reduce, so the mean holds rank
+    0's alone. Either way the ranks stay bit-equal and the run completes."""
+    from rqvae_tpu_torch.parallel import dist
+    from rqvae_tpu_torch.train import decoder_steps
+
+    if fault is None:
+        return
+    if fault == "rank1_dropout_from_0":
+        rank_seeds = decoder_steps._rank_seeds
+
+        def from_zero(seeds, replicas, rows):
+            out = rank_seeds(seeds, replicas, rows)
+            return out._replace(b0=0) if replicas is not None and replicas.rank == 1 and out is not None else out
+
+        decoder_steps._rank_seeds = from_zero
+    elif fault == "rank1_grads_left_out":
+        average = dist.Replicas.average_step_
+
+        def left_out(self, params, metrics, exact=()):
+            if self.rank == 1:
+                for p in params:
+                    if p.grad is not None:
+                        p.grad.zero_()
+            return average(self, params, metrics, exact)
+
+        dist.Replicas.average_step_ = left_out
+    else:
+        raise ValueError(f"no planted fault {fault!r}")
+
+
+def rank_worker(spec_path: str) -> int:
+    """One process of a data-parallel phase (started by launch_ranks): a
+    trainer's CLI, `main(argv)`, under the launch markers it was given. It
+    writes what the parent checks: the trainer's summary, the wrapper
+    counters (a step graph's capture uncounted, its replays as nodes x
+    replays), the b0 values kernels 4 and 5 were launched with, and, for a
+    step graph, its nodes and a replayed step's time."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from rqvae_tpu_torch.ops.cuda import attention as A
+    from rqvae_tpu_torch.parallel import dist
+    from rqvae_tpu_torch.train import train_decoder, train_rqvae
+
+    module, factory = ((train_decoder, "make_decoder_graph_train_step") if spec["stage"] == 2
+                       else (train_rqvae, "make_rqvae_graph_train_step"))
+    b0s = {"forward": set(), "backward": set()}
+    fwd, bwd = A._forward_cuda, A._backward_cuda
+
+    def fwd_b0(*a, b0=0, **kw):
+        b0s["forward"].add(int(b0))
+        return fwd(*a, b0=b0, **kw)
+
+    def bwd_b0(*a, b0=0, **kw):
+        b0s["backward"].add(int(b0))
+        return bwd(*a, b0=b0, **kw)
+
+    A._forward_cuda, A._backward_cuda = fwd_b0, bwd_b0
+    plant_fault(spec.get("fault"))
+    summaries = []
+    run = module.train
+
+    @functools.wraps(run)
+    def train(*a, **kw):
+        summaries.append(run(*a, **kw))
+        return summaries[-1]
+
+    module.train = train
+    counts = LaunchCounts()
+    counts.zero()
+    steps = []
+    with tempfile.TemporaryDirectory() as tmp, recorded_steps(module, factory, counts, steps):
+        module.main(spec["argv"])
+        sync()
+        eager = counts.read()
+        dumps = [(s.chunks.replays, graph_dump(s.chunks.graph, tmp)) for s in steps if s.chunks.graph is not None]
+        replayed = [{k: v * n for k, v in graph_launches(d["kernels"]).items()} for n, d in dumps]
+        out = {"rank": dist.process_index(), "world": dist.process_count(),
+               "backend": None if dist.replicas() is None else dist.replicas().backend,
+               "summary": {k: v for k, v in summaries[-1].items() if isinstance(v, (int, float, str))},
+               "eager_launches": eager, "launches": add_launches(eager, *replayed),
+               "b0": {k: sorted(v) for k, v in b0s.items()}, "graph": None}
+        chunks = steps[-1].chunks
+        if chunks.graph is not None:
+            out["graph"] = {**dumps[-1][1], "replays": chunks.replays, **replay_timing(chunks, chunks.n_steps)}
+    with open(f"{spec['out']}.rank{out['rank']}.json", "w") as f:
+        json.dump(out, f)
+    if dist.replicas() is not None:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def launch_ranks(phase: str, root: str, spec: dict, world: int, markers: bool = True):
+    """`world` processes of rank_worker on `spec` (no launch markers: one
+    process alone), gathered before anything is judged; a rank that fails
+    or outlives RANK_TIMEOUT_S has its peers killed, and no process is left
+    behind. Returns (each rank's results, each rank's stdout)."""
+    import socket
+
+    spec = dict(spec, out=os.path.join(root, phase))
+    path = os.path.join(root, f"{phase}.spec.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    procs = []
+    for rank in range(world):
+        env = {k: v for k, v in os.environ.items() if k not in LAUNCH_MARKERS}
+        if markers:
+            env.update(RQVAE_TPU_NUM_PROCESSES=str(world), RQVAE_TPU_PROCESS_ID=str(rank),
+                       JAX_COORDINATOR_ADDRESS=f"localhost:{port}")
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank-worker", path],
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+                                      cwd=REPO_DIR))
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+    results = []
+    try:
+        for p in procs:
+            try:
+                out, err = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                out, err = p.communicate()
+                err = f"[timed out after {RANK_TIMEOUT_S} s]\n{err}"
+            results.append((p.returncode, out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(all(rc == 0 for rc, _, _ in results),
+          f"{phase}: " + " ".join(f"rank {i} rc={rc}: {err[-1500:]}" for i, (rc, _, err) in enumerate(results)))
+    got = []
+    for rank in range(world):
+        with open(f"{spec['out']}.rank{rank}.json") as f:
+            got.append(json.load(f))
+    return got, [out for _, out, _ in results]
+
+
+def decoder_cli_argv(folder: str, rq_ckpt: str, save: str, **over) -> list:
+    """The stage-2 CLI at configs/decoder_amazon.gin over the synthetic
+    dataset file and the frozen RQ-VAE written by write_training_inputs
+    (iterations and cadences cut by `over`)."""
+    kw = dict(dataset="%data.registry.RecDataset.SYNTHETIC", dataset_folder=f'"{folder}"',
+              pretrained_rqvae_path=f'"{rq_ckpt}"', save_dir_root=f'"{save}"', partial_eval_every=1000,
+              full_eval_every=1000, full_eval_max_batches=1, save_model_every=1000, seed=0, **over)
+    return ["configs/decoder_amazon.gin", *(f"{k}={v}" for k, v in kw.items())]
+
+
+def logged_losses(save: str) -> dict:
+    return {r["step"]: r["total_loss"] for r in read_log(os.path.join(save, "logs")) if "total_loss" in r}
+
+
+def params_equal(path_a: str, path_b: str) -> bool:
+    from rqvae_tpu_torch.utils.checkpoint import load_checkpoint
+
+    a, b = load_checkpoint(path_a), load_checkpoint(path_b)
+    return set(a["params"]) == set(b["params"]) and all(torch.equal(a["params"][k], b["params"][k])
+                                                        for k in a["params"])
+
+
+def dp_world_of_one_phase(rq, x_cpu) -> dict:
+    """Stage 2 at the Amazon width (batch 640) through the trainer's CLI in
+    a process launched with the manual markers for a world of one: NCCL, the
+    step graphs on (2 steps a chunk; the cadences, 1000, must fall on chunk
+    ends). Against the same run in a process
+    alone (no group): the logged losses and the final parameters bit-equal
+    (a sum over one rank divided by 1); the graph holds the collectives
+    (its nodes against the run alone's); the replayed step's time of
+    both."""
+    geo = TRAIN_AMAZON
+    with tempfile.TemporaryDirectory() as root:
+        folder, rq_ckpt, _ = write_training_inputs(root, geo, rq, x_cpu, seed=12)
+        runs, stdout = {}, {}
+        for name, markers in (("nccl_world_of_one", True), ("alone", False)):
+            save = os.path.join(root, name)
+            spec = {"stage": 2, "argv": decoder_cli_argv(folder, rq_ckpt, save, iterations=6, steps_per_loop=2,
+                                                         log_every=2)}
+            (runs[name],), (stdout[name],) = launch_ranks(f"dp1_{name}", root, spec, 1, markers=markers)
+            runs[name]["losses"] = logged_losses(save)
+        a, b = runs["nccl_world_of_one"], runs["alone"]
+        check(a["backend"] == "nccl" and b["backend"] is None, f"dp1: backends {a['backend']}, {b['backend']}")
+        check("[dist] backend nccl" in stdout["nccl_world_of_one"], "dp1: the backend line is missing")
+        check(a["losses"] == b["losses"] and len(a["losses"]) >= 2, f"dp1: losses {a['losses']} != {b['losses']}")
+        same = params_equal(a["summary"]["checkpoint_path"], b["summary"]["checkpoint_path"])
+    check(same, "dp1: the world of one's parameters differ from the run without a group")
+    check(a["graph"] is not None and b["graph"] is not None, "dp1: a run took no step graph")
+    extra = {n: c - b["graph"]["kernels"].get(n, 0) for n, c in a["graph"]["kernels"].items()
+             if c != b["graph"]["kernels"].get(n, 0)}
+    kinds = {k: c - b["graph"]["kinds"].get(k, 0) for k, c in a["graph"]["kinds"].items()
+             if c != b["graph"]["kinds"].get(k, 0)}
+    check(bool(extra) or bool(kinds), "dp1: the NCCL step graph holds no node that the graph alone lacks")
+    check(a["launches"]["attention"] == b["launches"]["attention"] == 4 * 6,
+          f"dp1: kernel 4 launches {a['launches']['attention']}, {b['launches']['attention']}")
+    row = {"phase": "dp_world_of_one", "batch": geo["batch"], "iterations": 6, "steps_per_loop": 2,
+           "losses": a["losses"], "params_bit_equal": same, "launches": a["launches"],
+           "graph_nodes_added_by_the_group": {"kernels": extra, "kinds": kinds},
+           "nccl_kernels": {n: c for n, c in a["graph"]["kernels"].items() if "nccl" in n.lower()},
+           "replayed_step": {name: {k: r["graph"][k] for k in ("replayed_host_ms", "graph_card_ms", "replay_profile")}
+                             for name, r in runs.items()}}
+    emit(row)
+    return a["launches"]
+
+
+def dp_two_ranks_phase(rq, x_cpu) -> dict:
+    """Stage 2 at the Amazon width on two ranks that share the one card
+    (gloo on CUDA tensors), 2 x 320 rows, through the trainer's CLI, 4
+    steps in chunks of 2 that run eagerly (the trainer says so); the ranks
+    end bit-equal (the trainer checks its parameters and moments across the
+    ranks). Against one process at the same settings (its chunks one graph
+    replay a step): each logged loss within rtol DP_BF16_RTOL (bf16 kernels,
+    the batch split in two and summed in another order), and a control run
+    with rank 1's dropout counted from row 0 (plant_fault) outside it. Kernels 4 and 5
+    launch 4 a micro-batch on each rank, with b0 = 0 and 320. The two ranks
+    share the card's memory and SMs: their step time says nothing of
+    scaling."""
+    geo = TRAIN_AMAZON
+    with tempfile.TemporaryDirectory() as root:
+        folder, rq_ckpt, _ = write_training_inputs(root, geo, rq, x_cpu, seed=12)
+        argv = lambda save: decoder_cli_argv(folder, rq_ckpt, save, iterations=4, steps_per_loop=2, log_every=2)
+        t0 = time.perf_counter()
+        ranks, stdout = launch_ranks("dp2", root, {"stage": 2, "argv": argv(os.path.join(root, "two"))}, 2)
+        two_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        (one,), _ = launch_ranks("dp2_one", root, {"stage": 2, "argv": argv(os.path.join(root, "one"))}, 1,
+                                 markers=False)
+        one_s = time.perf_counter() - t0
+        two_losses, one_losses = logged_losses(os.path.join(root, "two")), logged_losses(os.path.join(root, "one"))
+        launch_ranks("dp2_fault", root, {"stage": 2, "argv": argv(os.path.join(root, "fault")),
+                                         "fault": "rank1_dropout_from_0"}, 2)
+        fault_losses = logged_losses(os.path.join(root, "fault"))
+    check([r["backend"] for r in ranks] == ["gloo", "gloo"], f"dp2: backends {[r['backend'] for r in ranks]}")
+    check("[dist] backend gloo" in stdout[0] and "runs eagerly" in stdout[0], "dp2: rank 0's first lines")
+    check(all(r["graph"] is None for r in ranks) and one["graph"] is not None, "dp2: graphs")
+    check(all(ranks[0]["summary"][k] == ranks[1]["summary"].get(k) for k in ranks[0]["summary"]
+              if k != "iterations_per_sec" and not k.endswith("_ms")), "dp2: the ranks' summaries differ")
+    check(sorted(two_losses) == sorted(one_losses), f"dp2: logged steps {sorted(two_losses)}, {sorted(one_losses)}")
+    rel = max(abs(two_losses[s] - one_losses[s]) / abs(one_losses[s]) for s in one_losses)
+    check(rel <= DP_BF16_RTOL, f"dp2: two ranks' losses {two_losses} against one process's {one_losses}")
+    check(sorted(fault_losses) == sorted(one_losses), f"dp2: the control's logged steps {sorted(fault_losses)}")
+    fault_rel = max(abs(fault_losses[s] - one_losses[s]) / abs(one_losses[s]) for s in one_losses)
+    check(fault_rel > DP_BF16_RTOL, f"dp2: the gate passes rank 1's dropout counted from row 0 ({fault_rel})")
+    half = geo["batch"] // 2
+    for r in ranks:
+        got = r["launches"]
+        check(got["attention"] == got["attention_bwd"] == 4 * 4, f"dp2: rank {r['rank']} kernel 4/5 launches {got}")
+        check(r["b0"] == {"forward": [half * r["rank"]], "backward": [half * r["rank"]]},
+              f"dp2: rank {r['rank']} b0 {r['b0']}")
+    emit({"phase": "dp_two_ranks_one_card", "batch": geo["batch"], "rows_per_rank": half, "iterations": 4,
+          "losses_two_ranks": two_losses, "losses_one_process": one_losses, "max_rel_loss_diff": rel,
+          "rtol": DP_BF16_RTOL, "control_rank1_dropout_from_0": {"losses": fault_losses, "max_rel_loss_diff": fault_rel},
+          "b0": [r["b0"] for r in ranks], "launches": [r["launches"] for r in ranks],
+          "wall_s_two_ranks": two_s, "wall_s_one_process": one_s,
+          "iterations_per_sec_two_ranks": [r["summary"]["iterations_per_sec"] for r in ranks],
+          "iterations_per_sec_one_process": one["summary"]["iterations_per_sec"],
+          "note": "two ranks share one card: no scaling claim"})
+    return add_launches(*(r["launches"] for r in ranks))
+
+
+def dp_stage1_phase(corpus_cpu: torch.Tensor) -> dict:
+    """Stage 1 at configs/rqvae_amazon.gin's widths on two ranks sharing the
+    card (gloo), 2 x 320 rows, through the trainer's CLI (20 steps in chunks
+    of 2, evaluations at 10 and 20), against one process (its step graphs):
+    each logged loss within rtol DP_F32_RTOL (f32, the batch split in two
+    and summed in another order), and a control run with rank 1's gradients
+    left out of the mean (plant_fault) outside it; each rank evaluates, so kernel 1 runs
+    once an evaluation on each."""
+    with tempfile.TemporaryDirectory() as root:
+        folder = write_item_dataset(os.path.join(root, "data"), corpus_cpu, seed=13)
+
+        def argv(save):
+            kw = dict(dataset="%data.registry.RecDataset.SYNTHETIC", dataset_folder=f'"{folder}"',
+                      save_dir_root=f'"{save}"', iterations=20, eval_every=10, save_model_every=1000, log_every=2,
+                      steps_per_loop=2)
+            return ["configs/rqvae_amazon.gin", *(f"{k}={v}" for k, v in kw.items())]
+
+        ranks, stdout = launch_ranks("dps1", root, {"stage": 1, "argv": argv(os.path.join(root, "two"))}, 2)
+        (one,), _ = launch_ranks("dps1_one", root, {"stage": 1, "argv": argv(os.path.join(root, "one"))}, 1,
+                                 markers=False)
+        launch_ranks("dps1_fault", root, {"stage": 1, "argv": argv(os.path.join(root, "fault")),
+                                          "fault": "rank1_grads_left_out"}, 2)
+        two_losses, one_losses = logged_losses(os.path.join(root, "two")), logged_losses(os.path.join(root, "one"))
+        fault_losses = logged_losses(os.path.join(root, "fault"))
+    check([r["backend"] for r in ranks] == ["gloo", "gloo"] and "runs eagerly" in stdout[0], "dps1: backends")
+    check(sorted(two_losses) == sorted(one_losses), f"dps1: logged steps {sorted(two_losses)}, {sorted(one_losses)}")
+    rel = max(abs(two_losses[s] - one_losses[s]) / abs(one_losses[s]) for s in one_losses)
+    check(rel <= DP_F32_RTOL, f"dps1: two ranks' losses {two_losses} against one process's {one_losses}")
+    check(sorted(fault_losses) == sorted(one_losses), f"dps1: the control's logged steps {sorted(fault_losses)}")
+    fault_rel = max(abs(fault_losses[s] - one_losses[s]) / abs(one_losses[s]) for s in one_losses)
+    check(fault_rel > DP_F32_RTOL, f"dps1: the gate passes rank 1's gradients left out of the mean ({fault_rel})")
+    for r in ranks:
+        check(r["launches"]["rq_encode"] == 2, f"dps1: rank {r['rank']} launches {r['launches']}")
+    div = ("p_unique_ids", "rqvae_entropy", "codebook_usage_0")
+    emit({"phase": "dp_stage1_two_ranks", "batch": 640, "iterations": 20, "losses_two_ranks": two_losses,
+          "losses_one_process": one_losses, "max_rel_loss_diff": rel, "rtol": DP_F32_RTOL,
+          "control_rank1_grads_left_out": {"losses": fault_losses, "max_rel_loss_diff": fault_rel},
+          "diversity_two_ranks": {k: ranks[0]["summary"].get(k) for k in div},
+          "diversity_one_process": {k: one["summary"].get(k) for k in div},
+          "launches": [r["launches"] for r in ranks]})
+    return add_launches(*(r["launches"] for r in ranks))
+
+
+def rows_alone(model, cached_ids, hist: np.ndarray, dev) -> dict:
+    """Whether a serving stage's rows move with the batch size: rows 0 ..
+    B/2 - 1 computed in a batch of B against the same rows alone, each stage
+    on the same inputs, bit for bit. The encoder output from the same tokens
+    (kernel 3 where the bucket takes it, else plain PyTorch, whose products
+    are cuBLAS's); one product alone, the first encoder layer's query
+    projection of the encoder output (cuBLAS at M = B x Le against B/2 x
+    Le); the cross K/V from the same encoder output; the decoder's states at
+    each beam level from the same operands (kernel 2 where the bucket takes
+    it); level 0's head product. A kernel gives each batch row blocks of its
+    own, so its rows must not move: a kernel stage that does is a fault."""
+    from rqvae_tpu_torch.models.retrieval import strip_dedup_col
+    from rqvae_tpu_torch.models.t5 import dense
+    from rqvae_tpu_torch.tokenizer.semids import _tokenize_from_cache
+
+    cfg = model.config
+    L, K, k = cfg.num_hierarchies, cfg.codebook_size, cfg.top_k_for_generation
+    h = torch.from_numpy(hist).to(dev)
+    B = h.shape[0]
+    half = B // 2
+    zeros = torch.zeros(B, dtype=torch.int32, device=dev)
+    tok = _tokenize_from_cache(cached_ids, zeros, h, zeros, h >= 0)
+    ids = strip_dedup_col(tok.sem_ids, L + 1, L)
+    mask = strip_dedup_col(tok.seq_mask.to(torch.int32), L + 1, L)
+    route = bucket_route(model, hist.shape[1])
+    out = {}
+
+    def record(name, whole, alone, kernel):
+        whole, alone = whole.reshape(B, -1)[:half], alone.reshape(half, -1)
+        out[name] = {"bit_equal": bool(torch.equal(whole, alone)), "kernel": kernel,
+                     "max_abs_diff": float((whole.float() - alone.float()).abs().max())}
+
+    with torch.no_grad():
+        enc, enc_mask = model.encoder_forward(ids, mask, tok.user_ids)
+        enc_half, _ = model.encoder_forward(ids[:half], mask[:half], tok.user_ids[:half])
+        record("encoder", enc, enc_half, route["encoder"].startswith("encoder_stack"))
+        wq, cdt = model.encoder.block[0].self_attn.q.weight, model.encoder.cfg.compute_dtype
+        record("cublas_q_projection", dense(enc, wq, cdt), dense(enc[:half], wq, cdt), False)
+        dec = model.decoder
+        kv = dec.cross_kv(enc)
+        kv_half = dec.cross_kv(enc[:half])
+        record("cross_k", kv[0].transpose(0, 1), kv_half[0].transpose(0, 1), False)
+        record("cross_v", kv[1].transpose(0, 1), kv_half[1].transpose(0, 1), False)
+        kv_rows = tuple(t[:, :half].contiguous() for t in kv)
+        fused = dec.use_fused_decode(enc.shape[1])
+        w = dec.decode_weights() if fused else None
+        g = torch.Generator().manual_seed(5)
+        for beams, T in ((1, 1), (k, 2), (k, 3)):
+            prefix = torch.randint(0, K, (B * beams, T - 1), generator=g).to(dev)
+            if fused:
+                embs = model._decoder_embs(prefix, B * beams).reshape(B, beams * T, -1)
+                y = dec.fused_decode(embs, kv, enc_mask, beams, w)
+                y_half = dec.fused_decode(embs[:half].contiguous(), kv_rows, enc_mask[:half], beams, w)
+            else:
+                y = model.decoder_forward(prefix, enc, enc_mask, beams, kv)
+                y_half = model.decoder_forward(prefix[:half * beams], enc[:half], enc_mask[:half], beams, kv_rows)
+            record(f"decoder_kT{beams * T}", y, y_half, fused)
+            if T == 1:
+                last = y.reshape(B, -1)[:, -cfg.t5_d_model:]
+                record("head_level0", last @ model.heads[0], last[:half] @ model.heads[0], False)
+    return out
+
+
+def sharded_serving_phase(phase: str, geo: dict, counts, dev, seed: int) -> dict:
+    """Serving over a mesh of [cuda:0, cuda:0] (two 'data' shards on the one
+    card) at a published width: the sharded index build equals the card's
+    unsharded one exactly (kernel 1 once per shard); 3 retrieve() calls of
+    64 histories, kernels 2 or 3 launched per shard per call, equal bit for
+    bit (ids, beams, log-probas) the unsharded Retriever on the same index
+    called on each shard's 32 rows; in f32 also every beam of the unsharded
+    call on all 64 rows. In bf16 the unsharded path itself moves with the
+    batch size (a bf16 rounding flipped by a sum taken in another order), so
+    the share of queries whose beams equal the 64-row call is reported,
+    with the unsharded 32-row call's share beside it, and rows_alone says
+    which stage moves: a kernel stage (2 or 3) that moves fails the phase. An engine bucket (one
+    graph per shard) replays the direct sharded call bit for bit."""
+    from rqvae_tpu_torch.parallel.mesh import make_mesh
+    from rqvae_tpu_torch.serving.engine import RetrievalEngine
+    from rqvae_tpu_torch.serving.retriever import Retriever
+    from rqvae_tpu_torch.tokenizer.semids import SemanticIdTokenizer
+
+    rq, _, x = make_rqvae(geo, dev)
+    model = retrieval_model("bfloat16", dev)
+    mesh = make_mesh(devices=[dev, dev])
+    plain_tok = SemanticIdTokenizer(rq, device=dev)
+    plain_ids = plain_tok.precompute_corpus_ids(x)
+    counts.zero()
+    tok = SemanticIdTokenizer(rq, mesh=mesh)
+    ids = tok.precompute_corpus_ids(x)
+    sync()
+    build = counts.read()
+    check(torch.equal(ids, plain_ids), f"{phase}: the sharded index differs from the unsharded one")
+    check(build["rq_encode"] == 2, f"{phase}: index build launches {build}")
+    plain, sharded = Retriever(model, plain_tok, device=dev), Retriever(model, tok, mesh=mesh)
+    hist = histories(geo["items"], geo["history"], seed=seed)
+    counts.zero()
+    got = [sharded.retrieve(hist) for _ in range(CALLS)]
+    sync()
+    calls = counts.read()
+    route = bucket_route(model, geo["history"])
+    want_calls = {"decoder_stack": 3 * 2 * CALLS * route["decoder"].startswith("decoder_stack"),
+                  "encoder_stack": 2 * CALLS * route["encoder"].startswith("encoder_stack")}
+    check({k: calls[k] for k in want_calls} == want_calls, f"{phase}: launches {calls}, want {want_calls}")
+    rows = BATCH // 2
+    halves = [plain.retrieve(hist[i * rows:(i + 1) * rows]) for i in range(2)]
+    at_shard_rows = all(torch.equal(t, torch.cat([h[f] for h in halves])) for g in got for f, t in enumerate(g))
+    check(at_shard_rows, f"{phase}: the sharded calls differ from the unsharded Retriever at the shards' rows")
+    want = plain.retrieve(hist)
+    same_beams = lambda a, b: float((a.sem_ids == b.sem_ids).all(-1).all(-1).float().mean())
+    agree = {"sharded_vs_unsharded_64": same_beams(got[0], want),
+             "unsharded_32_vs_unsharded_64": same_beams(halves[0], type(want)(*(t[:rows] for t in want))),
+             "log_proba_max_abs_diff_64": float((got[0].log_probas - want.log_probas).abs().max().item())}
+    model32 = retrieval_model("float32", dev)
+    f32_sharded = Retriever(model32, tok, mesh=mesh).retrieve(hist)
+    f32_plain = Retriever(model32, plain_tok, device=dev).retrieve(hist)
+    f32_exact = torch.equal(f32_sharded.item_ids, f32_plain.item_ids) and torch.equal(f32_sharded.sem_ids,
+                                                                                        f32_plain.sem_ids)
+    check(f32_exact, f"{phase}: in f32 the sharded beams differ from the unsharded 64-row call's")
+    agree["f32_log_proba_max_abs_diff_64"] = float((f32_sharded.log_probas - f32_plain.log_probas).abs().max())
+    del model32, f32_sharded, f32_plain
+    stages = rows_alone(model, plain_ids, hist, dev)
+    moved = [n for n, r in stages.items() if r["kernel"] and not r["bit_equal"]]
+    check(not moved, f"{phase}: kernel stages whose rows move with the batch size: {moved} ({stages})")
+    eng = RetrievalEngine(sharded, max_items=geo["history"], item_buckets=(geo["history"],), batch_buckets=(BATCH,))
+    check(eng.warmup() == 1 and len(eng.graphs[(BATCH, geo["history"])]) == 2, f"{phase}: engine graphs")
+    flight = eng._replay(hist, np.zeros(BATCH, np.int32))
+    flight.event.synchronize()
+    replay_same = all(torch.equal(h, d.cpu()) for h, d in zip(flight.host, got[0]))
+    check(replay_same, f"{phase}: the engine's replay differs from the direct sharded call")
+    row = {"phase": phase, "mesh": [str(d) for d in mesh.data_devices], "items": geo["items"], "batch": BATCH,
+           "index_bit_equal": True, "index_launches": build, "call_launches": calls,
+           "bit_equal_at_shard_rows": at_shard_rows, "f32_beams_equal_at_64_rows": f32_exact,
+           "bf16_beam_agreement": agree, "rows_alone_at_32_of_64": stages,
+           "engine_replay_bit_equal": replay_same, **route,
+           "retrieve_ms_sharded": cuda_ms(lambda: sharded.retrieve(hist), reps=3, warmup=1),
+           "retrieve_ms_unsharded": cuda_ms(lambda: plain.retrieve(hist), reps=3, warmup=1),
+           "engine_replay_host_ms": host_ms(lambda: eng._replay(hist, np.zeros(BATCH, np.int32)).event.synchronize())}
+    emit(row)
+    del eng, sharded, plain, tok, plain_tok, model, rq, x
+    torch.cuda.empty_cache()
+    return add_launches(build, calls)
 
 
 def fixture_inputs() -> dict:
@@ -3116,6 +3689,21 @@ def main() -> int:
     del eng, rq, x
     torch.cuda.empty_cache()
 
+    # ---- 35-40. scale-out: kernels 4 and 5 from b0, data-parallel ranks, sharded serving ----
+    b0_times = attention_b0_phase(dev)
+    kernels["attention"]["b0_timing"] = {k: {n: v for n, v in t.items() if n.startswith("forward")}
+                                         for k, t in b0_times.items()}
+    kernels["attention_bwd"]["b0_timing"] = {k: {n: v for n, v in t.items() if n.startswith("backward")}
+                                             for k, t in b0_times.items()}
+    rq, x_cpu, _ = make_rqvae(AMAZON, dev)
+    launches["dp_world_of_one"] = dp_world_of_one_phase(rq, x_cpu)
+    launches["dp_two_ranks"] = dp_two_ranks_phase(rq, x_cpu)
+    del rq, x_cpu
+    torch.cuda.empty_cache()
+    launches["dp_stage1"] = dp_stage1_phase(item_corpus(AMAZON["items"], AMAZON["input_dim"], 0, seed=15))
+    launches["serve_sharded_amazon"] = sharded_serving_phase("serve_sharded_amazon", AMAZON, counts, dev, seed=70)
+    launches["serve_sharded_ml32m"] = sharded_serving_phase("serve_sharded_ml32m", ML32M, counts, dev, seed=71)
+
     # ---- kernels, card, result ----
     for name, row in kernels.items():
         row["launches_by_path"] = {path: got.get(name, 0) for path, got in launches.items()}
@@ -3130,4 +3718,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--rank-worker":  # one rank of a data-parallel phase
+        sys.exit(rank_worker(sys.argv[2]))
     sys.exit(main())

@@ -23,7 +23,7 @@ namespace {
 
 template <typename T>
 int launch(void* const* ptrs, const int* dims, const int* seed, unsigned keep_thresh, float keep_scale,
-           int dropout, void* stream) {
+           int dropout, int b0, void* stream) {
   attn::Params<T> p;
   p.q = static_cast<const T*>(ptrs[0]);
   p.k = static_cast<const T*>(ptrs[1]);
@@ -39,6 +39,7 @@ int launch(void* const* ptrs, const int* dims, const int* seed, unsigned keep_th
   p.causal = dims[5];
   p.dropout = dropout;
   p.seed = seed;
+  p.b0 = b0;
   p.keep_thresh = keep_thresh;
   p.keep_scale = keep_scale;
   return (int)attn::launch_attention<T>(p, static_cast<cudaStream_t>(stream));
@@ -56,11 +57,12 @@ const char* kernel_error_string(int code) { return cudaGetErrorString((cudaError
 // the tiled route writes them, with dropout).
 // dims: B, H, Lq, Lk, dk, causal. With dropout != 0, seed is the device
 // address of the int32 dropout seed (read by the kernel, not here), keep iff
-// the hash bits >= keep_thresh and kept probabilities are scaled by keep_scale.
+// the hash bits >= keep_thresh and kept probabilities are scaled by keep_scale;
+// b0 is the global batch index of batch row 0 in the dropout counter.
 int attention_forward(int is_bf16, void* const* ptrs, const int* dims, const int* seed,
-                      unsigned keep_thresh, float keep_scale, int dropout, void* stream) {
-  return is_bf16 ? launch<__nv_bfloat16>(ptrs, dims, seed, keep_thresh, keep_scale, dropout, stream)
-                 : launch<float>(ptrs, dims, seed, keep_thresh, keep_scale, dropout, stream);
+                      unsigned keep_thresh, float keep_scale, int dropout, int b0, void* stream) {
+  return is_bf16 ? launch<__nv_bfloat16>(ptrs, dims, seed, keep_thresh, keep_scale, dropout, b0, stream)
+                 : launch<float>(ptrs, dims, seed, keep_thresh, keep_scale, dropout, b0, stream);
 }
 
 // The route attention_forward takes (0: CUDA cores, 1: whole rows, 2: tiled).

@@ -120,6 +120,7 @@ template <typename T> struct BwdParams {
   int B, H, Lq, Lk, dkw;      // dkw: head width
   int causal, dropout, groups;
   const int* seed;            // [1] int32 dropout seed in device memory (read as the forward reads it)
+  int b0;                     // the global batch index of batch row 0 (attn::Params::b0)
   unsigned keep_thresh;
   float keep_scale;
 };
@@ -253,7 +254,7 @@ __device__ __forceinline__ unsigned tile_p_dp(const BwdParams<T>& P, const Smem&
       p[i][j] = pv;
       if (P.dropout) {
         const unsigned counter =
-            (((unsigned)b * (unsigned)P.H + (unsigned)h) * (unsigned)P.Lq + (unsigned)row) * (unsigned)P.Lk +
+            (((unsigned)(P.b0 + b) * (unsigned)P.H + (unsigned)h) * (unsigned)P.Lq + (unsigned)row) * (unsigned)P.Lk +
             (unsigned)key;
         if (keep_bit(counter, seed_mix, P.keep_thresh)) {
           dp[i][j] *= P.keep_scale;
@@ -590,7 +591,7 @@ __device__ __forceinline__ void probs_and_dp(float (&s)[NJ][4], float (&dp)[NJ][
           const bool keep =
               NJ == 8 && bits != nullptr
                   ? (((j & 4) ? kw[hh].y : kw[hh].x) >> bit) & 1u
-                  : keep_bit(drop_counter(b, h, P.H, P.Lq, P.Lk, row_lo + hh * 8, k0 + j * 8 + 2 * t + e2),
+                  : keep_bit(drop_counter(P.b0 + b, h, P.H, P.Lq, P.Lk, row_lo + hh * 8, k0 + j * 8 + 2 * t + e2),
                              seed_mix, P.keep_thresh);
           pd[e2] = (keep ? pv : 0.f) * P.keep_scale;
           dp[j][e] = keep ? dp[j][e] * P.keep_scale : 0.f;
@@ -1081,7 +1082,7 @@ cudaError_t launch_ng(const BwdParams<T>& P, cudaStream_t stream) {
 
 template <typename T>
 int launch(void* const* ptrs, const int* dims, const int* seed, unsigned keep_thresh, float keep_scale, int dropout,
-           void* stream) {
+           int b0, void* stream) {
   BwdParams<T> P;
   P.q = static_cast<const T*>(ptrs[0]);
   P.k = static_cast<const T*>(ptrs[1]);
@@ -1103,6 +1104,7 @@ int launch(void* const* ptrs, const int* dims, const int* seed, unsigned keep_th
   P.groups = dims[6];
   P.dropout = dropout;
   P.seed = seed;
+  P.b0 = b0;
   P.keep_thresh = keep_thresh;
   P.keep_scale = keep_scale;
   if (P.dkw % 4 || P.dkw < 4 || P.dkw > MAX_DK || P.B < 1 || P.H < 1 || P.Lq < 1 || P.Lk < 1 || P.groups < 1 ||
@@ -1133,13 +1135,14 @@ const char* kernel_error_string(int code) { return cudaGetErrorString((cudaError
 // dbias [groups, H, Lq, Lk] f32 (unused when groups == 1), and the tiled
 // forward's keep bits (attention_forward's keep_bits; null: hashed anew).
 // dims: B, H, Lq, Lk, dk, causal, groups. Dropout as in attention_forward
-// (seed: the device address of the int32 seed).
+// (seed: the device address of the int32 seed; b0: the global batch index of
+// batch row 0 in the dropout counter).
 // Launches on `stream` the route's kernels (1 on the whole-row route, 3 on the
 // others), and one more when groups > 1.
 int attention_backward(int is_bf16, void* const* ptrs, const int* dims, const int* seed, unsigned keep_thresh,
-                       float keep_scale, int dropout, void* stream) {
-  return is_bf16 ? launch<__nv_bfloat16>(ptrs, dims, seed, keep_thresh, keep_scale, dropout, stream)
-                 : launch<float>(ptrs, dims, seed, keep_thresh, keep_scale, dropout, stream);
+                       float keep_scale, int dropout, int b0, void* stream) {
+  return is_bf16 ? launch<__nv_bfloat16>(ptrs, dims, seed, keep_thresh, keep_scale, dropout, b0, stream)
+                 : launch<float>(ptrs, dims, seed, keep_thresh, keep_scale, dropout, b0, stream);
 }
 
 // The route attention_backward takes (0: CUDA cores, 1: whole rows, 2: tiled).

@@ -37,12 +37,16 @@
 // computed on zeros and not stored.
 //
 // Dropout (rate > 0): keep bits are the murmur3 finaliser of the wrapping
-// uint32 counter ((b*H + h)*Lq + q)*Lk + k XOR seed * 0x9E3779B9, keep iff
+// uint32 counter (((b0 + b)*H + h)*Lq + q)*Lk + k XOR seed * 0x9E3779B9, keep iff
 // bits >= round(rate * 2^32); dropped p is zeroed and the rest scaled by
 // 1/(1-rate) in float32 before the rounding to the compute dtype. The int32
 // seed is read from device memory (Params::seed) by every thread that drops,
 // as the Pallas kernels read seed_ref[0] from SMEM: a launch captured in a
-// CUDA graph reads the seed its buffer holds at replay.
+// CUDA graph reads the seed its buffer holds at replay. b0 (Params::b0) is the
+// global index of the launch's first batch row: a data-parallel rank that holds
+// rows b0 .. b0 + B - 1 of the global batch draws the global batch's masks, as
+// the Pallas kernel's counter is the logical (batch, head, q, k) position. It is
+// a launch argument, so a captured launch keeps the rank's constant.
 //
 // Row statistics: when Params::row_max / row_sum are set, each row's softmax
 // maximum m and sum l are written out ([B, H, Lq] float32), so that the
@@ -81,6 +85,7 @@ template <typename T> struct Params {
   int causal;
   int dropout;              // 0: no dropout, the three fields below unused
   const int* seed;          // [1] int32 dropout seed in device memory
+  int b0;                   // the global batch index of batch row 0 (the dropout counter's)
   unsigned keep_thresh;     // keep iff bits >= this
   float keep_scale;         // 1 / (1 - rate)
 };
@@ -256,7 +261,7 @@ __device__ void attention_tile(const Params<T>& p, int b, int h, int q0, float* 
         if (p.dropout) {
           const unsigned key = (unsigned)(k0 + tx + 16 * j);
           const unsigned counter =
-              (((unsigned)b * (unsigned)p.H + (unsigned)h) * (unsigned)Lq + (unsigned)row) * (unsigned)Lk + key;
+              (((unsigned)(p.b0 + b) * (unsigned)p.H + (unsigned)h) * (unsigned)Lq + (unsigned)row) * (unsigned)Lk + key;
           pv = (keep_bit(counter, seed_mix, p.keep_thresh) ? pv : 0.f) * p.keep_scale;
         }
         Ss[(ty * 4 + i) * lds + tx + 16 * j] = Num<T>::rnd(pv);
@@ -554,7 +559,7 @@ __device__ __forceinline__ void probs_times_v(float (&s)[NJ][4], float (&o)[8][4
     for (int e = 0; e < 4; ++e) {
       float pv = sm_p(s[j][e], m[e >> 1], inv_l[e >> 1]);
       if (p.dropout) {
-        const unsigned c = drop_counter(b, h, p.H, p.Lq, p.Lk, row_lo + (e >> 1) * 8, k0 + j * 8 + 2 * t + (e & 1));
+        const unsigned c = drop_counter(p.b0 + b, h, p.H, p.Lq, p.Lk, row_lo + (e >> 1) * 8, k0 + j * 8 + 2 * t + (e & 1));
         const bool keep = keep_bit(c, seed_mix, p.keep_thresh);
         pv = (keep ? pv : 0.f) * p.keep_scale;
         if (NJ == 8) kw[e >> 1][(j >> 2) & 1] |= (unsigned)keep << ((j & 3) * 8 + 2 * t + (e & 1));

@@ -460,7 +460,7 @@ int launch(void* const* ptrs, const int* dims, float eps, cudaStream_t stream) {
   ap.row_max = nullptr; ap.row_sum = nullptr; ap.keep_bits = nullptr;
   ap.B = p.B; ap.H = p.H; ap.Lq = p.L; ap.Lk = p.L; ap.dk = p.dk;
   ap.causal = 0;
-  ap.dropout = 0; ap.seed = nullptr; ap.keep_thresh = 0; ap.keep_scale = 1.f;
+  ap.dropout = 0; ap.seed = nullptr; ap.b0 = 0; ap.keep_thresh = 0; ap.keep_scale = 1.f;
 
   const bool tc = tensor_core_route(std::is_same<T, bf16>::value, p.d, p.dk, p.H * p.dk, p.dff);
   const int tm = tc ? TC_TM : TM;

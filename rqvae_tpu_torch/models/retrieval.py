@@ -29,7 +29,7 @@ import torch
 from torch import nn
 
 from rqvae_tpu_torch.data.schemas import TokenizedSeqBatch
-from rqvae_tpu_torch.models.t5 import DropoutSeeds, T5Stack, T5StackConfig
+from rqvae_tpu_torch.models.t5 import DropoutSeeds, Seeds, T5Stack, T5StackConfig
 from rqvae_tpu_torch.ops import amp
 from rqvae_tpu_torch.ops.embedding import embedding_lookup
 from rqvae_tpu_torch.ops.gumbel import sample_without_replacement
@@ -152,7 +152,7 @@ class EncoderDecoderRetrievalModel(nn.Module):
         seq_mask: torch.Tensor,  # [B, N*L] 1 = valid
         user_ids: Optional[torch.Tensor] = None,  # [B]
         training: bool = False,
-        seeds: Optional[torch.Tensor] = None,
+        seeds: Optional[Seeds] = None,
     ):
         cfg = self.config
         B, T = sem_ids.shape
@@ -191,7 +191,7 @@ class EncoderDecoderRetrievalModel(nn.Module):
         beams: int = 1,
         cross_kv=None,  # decoder.cross_kv(enc_out)
         training: bool = False,
-        seeds: Optional[torch.Tensor] = None,
+        seeds: Optional[Seeds] = None,
     ) -> torch.Tensor:
         embs = self._decoder_embs(fut_ids, enc_out.shape[0] * beams)
         return self.decoder(
@@ -200,11 +200,13 @@ class EncoderDecoderRetrievalModel(nn.Module):
         )  # [B*beams, T+1, d]
 
     def forward(self, batch: TokenizedSeqBatch, training: bool = False,
-                generator: Optional[torch.Generator] = None, seeds: Optional[torch.Tensor] = None) -> ModelOutput:
+                generator: Optional[torch.Generator] = None, seeds: Optional[Seeds] = None) -> ModelOutput:
         """Teacher-forced loss. With `training` and a dropout rate above 0,
         the dropout seeds are `seeds` (an int32 device row of at least
-        `n_dropout_sites`, read on the device) or, without it, drawn from
-        `generator` (a CPU torch.Generator: one row of DropoutSeeds.draw)."""
+        `n_dropout_sites`, read on the device; or t5.SiteSeeds, whose rows
+        say which slice of a global batch this batch is) or, without it,
+        drawn from `generator` (a CPU torch.Generator: one row of
+        DropoutSeeds.draw)."""
         cfg = self.config
         L = cfg.num_hierarchies
         D = L + 1  # sem_ids_dim including the dedup column

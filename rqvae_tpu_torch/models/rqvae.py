@@ -63,6 +63,15 @@ class RqVaeComputedLosses(NamedTuple):
     rqvae_loss: torch.Tensor  # scalar (mean)
     embs_norm: torch.Tensor  # [B, L] per-level embedding norms
     p_unique_ids: torch.Tensor  # scalar: #distinct tuples / B
+    sem_ids: torch.Tensor  # [B, L] int32 ids of the batch
+
+
+def distinct_share(sem_ids: torch.Tensor, codebook_size: int) -> torch.Tensor:
+    """The share of rows whose L-tuple is distinct: #distinct tuples / rows
+    (float32 scalar), by sorted packed keys."""
+    keys = torch.sort(pack_sem_id_tuples(sem_ids, codebook_size)).values
+    n_distinct = 1 + torch.count_nonzero(keys[1:] != keys[:-1])
+    return n_distinct.to(torch.float32) / keys.shape[0]
 
 
 class RqVae(nn.Module):
@@ -171,14 +180,13 @@ class RqVae(nn.Module):
         if cfg.n_cat_feats > 0:
             x_hat = torch.cat([l2norm(x_hat[..., : -cfg.n_cat_feats]), x_hat[..., -cfg.n_cat_feats:]], dim=-1)
         recon = categorical_reconstruction_loss(x_hat, x, cfg.n_cat_feats)
-        keys = torch.sort(pack_sem_id_tuples(quantized.sem_ids.detach(), cfg.codebook_size)).values
-        n_distinct = 1 + torch.count_nonzero(keys[1:] != keys[:-1])
         return RqVaeComputedLosses(
             loss=torch.mean(recon + quantized.quantize_loss),
             reconstruction_loss=torch.mean(recon),
             rqvae_loss=torch.mean(quantized.quantize_loss),
             embs_norm=torch.linalg.vector_norm(quantized.embeddings, dim=-1),
-            p_unique_ids=n_distinct.to(torch.float32) / keys.shape[0],
+            p_unique_ids=distinct_share(quantized.sem_ids.detach(), cfg.codebook_size),
+            sem_ids=quantized.sem_ids.detach(),
         )
 
 

@@ -20,6 +20,12 @@
   hash of ops/hash_dropout.py and is rebuilt in the backward pass; without
   it, a Bernoulli mask from a generator seeded with the site's seed (read
   back to the host: that path is eager only).
+- Data parallelism: a rank's forward over rows b0 .. b0 + B - 1 of a global
+  batch passes its seed row as `SiteSeeds(seeds, b0, rows)`. Every hash site
+  then counts from the rank's first global element, and the attention kernels
+  from batch row b0, so the rank draws its slice of the global batch's masks:
+  the JAX package's sites hash the global element position, and its
+  data-parallel step equals its one-device step, dropout included.
 
 Parameters stay float32. With `dtype="bfloat16"` every projection rounds its
 operands to bf16, sums the products in f32 and rounds the result to bf16 once
@@ -51,9 +57,10 @@ forward's masks and the gradients equal those without remat bit for bit.
 from __future__ import annotations
 
 import functools
+import math
 
 from dataclasses import dataclass
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -149,17 +156,57 @@ class DropoutSeeds:
         ]).to(torch.int32)
 
 
-def dropout(x: torch.Tensor, cfg: T5StackConfig, training: bool, seeds: Optional[torch.Tensor],
+    @staticmethod
+    def fold_in(seeds: torch.Tensor, index: int) -> torch.Tensor:
+        """Host seeds made distinct for `index` (a data-parallel rank), the
+        counterpart of `jax.random.fold_in(key, axis_index)`: each seed is
+        replaced by the murmur3 finaliser of seed XOR (index + 1) *
+        0x9E3779B9, cut to 31 bits. Same int32 shape."""
+        x = (seeds.to(torch.int64) & 0xFFFFFFFF) ^ (((int(index) + 1) * 0x9E3779B9) & 0xFFFFFFFF)
+        for shift, mul in ((16, 0x85EBCA6B), (13, 0xC2B2AE35)):
+            x = ((x ^ (x >> shift)) * mul) & 0xFFFFFFFF
+        return ((x ^ (x >> 16)) & 0x7FFFFFFF).to(torch.int32)
+
+
+class SiteSeeds(NamedTuple):
+    """A forward's dropout seed row with the rows of the global batch that
+    the forward holds: rows b0 .. b0 + B - 1 of a global batch of `rows` (a
+    data-parallel rank's slice). Its sites draw that slice of the global
+    batch's masks."""
+
+    seeds: torch.Tensor  # [>= sites] int32 on the device
+    b0: int
+    rows: int
+
+
+Seeds = Union[torch.Tensor, SiteSeeds]
+
+
+def seed_row(seeds: Optional[Seeds]) -> Tuple[Optional[torch.Tensor], int, Optional[int]]:
+    """(seed row, b0, global rows): a plain row is the whole batch's (b0 =
+    0, rows None)."""
+    if isinstance(seeds, SiteSeeds):
+        return seeds.seeds, int(seeds.b0), int(seeds.rows)
+    return seeds, 0, None
+
+
+def dropout(x: torch.Tensor, cfg: T5StackConfig, training: bool, seeds: Optional[Seeds],
             site: int) -> torch.Tensor:
     """One dropout site at rate cfg.dropout (the identity outside training);
-    its seed is seeds[site], a view on the device."""
+    its seed is seeds[site], a view on the device. With SiteSeeds, batch row
+    0 of x is global row b0 of a batch of `rows`."""
     if not training or cfg.dropout == 0.0:
         return x
-    if seeds is None:
+    row, b0, rows = seed_row(seeds)
+    if row is None:
         raise ValueError("training with dropout needs the step's dropout seeds (an explicit generator)")
-    seed = seeds[site:site + 1]
+    seed = row[site:site + 1]
     if cfg.hash_dropout:
-        return hash_dropout(x, seed, cfg.dropout)
+        per_row = math.prod(x.shape[1:])
+        return hash_dropout(x, seed, cfg.dropout, b0 * per_row, None if rows is None else rows * per_row)
+    if rows is not None and (b0, rows) != (0, x.shape[0]):
+        raise ValueError("a data-parallel rank's dropout needs hash dropout (t5_hash_dropout=True): "
+                         "Bernoulli masks are not a slice of the global batch's")
     keep_prob = 1.0 - cfg.dropout
     g = torch.Generator(device=x.device).manual_seed(int(seed))
     keep = torch.rand(x.shape, device=x.device, generator=g) < keep_prob
@@ -273,7 +320,7 @@ class T5Attention(nn.Module):
         causal: bool = False,
         kv_cache: Optional[tuple] = None,  # precomputed kv_heads() output
         training: bool = False,
-        seeds: Optional[torch.Tensor] = None,
+        seeds: Optional[Seeds] = None,
     ):
         cfg = self.cfg
         cdt = cfg.compute_dtype
@@ -289,11 +336,12 @@ class T5Attention(nn.Module):
                     else torch.zeros(cfg.num_heads, Lq, Lk, device=x.device))
             keys = mask if mask is not None else torch.ones(B, Lk, dtype=torch.int32, device=x.device)
             rate = cfg.dropout if training else 0.0
-            if rate > 0.0 and seeds is None:
+            row, b0, _ = seed_row(seeds)
+            if rate > 0.0 and row is None:
                 raise ValueError("training with dropout needs the step's dropout seeds (an explicit generator)")
-            seed = seeds[self.site:self.site + 1] if rate > 0.0 else None  # the kernels read it on the card
+            seed = row[self.site:self.site + 1] if rate > 0.0 else None  # the kernels read it on the card
             out = t5_attention(q.contiguous(), k.contiguous(), v.contiguous(), bias.contiguous(),
-                               keys.to(torch.int32), seed, causal=causal, dropout_rate=rate)
+                               keys.to(torch.int32), seed, causal=causal, dropout_rate=rate, b0=b0)
             out = out.transpose(1, 2).reshape(B, Lq, cfg.num_heads * cfg.d_kv)
             return dense(out, self.o.weight, cdt), position_bias
 
@@ -319,7 +367,7 @@ class T5FFN(nn.Module):
         self.wi = nn.Linear(cfg.d_model, cfg.d_ff, bias=False, device=device)
         self.wo = nn.Linear(cfg.d_ff, cfg.d_model, bias=False, device=device)
 
-    def forward(self, x: torch.Tensor, training: bool = False, seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, training: bool = False, seeds: Optional[Seeds] = None) -> torch.Tensor:
         cdt = self.cfg.compute_dtype
         h = dropout(torch.relu(dense(x, self.wi.weight, cdt)), self.cfg, training, seeds, self.site)
         return dense(h, self.wo.weight, cdt)
@@ -351,7 +399,7 @@ class T5Block(nn.Module):
         return 6 if is_decoder else 4
 
     def forward(self, x, enc_out=None, self_mask=None, enc_mask=None, position_bias=None,
-                beams: int = 1, cross_kv=None, training: bool = False, seeds: Optional[torch.Tensor] = None):
+                beams: int = 1, cross_kv=None, training: bool = False, seeds: Optional[Seeds] = None):
         drop = lambda h, site: dropout(h, self.cfg, training, seeds, site)
         h, position_bias = self.self_attn(
             self.ln_self(x), mask=self_mask, position_bias=position_bias, causal=self.is_decoder,
@@ -574,7 +622,7 @@ class T5Stack(nn.Module):
         beams: int = 1,  # decoder: input batch = beams * encoder batch
         cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # self.cross_kv()
         training: bool = False,
-        seeds: Optional[torch.Tensor] = None,  # the forward's seed row [>= sites] int32; needed for dropout
+        seeds: Optional[Seeds] = None,  # the forward's seed row [>= sites] int32; needed for dropout
     ) -> torch.Tensor:
         cfg = self.cfg
         if self.use_fused_encode(inputs_embeds.shape[1], training):

@@ -30,6 +30,11 @@ Shapes (cdt = compute dtype, float32 or bfloat16):
           reads it, as the Pallas kernels read seed_ref[0]: nothing waits for
           the host, and a captured launch reads the seed its buffer holds at
           replay. A host int is copied to the device first.
+  b0      the global index of batch row 0 in the dropout counter (a host
+          int, 0 by default): a data-parallel rank holding rows b0 .. b0 + B - 1
+          of the global batch draws that batch's masks, as the Pallas kernel's
+          counter is the logical (batch, head, q, k) position. The kernels take
+          it as a launch argument, so a captured launch keeps it.
   out     [B, H, Lq, dk]  cdt
 """
 
@@ -57,13 +62,13 @@ GROUP_TARGET_BLOCKS = {"whole_row": 264, "cuda_cores": 528}
 TILED_PARTIAL_BYTES = 48 << 20
 _C = ctypes.c_void_p
 _ARGTYPES = [ctypes.c_int, ctypes.POINTER(_C), ctypes.POINTER(ctypes.c_int), _C,
-             ctypes.c_uint, ctypes.c_float, ctypes.c_int, _C]
+             ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_int, _C]
 _FUNCTIONS = {"attention_forward": _ARGTYPES, "attention_route": [ctypes.c_int] * 3}
 _BWD_FUNCTIONS = {"attention_backward": _ARGTYPES, "attention_backward_route": [ctypes.c_int] * 4}
 _PLAIN_CHUNK_ELEMS = 1 << 26  # score elements held at once by the plain versions
 
 
-def _check(q, k, v, bias, mask, causal, dropout_rate):
+def _check(q, k, v, bias, mask, causal, dropout_rate, b0=0):
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 or q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
         raise ValueError(f"q [B, H, Lq, dk] and k, v [B, H, Lk, dk]; got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -79,6 +84,8 @@ def _check(q, k, v, bias, mask, causal, dropout_rate):
         raise ValueError("causal attention assumes Lq == Lk")
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"dropout_rate {dropout_rate} outside [0, 1)")
+    if not 0 <= b0 < 2**31 - B:
+        raise ValueError(f"b0 {b0}: the global batch index of row 0 must be in [0, 2^31 - B)")
     return B, H, Lq, Lk, dk
 
 
@@ -107,27 +114,27 @@ def _additive_masks(mask, causal, Lq, Lk, dev):
 
 
 def t5_attention_plain(q, k, v, bias, mask, seed=0, *, causal: bool = False,
-                       dropout_rate: float = 0.0) -> torch.Tensor:
+                       dropout_rate: float = 0.0, b0: int = 0) -> torch.Tensor:
     """The forward kernel's arithmetic in torch, a few batch rows at a time so
     the [B, H, Lq, Lk] float32 scores are never held whole."""
-    B, H, Lq, Lk, _ = _check(q, k, v, bias, mask, causal, dropout_rate)
+    B, H, Lq, Lk, _ = _check(q, k, v, bias, mask, causal, dropout_rate, b0)
     cdt, dev = q.dtype, q.device
     out = torch.empty_like(q)
     madd, cadd = _additive_masks(mask, causal, Lq, Lk, dev)
-    for b0, b1 in _chunks(B, H, Lq, Lk):
-        p = _plain_probs(q, k, bias, madd, cadd, b0, b1)
+    for r0, r1 in _chunks(B, H, Lq, Lk):
+        p = _plain_probs(q, k, bias, madd, cadd, r0, r1)
         if dropout_rate > 0.0:
-            keep = attention_keep_mask(seed, b1 - b0, H, Lq, Lk, dropout_rate, dev, b0)
+            keep = attention_keep_mask(seed, r1 - r0, H, Lq, Lk, dropout_rate, dev, b0 + r0)
             p = torch.where(keep, p, 0.0) * (1.0 / (1.0 - dropout_rate))
-        out[b0:b1] = (p.to(cdt).float() @ v[b0:b1].float()).to(cdt)
+        out[r0:r1] = (p.to(cdt).float() @ v[r0:r1].float()).to(cdt)
     return out
 
 
 def t5_attention_backward_plain(q, k, v, bias, mask, seed, do, *, causal: bool = False,
-                                dropout_rate: float = 0.0):
+                                dropout_rate: float = 0.0, b0: int = 0):
     """(dq, dk, dv, dbias): the backward kernel's arithmetic in torch, with
     the reference's rounding points, a few batch rows at a time."""
-    B, H, Lq, Lk, _ = _check(q, k, v, bias, mask, causal, dropout_rate)
+    B, H, Lq, Lk, _ = _check(q, k, v, bias, mask, causal, dropout_rate, b0)
     if do.shape != q.shape or do.dtype != q.dtype:
         raise ValueError(f"do: want {tuple(q.shape)} {q.dtype}, got {tuple(do.shape)} {do.dtype}")
     cdt, dev = q.dtype, q.device
@@ -135,21 +142,21 @@ def t5_attention_backward_plain(q, k, v, bias, mask, seed, do, *, causal: bool =
     dbias = torch.zeros(H, Lq, Lk, dtype=torch.float32, device=dev)
     madd, cadd = _additive_masks(mask, causal, Lq, Lk, dev)
     scale = 1.0 / (1.0 - dropout_rate)
-    for b0, b1 in _chunks(B, H, Lq, Lk):
-        p = _plain_probs(q, k, bias, madd, cadd, b0, b1)
-        dof = do[b0:b1].float()
-        dpd = dof @ v[b0:b1].float().transpose(-1, -2)
+    for r0, r1 in _chunks(B, H, Lq, Lk):
+        p = _plain_probs(q, k, bias, madd, cadd, r0, r1)
+        dof = do[r0:r1].float()
+        dpd = dof @ v[r0:r1].float().transpose(-1, -2)
         if dropout_rate > 0.0:
-            keep = attention_keep_mask(seed, b1 - b0, H, Lq, Lk, dropout_rate, dev, b0)
+            keep = attention_keep_mask(seed, r1 - r0, H, Lq, Lk, dropout_rate, dev, b0 + r0)
             pd = torch.where(keep, p, 0.0) * scale
             dp = torch.where(keep, dpd, 0.0) * scale
         else:
             pd, dp = p, dpd
-        dv[b0:b1] = (pd.to(cdt).float().transpose(-1, -2) @ dof).to(cdt)
+        dv[r0:r1] = (pd.to(cdt).float().transpose(-1, -2) @ dof).to(cdt)
         ds = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))
         ds_c = ds.to(cdt).float()
-        dq[b0:b1] = (ds_c @ k[b0:b1].float()).to(cdt)
-        dk[b0:b1] = (ds_c.transpose(-1, -2) @ q[b0:b1].float()).to(cdt)
+        dq[r0:r1] = (ds_c @ k[r0:r1].float()).to(cdt)
+        dk[r0:r1] = (ds_c.transpose(-1, -2) @ q[r0:r1].float()).to(cdt)
         dbias += ds.sum(0)
     return dq, dk, dv, dbias
 
@@ -190,13 +197,13 @@ def _dropout_args(seed, dropout_rate, dev):
     return None, None, 0, 1.0, 0
 
 
-def _forward_cuda(q, k, v, bias, mask, seed, causal, dropout_rate, with_stats):
+def _forward_cuda(q, k, v, bias, mask, seed, causal, dropout_rate, with_stats, b0=0):
     """Launch the forward kernel. Returns (out, row_max, row_sum, keep_bits):
     the two statistics [B, H, Lq] f32 are None unless `with_stats`; keep_bits
     (the tiled route's dropout keep bits, [B, H, Lq, ceil(Lk / 64), 2] int32,
     one 64-bit word per row and 64-key tile, for the backward) only with
     `with_stats`, dropout and the tiled route, else None. `mask` is int32."""
-    B, H, Lq, Lk, dk = _check(q, k, v, bias, mask, causal, dropout_rate)
+    B, H, Lq, Lk, dk = _check(q, k, v, bias, mask, causal, dropout_rate, b0)
     if Lk == 0:
         raise ValueError("attention over no keys")
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
@@ -214,7 +221,7 @@ def _forward_cuda(q, k, v, bias, mask, seed, causal, dropout_rate, with_stats):
     seed, seed_ptr, thresh, scale, on = _dropout_args(seed, dropout_rate, q.device)
     with torch.cuda.device(q.device):  # the kernel launches on the current device
         rc = lib.attention_forward(int(q.dtype == torch.bfloat16), ptrs, dims, seed_ptr, thresh, scale, on,
-                                   torch.cuda.current_stream(q.device).cuda_stream)
+                                   int(b0), torch.cuda.current_stream(q.device).cuda_stream)
     t5_attention.launches += 1
     check_launch(lib, rc, "attention")
     return results
@@ -240,13 +247,13 @@ def backward_groups(B: int, H: int, Lq: int, Lk: int | None = None, dk: int = TE
 
 
 def _backward_cuda(q, k, v, bias, mask, seed, do, row_max, row_sum, causal, dropout_rate, groups=None,
-                   keep_bits=None):
+                   keep_bits=None, b0=0):
     """Launch the backward kernel. `mask` is int32; row_max / row_sum (and,
     when the forward wrote them, keep_bits) are the forward's; without
     keep_bits the kernels hash the keep bits anew (the same bits); `groups`
     (default `backward_groups`) only changes the order in which dbias is
     summed."""
-    B, H, Lq, Lk, dk = _check(q, k, v, bias, mask, causal, dropout_rate)
+    B, H, Lq, Lk, dk = _check(q, k, v, bias, mask, causal, dropout_rate, b0)
     do = launch_operand(do)
     if do.shape != q.shape or do.dtype != q.dtype:
         raise ValueError(f"do: want {tuple(q.shape)} {q.dtype}, got {tuple(do.shape)} {do.dtype}")
@@ -273,7 +280,7 @@ def _backward_cuda(q, k, v, bias, mask, seed, do, row_max, row_sum, causal, drop
     seed, seed_ptr, thresh, scale, on = _dropout_args(seed, dropout_rate, dev)
     with torch.cuda.device(dev):  # the kernels launch on the current device
         rc = lib.attention_backward(int(q.dtype == torch.bfloat16), ptrs, dims, seed_ptr, thresh, scale, on,
-                                    torch.cuda.current_stream(dev).cuda_stream)
+                                    int(b0), torch.cuda.current_stream(dev).cuda_stream)
     t5_attention.backward_launches += 1
     check_launch(lib, rc, "attention backward")
     return dq, dk_, dv, dbias
@@ -286,32 +293,33 @@ class _T5Attention(torch.autograd.Function):
     score); never the [B, H, Lq, Lk] probabilities."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, mask, seed, causal, dropout_rate):
-        ctx.causal, ctx.dropout_rate = causal, dropout_rate
+    def forward(ctx, q, k, v, bias, mask, seed, causal, dropout_rate, b0):
+        ctx.causal, ctx.dropout_rate, ctx.b0 = causal, dropout_rate, b0
         if q.device.type == "cpu":
             ctx.save_for_backward(q, k, v, bias, mask, seed)
-            return t5_attention_plain(q, k, v, bias, mask, seed, causal=causal, dropout_rate=dropout_rate)
-        out, *stats = _forward_cuda(q, k, v, bias, mask, seed, causal, dropout_rate, with_stats=True)
+            return t5_attention_plain(q, k, v, bias, mask, seed, causal=causal, dropout_rate=dropout_rate, b0=b0)
+        out, *stats = _forward_cuda(q, k, v, bias, mask, seed, causal, dropout_rate, with_stats=True, b0=b0)
         ctx.save_for_backward(q, k, v, bias, mask, seed, *(t for t in stats if t is not None))
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, bias, mask, seed, *stats = ctx.saved_tensors
-        kw = dict(causal=ctx.causal, dropout_rate=ctx.dropout_rate)
+        kw = dict(causal=ctx.causal, dropout_rate=ctx.dropout_rate, b0=ctx.b0)
         if q.device.type == "cpu":
             grads = t5_attention_backward_plain(q, k, v, bias, mask, seed, do, **kw)
         else:
             row_max, row_sum, *bits = stats
             grads = _backward_cuda(q, k, v, bias, mask, seed, do, row_max, row_sum,
                                    keep_bits=bits[0] if bits else None, **kw)
-        return (*grads, None, None, None, None)
+        return (*grads, None, None, None, None, None)
 
 
 def t5_attention(q, k, v, bias, mask, seed=0, *, causal: bool = False,
-                 dropout_rate: float = 0.0) -> torch.Tensor:
+                 dropout_rate: float = 0.0, b0: int = 0) -> torch.Tensor:
     """softmax(q k^T + bias + mask [+ causal]) [dropout] @ v, [B, H, Lq, dk]
-    at q's dtype, differentiable in q, k, v and bias. CUDA tensors launch the
+    at q's dtype, differentiable in q, k, v and bias; the dropout counter
+    counts batch rows from `b0`. CUDA tensors launch the
     kernels (forwards counted in `t5_attention.launches`, backwards in
     `t5_attention.backward_launches`) on operands of any layout and offset;
     CPU tensors take the plain versions."""
@@ -326,10 +334,10 @@ def t5_attention(q, k, v, bias, mask, seed=0, *, causal: bool = False,
         mask = launch_operand(mask.to(torch.int32))
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, bias)):
         seed = seed_tensor(seed, q.device) if dropout_rate > 0.0 else None  # saved for the backward
-        return _T5Attention.apply(q, k, v, bias, mask, seed, bool(causal), dropout_rate)
+        return _T5Attention.apply(q, k, v, bias, mask, seed, bool(causal), dropout_rate, int(b0))
     if q.device.type == "cpu":
-        return t5_attention_plain(q, k, v, bias, mask, seed, causal=causal, dropout_rate=dropout_rate)
-    return _forward_cuda(q, k, v, bias, mask, seed, causal, dropout_rate, with_stats=False)[0]
+        return t5_attention_plain(q, k, v, bias, mask, seed, causal=causal, dropout_rate=dropout_rate, b0=b0)
+    return _forward_cuda(q, k, v, bias, mask, seed, causal, dropout_rate, with_stats=False, b0=b0)[0]
 
 
 t5_attention.launches = 0

@@ -20,6 +20,13 @@ mask in the backward pass. Its masks are built in wrapping int32 arithmetic
 uint32 products do, a logical right shift is an arithmetic one with the
 sign-extended bits masked off, and the unsigned compare is a signed compare
 after flipping both sign bits. The bits are the same.
+
+Data parallelism: the JAX package's masks are a hash of the GLOBAL element
+position (its keep_mask iota runs over the global shape that GSPMD sees). A
+rank that holds a contiguous slice of the global batch passes `offset`, the
+linear index of its first element in the global array, and `total`, the
+global element count: its mask is then that slice of the global mask, and the
+2^32 overflow check is made on the global count, as the JAX check is.
 """
 
 from __future__ import annotations
@@ -74,18 +81,32 @@ def hash_keep_bits(counter: torch.Tensor, seed: Seed, rate: float) -> torch.Tens
     return x >= keep_threshold(rate)
 
 
-def keep_mask(seed: Seed, shape: Sequence[int], rate: float, device=None) -> torch.Tensor:
-    """[shape] bool keep mask: hash_keep_bits of the linear element index."""
+def _check_span(shape: Sequence[int], offset: int, total) -> int:
+    """The element count of `shape`, after checking that elements offset ..
+    offset + n - 1 lie in a global array of `total` (default offset + n)
+    elements whose linear index fits the uint32 counter."""
     n = math.prod(shape)
-    if n >= 2**32:
+    total = offset + n if total is None else int(total)
+    if offset < 0 or offset + n > total:
+        raise ValueError(f"elements {offset} .. {offset + n - 1} lie outside a global array of {total}")
+    if total >= 2**32:
         raise ValueError(
-            f"keep_mask over {tuple(shape)}: {n} elements overflows the uint32 linear counter "
-            "(masks would silently repeat)"
+            f"keep_mask over {tuple(shape)} in a global array of {total} elements overflows the uint32 "
+            "linear counter (masks would silently repeat)"
         )
-    if n < 2**31:  # the counters fit int32 as they are
-        counter = torch.arange(n, dtype=torch.int32, device=device)
+    return n
+
+
+def keep_mask(seed: Seed, shape: Sequence[int], rate: float, device=None, offset: int = 0,
+              total=None) -> torch.Tensor:
+    """[shape] bool keep mask: hash_keep_bits of the linear element index,
+    counted from `offset` (the first element's index in a global array of
+    `total` elements; by default the array is this one)."""
+    n = _check_span(shape, offset, total)
+    if offset + n < 2**31:  # the counters fit int32 as they are
+        counter = torch.arange(offset, offset + n, dtype=torch.int32, device=device)
     else:
-        counter = _as_i32(torch.arange(n, dtype=torch.int64, device=device))
+        counter = _as_i32(torch.arange(offset, offset + n, dtype=torch.int64, device=device))
     return _keep_bits_i32(counter, seed, rate).reshape(tuple(shape))
 
 
@@ -114,28 +135,29 @@ def keep_scale(rate: float, dtype: torch.dtype) -> float:
 
 class _HashDropout(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, seed, rate):
+    def forward(ctx, x, seed, rate, offset, total):
         ctx.save_for_backward(seed)
-        ctx.rate = rate
-        return _drop(x, seed, rate)
+        ctx.rate, ctx.offset, ctx.total = rate, offset, total
+        return _drop(x, seed, rate, offset, total)
 
     @staticmethod
     def backward(ctx, g):
         (seed,) = ctx.saved_tensors
-        return _drop(g, seed, ctx.rate), None, None
+        return _drop(g, seed, ctx.rate, ctx.offset, ctx.total), None, None, None, None
 
 
-def _drop(x: torch.Tensor, seed: torch.Tensor, rate: float) -> torch.Tensor:
-    keep = keep_mask(seed, x.shape, rate, x.device)
+def _drop(x: torch.Tensor, seed: torch.Tensor, rate: float, offset: int, total) -> torch.Tensor:
+    keep = keep_mask(seed, x.shape, rate, x.device, offset, total)
     return torch.where(keep, x, 0) * keep_scale(rate, x.dtype)
 
 
-def hash_dropout(x: torch.Tensor, seed: Seed, rate: float) -> torch.Tensor:
+def hash_dropout(x: torch.Tensor, seed: Seed, rate: float, offset: int = 0, total=None) -> torch.Tensor:
     """Dropout(x) with keep probability 1 - rate, kept values scaled by
     1/(1-rate) at x's dtype. `seed`: a 1-element int32 tensor on x's device
-    (or a host int). The backward pass applies the same mask to the
-    gradient, rebuilt from the seed: no mask is saved."""
-    return _HashDropout.apply(x, seed_tensor(seed, x.device), float(rate))
+    (or a host int). The mask counts from `offset` in a global array of
+    `total` elements (keep_mask). The backward pass applies the same mask to
+    the gradient, rebuilt from the seed: no mask is saved."""
+    return _HashDropout.apply(x, seed_tensor(seed, x.device), float(rate), int(offset), total)
 
 
 def attention_keep_mask(seed: Seed, batch: int, heads: int, lq: int, lk: int, rate: float,

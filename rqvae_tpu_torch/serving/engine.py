@@ -8,7 +8,7 @@ return. Every (batch, items) bucket is one fixed shape, the counterpart of
 the JAX package's one compiled program per shape.
 
 On the card each bucket runs as one CUDA graph of the whole query
-(`Retriever._retrieve_body`: tokenization from the table, the encoder, every
+(`Retriever.shard_body`: tokenization from the table, the encoder, every
 beam level and the inverse lookup), captured once, at `warmup()` or at the
 bucket's first use, after one eager run on the engine's side stream (which
 builds the kernel libraries and sets their launch attributes outside the
@@ -21,6 +21,13 @@ static inputs without blocking, replays, and copies the three results into
 pinned host buffers of its own, then records an event; `finalize_many` waits on the event. A capture that
 fails raises: the card has no eager fallback. CPU tensors run eagerly, as
 the tests run them.
+
+Over a mesh-sharded Retriever (serving/retriever.py, `mesh=`) every batch
+bucket is rounded up to a multiple of the mesh's 'data' size, as the JAX
+engine rounds its buckets, and a bucket is one graph per shard, each
+captured on its shard's device (`Retriever.shard_body` on its rows), with a
+stream and a memory pool per device; a dispatch replays every shard's graph
+and the event is recorded after all of them.
 """
 
 from __future__ import annotations
@@ -47,9 +54,10 @@ def _default_item_buckets(max_items: int) -> tuple:
 
 
 class BucketGraph(NamedTuple):
-    """One captured bucket: static device inputs, the graph, static outputs."""
+    """One shard of a captured bucket: static device inputs, the graph,
+    static outputs (a bucket is a tuple of them, one per shard)."""
 
-    hist: torch.Tensor  # [bb, ib] int32
+    hist: torch.Tensor  # [bb / shards, ib] int32
     uids: torch.Tensor  # [bb] int32
     noise: Optional[List[torch.Tensor]]  # sampled candidates: each level's Gumbel noise
     graph: "torch.cuda.CUDAGraph"
@@ -69,8 +77,9 @@ class RetrievalEngine:
 
     `max_items` is the longest history served; a longer one keeps its most
     recent `max_items` items. `cuda_graphs=False` runs the card eagerly, for
-    timing eager against replay only. Batch buckets are taken as given: one
-    card, no mesh whose size they would have to divide."""
+    timing eager against replay only. Batch buckets are rounded up to
+    multiples of the retriever's `batch_multiple` (its mesh's 'data' size; 1
+    without a mesh)."""
 
     def __init__(
         self,
@@ -85,14 +94,17 @@ class RetrievalEngine:
         self.item_buckets = tuple(sorted(item_buckets) if item_buckets else _default_item_buckets(self.max_items))
         if self.item_buckets[-1] < self.max_items:
             raise ValueError("the largest item bucket must cover max_items")
-        self.batch_buckets = tuple(sorted(set(batch_buckets)))
+        m = retriever.batch_multiple
+        self.batch_buckets = tuple(sorted({max(-(-b // m) * m, m) for b in batch_buckets}))
         self.shape_counts: dict = {}  # batches run at each (batch, items) shape
         self.device = retriever.device
         self.use_graphs = self.device.type == "cuda" and cuda_graphs
-        self.graphs: dict = {}  # (batch bucket, item bucket) -> BucketGraph
+        self.graphs: dict = {}  # (batch bucket, item bucket) -> (BucketGraph of each shard, ...)
         if self.use_graphs:
-            self.stream = torch.cuda.Stream(self.device)
-            self.pool = torch.cuda.graph_pool_handle()
+            devices = [s.table.device for s in retriever.shards]
+            self.streams = {d: torch.cuda.Stream(d) for d in dict.fromkeys(devices)}
+            self.pools = {d: torch.cuda.graph_pool_handle() for d in self.streams}
+            self.stream = self.streams[self.device]
 
     def _bucket_for(self, n: int, buckets: tuple) -> int:
         for b in buckets:
@@ -102,31 +114,41 @@ class RetrievalEngine:
 
     # ---- graphs ----
 
-    def _capture(self, bb: int, ib: int) -> BucketGraph:
+    def _capture_shard(self, body, dev: torch.device, bb: int, ib: int) -> BucketGraph:
+        """The graph of `body` over bb rows of ib items on `dev`."""
         r = self.retriever
-        hist = torch.full((bb, ib), -1, dtype=torch.int32, device=self.device)
+        hist = torch.full((bb, ib), -1, dtype=torch.int32, device=dev)
         hist[:, 0] = 0  # one valid item per row
-        uids = torch.zeros(bb, dtype=torch.int32, device=self.device)
+        uids = torch.zeros(bb, dtype=torch.int32, device=dev)
         noise = r.draw_noise(bb)
         if noise is not None:
-            noise = [g.to(self.device) for g in noise]
-        self.stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.no_grad(), torch.cuda.stream(self.stream):
-            r._retrieve_body(hist, uids, noise)  # eager: builds, loads and sets up every kernel first
-        graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept, so its nodes can be read (debug_dump)
-        gc.collect()  # no graph of a dead cycle may be destroyed while this one captures
-        try:
-            # thread_local: a resolver thread's event waits do not void a capture
-            with torch.no_grad(), torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
-                                                   capture_error_mode="thread_local"):
-                out = r._retrieve_body(hist, uids, noise)
-            graph.instantiate()
-        except Exception as e:
-            end_failed_capture(self.device)
-            raise RuntimeError(f"CUDA graph capture of bucket (batch {bb}, items {ib}) failed: {e}") from e
+            noise = [g.to(dev) for g in noise]
+        stream = self.streams[dev]
+        with torch.cuda.device(dev):
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.no_grad(), torch.cuda.stream(stream):
+                body(hist, uids, noise)  # eager: builds, loads and sets up every kernel first
+            graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept, so its nodes can be read (debug_dump)
+            gc.collect()  # no graph of a dead cycle may be destroyed while this one captures
+            try:
+                # thread_local: a resolver thread's event waits do not void a capture
+                with torch.no_grad(), torch.cuda.graph(graph, pool=self.pools[dev], stream=stream,
+                                                       capture_error_mode="thread_local"):
+                    out = body(hist, uids, noise)
+                graph.instantiate()
+            except Exception as e:
+                end_failed_capture(dev)
+                raise RuntimeError(f"CUDA graph capture of bucket (batch {bb}, items {ib}) failed: {e}") from e
         return BucketGraph(hist, uids, noise, graph, out)
 
-    def graph_for(self, bb: int, ib: int) -> BucketGraph:
+    def _capture(self, bb: int, ib: int) -> tuple:
+        """A bucket's graphs: each shard's on its device (one without a mesh)."""
+        r = self.retriever
+        rows = bb // r.batch_multiple
+        return tuple(self._capture_shard(lambda h, u, n, i=i: r.shard_body(i, h, u, n), s.table.device, rows, ib)
+                     for i, s in enumerate(r.shards))
+
+    def graph_for(self, bb: int, ib: int) -> tuple:
         """The bucket's graph, captured at first use."""
         g = self.graphs.get((bb, ib))
         if g is None:
@@ -138,22 +160,31 @@ class RetrievalEngine:
 
     def _replay(self, padded: np.ndarray, users: np.ndarray) -> _InFlight:
         bb, ib = padded.shape
-        g = self.graph_for(bb, ib)
+        shards = self.graph_for(bb, ib)
         r = self.retriever
+        rows = bb // len(shards)
         hist_host = torch.from_numpy(padded).pin_memory()
         uids_host = torch.from_numpy(users).pin_memory()
-        noise = r.draw_noise(bb)
-        host = RetrievalResult(*(torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in g.out))
+        host = RetrievalResult(*(torch.empty((bb, *t.shape[1:]), dtype=t.dtype, pin_memory=True)
+                                 for t in shards[0].out))
         event = torch.cuda.Event()
-        with r._lock, torch.cuda.device(self.device), torch.cuda.stream(self.stream):
-            g.hist.copy_(hist_host, non_blocking=True)
-            g.uids.copy_(uids_host, non_blocking=True)
-            if noise is not None:
-                for buf, n in zip(g.noise, noise):
-                    buf.copy_(n.pin_memory(), non_blocking=True)
-            g.graph.replay()
-            for h, t in zip(host, g.out):
-                h.copy_(t, non_blocking=True)
+        with r._lock:
+            for i, g in enumerate(shards):
+                part = slice(i * rows, (i + 1) * rows)
+                noise = r.draw_noise(rows)  # each shard draws its own
+                dev = g.hist.device
+                with torch.cuda.device(dev), torch.cuda.stream(self.streams[dev]):
+                    g.hist.copy_(hist_host[part], non_blocking=True)
+                    g.uids.copy_(uids_host[part], non_blocking=True)
+                    if noise is not None:
+                        for buf, n in zip(g.noise, noise):
+                            buf.copy_(n.pin_memory(), non_blocking=True)
+                    g.graph.replay()
+                    for h, t in zip(host, g.out):
+                        h[part].copy_(t, non_blocking=True)
+            for stream in self.streams.values():  # the event follows every shard's copies
+                if stream is not self.stream:
+                    self.stream.wait_stream(stream)
             event.record(self.stream)
         return _InFlight(host, event)
 

@@ -10,10 +10,28 @@ Live catalog growth: with `capacity=<max corpus size>`, `extend_corpus`
 admits new items. Every corpus-sized tensor (the tokenize table, the packed
 keys, the sorted keys and items, each prefix-trie level) is allocated once at
 `capacity` and only ever updated in place, so a CUDA graph captured over
-`_retrieve_body` (serving/engine.py) reads the grown corpus. A lock orders
+`shard_body` (serving/engine.py) reads the grown corpus. A lock orders
 each update step against every query's enqueue, and the card is
 synchronised around each step, so a query sees the corpus before or after a
 step, never half of one.
+
+Scale-out serving (`mesh`, parallel/mesh.py), the counterpart of the JAX
+package's `make_shardmap_generate` and `Retriever(mesh=)`: the query batch is
+padded with empty rows to a multiple of `batch_multiple` (the mesh's 'data'
+size), split into contiguous shards, and each shard runs the whole query
+(tokenization, the encoder, every beam level with kernels 2 and 3, the
+inverse lookup) on its device, over the model and corpus state replicated
+there; the shards' results are concatenated and the pad rows dropped.
+Without a mesh the batch is one shard on the retriever's own device: the
+same path, with no pad and no copy. Beam search is row independent, so no
+collective is needed, and a shard's deterministic beams equal the unsharded
+Retriever's on the same rows. Against one call on the whole batch they are
+equal in f32; in bf16 a plain stage's cuBLAS products (the encoder and
+cross K/V at the Amazon width, the decoder at ML-32M's) round otherwise at
+another batch size, and some beams move. In sampled-candidate mode each shard draws
+its own noise (the JAX shards fold their axis index into the key). The JAX
+package's `_promote_serving_gates` has no counterpart: the port's kernel
+gates never decline a device because there are several.
 """
 
 from __future__ import annotations
@@ -28,7 +46,8 @@ import torch
 from rqvae_tpu_torch.models.retrieval import EncoderDecoderRetrievalModel
 from rqvae_tpu_torch.ops.dedup import pack_sem_id_tuples
 from rqvae_tpu_torch.ops.gumbel import sample_gumbel
-from rqvae_tpu_torch.serving.beam import _sentinel, build_prefix_table, extend_prefix_table
+from rqvae_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, replicate
+from rqvae_tpu_torch.serving.beam import PrefixTable, _sentinel, build_prefix_table, extend_prefix_table
 from rqvae_tpu_torch.tokenizer.semids import SemanticIdTokenizer, _tokenize_from_cache
 from rqvae_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -37,6 +56,17 @@ class RetrievalResult(NamedTuple):
     item_ids: torch.Tensor  # [B, k] corpus item ids (-1 where no valid beam)
     sem_ids: torch.Tensor  # [B, k, L]
     log_probas: torch.Tensor  # [B, k]
+
+
+class ShardState(NamedTuple):
+    """What one shard's query reads on its device: the model and the corpus
+    state (the retriever's own tensors on its device, copies elsewhere)."""
+
+    model: EncoderDecoderRetrievalModel
+    table: torch.Tensor
+    sorted_keys: torch.Tensor
+    sorted_items: torch.Tensor
+    prefix_table: PrefixTable
 
 
 class Retriever:
@@ -54,6 +84,7 @@ class Retriever:
         index_path: Optional[str] = None,
         device: DeviceLike = None,
         precision: str = "bf16",  # the index build's, as SemanticIdTokenizer's
+        mesh: Optional[Mesh] = None,  # shard the index build and every query over its 'data' axis
     ) -> "Retriever":
         """Load both stage checkpoints (either format: the JAX package's
         `.msgpack` or this package's `.pt`), take the corpus index from
@@ -66,14 +97,14 @@ class Retriever:
         from rqvae_tpu_torch.models.rqvae import RqVae, RqVaeConfig
         from rqvae_tpu_torch.utils import checkpoint as ckpt_lib
 
-        dev = resolve_device(device)
+        dev = resolve_device(mesh.data_devices[0] if device is None and mesh is not None else device)
         restored = ckpt_lib.load_checkpoint(rqvae_checkpoint)
         if not isinstance(restored["config"], RqVaeConfig):
             raise ValueError(f"{rqvae_checkpoint} is not an RQ-VAE checkpoint")
         rq = RqVae(restored["config"], device=dev)
         rq.load_state_dict(ckpt_lib.params_state_dict(restored))
         tokenizer = SemanticIdTokenizer(rq, tokenize_batch_size=tokenize_batch_size, precision=precision,
-                                        device=dev)
+                                        device=dev, mesh=mesh)
         if index_path is not None and os.path.exists(index_path):
             tokenizer.load_index(index_path)
         else:
@@ -86,7 +117,7 @@ class Retriever:
             raise ValueError(f"{decoder_checkpoint} is not a decoder checkpoint")
         model = EncoderDecoderRetrievalModel(restored["config"], device=dev)
         model.load_state_dict(ckpt_lib.params_state_dict(restored))
-        return cls(model, tokenizer, device=dev, capacity=capacity)
+        return cls(model, tokenizer, device=dev, capacity=capacity, mesh=mesh)
 
     def __init__(
         self,
@@ -95,10 +126,13 @@ class Retriever:
         device: DeviceLike = None,
         seed: Optional[int] = None,  # sampled candidates: the generator's seed (None: a random one)
         capacity: Optional[int] = None,  # the most items served; extend_corpus admits up to it
+        mesh: Optional[Mesh] = None,  # shard every query's batch over the mesh's 'data' axis
     ):
         if tokenizer.cached_ids is None:
             raise ValueError("Tokenizer has no corpus index; call precompute_corpus_ids first")
-        self.device = resolve_device(device)
+        self.device = resolve_device(mesh.data_devices[0] if device is None and mesh is not None else device)
+        self.mesh = mesh
+        self.batch_multiple = 1 if mesh is None else mesh.shape[DATA_AXIS]  # a query batch is padded to this
         if tokenizer.device != self.device:
             raise ValueError(f"tokenizer is on {tokenizer.device}, retriever on {self.device}")
         self.model = model.to(self.device).eval()
@@ -139,11 +173,33 @@ class Retriever:
         self._sorted_keys = torch.empty_like(self._keys_cap)
         self._sorted_items = torch.empty(cap, dtype=torch.int32, device=self.device)
         self._resort_inverse()
+        own = ShardState(self.model, self._table, self._sorted_keys, self._sorted_items, self.prefix_table)
+        self._state = own
+        devices = [self.device] if self.mesh is None else self.mesh.data_devices
+        models = replicate(self.model, devices)
+        copies = {d: own if d == self.device else ShardState(
+            models[d], self._table.to(d), self._sorted_keys.to(d), self._sorted_items.to(d),
+            PrefixTable(tuple(t.to(d) for t in self.prefix_table.level_keys), self.prefix_table.bits))
+            for d in models}
+        self.shards: List[ShardState] = [copies[d] for d in devices]  # one per 'data' shard
+
+    def _refresh_copies(self) -> None:
+        """Write the corpus state into the other devices' copies, in place."""
+        for s in dict.fromkeys(self.shards):
+            if s is not self._state:
+                for dst, src in zip((s.table, s.sorted_keys, s.sorted_items, *s.prefix_table.level_keys),
+                                    (self._table, self._sorted_keys, self._sorted_items,
+                                     *self.prefix_table.level_keys)):
+                    dst.copy_(src)
 
     def corpus_tensors(self) -> List[torch.Tensor]:
-        """Every corpus-sized tensor a query reads (what a captured graph holds)."""
-        return [self._table, self._keys_cap, self._sorted_keys, self._sorted_items,
-                *self.prefix_table.level_keys]
+        """Every corpus-sized tensor a query reads (what a captured graph
+        holds), the other devices' copies included."""
+        out = [self._table, self._keys_cap, self._sorted_keys, self._sorted_items, *self.prefix_table.level_keys]
+        for s in dict.fromkeys(self.shards):
+            if s is not self._state:
+                out += [s.table, s.sorted_keys, s.sorted_items, *s.prefix_table.level_keys]
+        return out
 
     def _resort_inverse(self) -> None:
         """Sorted (key, earliest item) view of the packed keys, written into
@@ -155,8 +211,9 @@ class Retriever:
         self._sorted_items.copy_(torch.where(keys != self._sentinel, order, -1))
 
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for s in dict.fromkeys(self.shards):
+            if s.table.device.type == "cuda":
+                torch.cuda.synchronize(s.table.device)
 
     def _update(self, step) -> None:
         """One corpus update step under the lock, with the card idle before
@@ -165,6 +222,7 @@ class Retriever:
         with self._lock:
             self._sync()
             step()
+            self._refresh_copies()
             self._sync()
 
     @torch.no_grad()
@@ -203,20 +261,26 @@ class Retriever:
             return None
         return [sample_gumbel(shape, self._generator) for shape in self.model.sampling_noise_shapes(batch)]
 
-    def _retrieve_body(self, hist: torch.Tensor, uids: torch.Tensor,
-                       noise: Optional[List[torch.Tensor]] = None) -> RetrievalResult:
-        """The whole query on device tensors, with no host read: what a CUDA
-        graph captures (serving/engine.py)."""
-        tok = _tokenize_from_cache(self._table, uids, hist, torch.zeros_like(uids), hist >= 0)
-        gen = self.model.generate(tok.sem_ids, tok.seq_mask, tok.user_ids, self.prefix_table, noise=noise)
+    def shard_body(self, i: int, hist: torch.Tensor, uids: torch.Tensor,
+                   noise: Optional[List[torch.Tensor]] = None) -> RetrievalResult:
+        """Shard i's whole query on its device's tensors, with no host read:
+        what a CUDA graph captures (serving/engine.py), one per shard."""
+        s = self.shards[i]
+        tok = _tokenize_from_cache(s.table, uids, hist, torch.zeros_like(uids), hist >= 0)
+        gen = s.model.generate(tok.sem_ids, tok.seq_mask, tok.user_ids, s.prefix_table, noise=noise)
         tuple_keys = pack_sem_id_tuples(gen.sem_ids, self.model.config.codebook_size)  # [B, k]
         idx = torch.clamp(
-            torch.searchsorted(self._sorted_keys, tuple_keys.contiguous(), side="left"),
-            0, self._sorted_keys.shape[0] - 1,
+            torch.searchsorted(s.sorted_keys, tuple_keys.contiguous(), side="left"),
+            0, s.sorted_keys.shape[0] - 1,
         )
-        found = self._sorted_keys[idx] == tuple_keys
-        items = torch.where(found, self._sorted_items[idx], -1)
+        found = s.sorted_keys[idx] == tuple_keys
+        items = torch.where(found, s.sorted_items[idx], -1)
         return RetrievalResult(item_ids=items, sem_ids=gen.sem_ids, log_probas=gen.log_probas)
+
+    def _retrieve_body(self, hist: torch.Tensor, uids: torch.Tensor,
+                       noise: Optional[List[torch.Tensor]] = None) -> RetrievalResult:
+        """Shard 0's query: the whole query on the retriever's own device."""
+        return self.shard_body(0, hist, uids, noise)
 
     @torch.no_grad()
     def retrieve(
@@ -225,15 +289,33 @@ class Retriever:
         user_ids: Optional[np.ndarray] = None,
         noise: Optional[List[torch.Tensor]] = None,  # sampled candidates: given, else drawn
     ) -> RetrievalResult:
+        """The batch padded to batch_multiple with empty rows, one query per
+        shard on its device, the shards' results concatenated and the pad
+        rows dropped (one shard without a mesh: no pad, no copy). Given noise
+        covers the B rows (pad rows take zeros); else each shard draws its
+        own."""
         hist = torch.as_tensor(np.asarray(item_id_history), dtype=torch.int32, device=self.device)
-        B = hist.shape[0]
+        B, n = hist.shape[0], self.batch_multiple
         if user_ids is None:
             uids = torch.zeros(B, dtype=torch.int32, device=self.device)
         else:
             uids = torch.as_tensor(np.asarray(user_ids), dtype=torch.int32, device=self.device)
-        if noise is None:
-            noise = self.draw_noise(B)
-        if noise is not None:
-            noise = [g.to(self.device) for g in noise]
+        pad = -B % n
+        if pad:
+            hist = torch.cat([hist, hist.new_full((pad, hist.shape[1]), -1)])
+            uids = torch.cat([uids, uids.new_zeros(pad)])
+            if noise is not None:
+                noise = [torch.cat([g, g.new_zeros((pad, *g.shape[1:]))]) for g in noise]
+        rows = (B + pad) // n
+        outs = []
         with self._lock:
-            return self._retrieve_body(hist, uids, noise)
+            for i, s in enumerate(self.shards):
+                d = s.table.device
+                part = slice(i * rows, (i + 1) * rows)
+                shard_noise = self.draw_noise(rows) if noise is None else [g[part] for g in noise]
+                if shard_noise is not None:
+                    shard_noise = [g.to(d) for g in shard_noise]
+                outs.append(self.shard_body(i, hist[part].to(d), uids[part].to(d), shard_noise))
+        if n == 1:
+            return outs[0]
+        return RetrievalResult(*(torch.cat([o[f].to(self.device) for o in outs])[:B] for f in range(3)))

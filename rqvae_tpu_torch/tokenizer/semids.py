@@ -10,6 +10,15 @@ by default as the reference's `pallas_precision`; elsewhere, and in
 `encode_batch` on every device, it is RqVae.get_semantic_ids in chunks.
 Sequence tokenization is a table lookup.
 
+With `mesh` (parallel/mesh.py), the index build is sharded as the JAX
+tokenizer's shard_map build: the corpus rows are split into the mesh's
+contiguous 'data' shards, each shard is encoded on its device by the RQ-VAE
+replicated there (kernel 1 once per shard on the card), and the ids are
+concatenated; the dedup column is then computed over the whole corpus, as
+the JAX build dedups the gathered ids. Rows are independent, so the ids equal
+the unsharded build's. `extend_corpus_ids` encodes unsharded, as the JAX
+tokenizer's extension does.
+
 An index is saved and loaded (`save_index`, `load_index`) in the JAX
 package's file, an `np.savez_compressed` archive of `cached_ids` and a
 fingerprint of the RQ-VAE that built it, so either package reads the
@@ -28,6 +37,7 @@ from rqvae_tpu_torch.data.schemas import SeqBatch, TokenizedSeqBatch
 from rqvae_tpu_torch.models.rqvae import RqVae
 from rqvae_tpu_torch.ops.cuda.rq_encode import PRECISIONS, fused_encode_quantize, pallas_supported
 from rqvae_tpu_torch.ops.dedup import dedup_counts_from_keys, pack_sem_id_tuples
+from rqvae_tpu_torch.parallel.mesh import Mesh, replicate, shard_rows
 from rqvae_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -39,14 +49,17 @@ class SemanticIdTokenizer:
         model: RqVae,
         tokenize_batch_size: int = 8192,
         precision: str = "bf16",  # the index build's kernel precision, "bf16" or "f32"
-        device: DeviceLike = None,
+        device: DeviceLike = None,  # None: the mesh's first device, or the card
+        mesh: Optional[Mesh] = None,  # shard the index build over the mesh's 'data' axis
     ):
         if precision not in PRECISIONS:
             raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
-        self.device = resolve_device(device)
+        self.device = resolve_device(mesh.data_devices[0] if device is None and mesh is not None else device)
         self.model = model.to(self.device).eval()
         self.tokenize_batch_size = tokenize_batch_size
         self.precision = precision
+        self.mesh = mesh
+        self.shard_models = None if mesh is None else replicate(self.model, mesh.data_devices)
         self.cached_ids: Optional[torch.Tensor] = None  # [N, L+1] int32
 
     @property
@@ -63,34 +76,51 @@ class SemanticIdTokenizer:
 
     @property
     def use_kernel(self) -> bool:
-        return self.device.type == "cuda" and pallas_supported(self.model.config)
+        """Whether the index build on the tokenizer's device runs kernel 1."""
+        return self._kernel_on(self.device)
+
+    def _kernel_on(self, device: torch.device) -> bool:
+        return device.type == "cuda" and pallas_supported(self.model.config)
+
+    def _model_ids(self, model: RqVae, x: torch.Tensor) -> torch.Tensor:
+        """The model's f32 path on x's device, in chunks."""
+        b = max(1, self.tokenize_batch_size)
+        chunks = [model.get_semantic_ids(x[i : i + b]).sem_ids for i in range(0, x.shape[0], b)]
+        if not chunks:
+            return torch.empty((0, model.config.n_layers), dtype=torch.int32, device=x.device)
+        return torch.cat(chunks)
 
     @torch.no_grad()
     def encode_batch(self, x: torch.Tensor) -> torch.Tensor:
         """[B, D] features -> [B, L] int32 semantic ids (no dedup column),
         by the model's f32 path on every device, as the JAX tokenizer's."""
-        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
-        b = max(1, self.tokenize_batch_size)
-        chunks = [self.model.get_semantic_ids(x[i : i + b]).sem_ids for i in range(0, x.shape[0], b)]
-        if not chunks:
-            return torch.empty((0, self.model.config.n_layers), dtype=torch.int32, device=self.device)
-        return torch.cat(chunks)
+        return self._model_ids(self.model, torch.as_tensor(x, dtype=torch.float32, device=self.device))
+
+    def _index_ids(self, model: RqVae, x: torch.Tensor, kernel: bool) -> torch.Tensor:
+        """[N, L] ids of x as the index build takes them on x's device: one
+        rq_encode launch at `precision` with `kernel` (on a card, for
+        configurations the kernel supports), else the model's f32 path."""
+        if kernel:
+            return fused_encode_quantize(x, model.encoder.kernels(), model.codebooks.detach(),
+                                         n_levels=model.config.n_layers, precision=self.precision)
+        return self._model_ids(model, x)
 
     @torch.no_grad()
-    def _encode_index(self, item_features) -> torch.Tensor:
-        """[N, L] ids as the index build takes them: one rq_encode launch at
-        `precision` where `use_kernel`, else the model's f32 path."""
-        if self.use_kernel:
-            x = torch.as_tensor(item_features, dtype=torch.float32, device=self.device)
-            return fused_encode_quantize(
-                x, self.model.encoder.kernels(), self.model.codebooks.detach(),
-                n_levels=self.model.config.n_layers, precision=self.precision,
-            )
-        return self.encode_batch(item_features)
+    def _encode_index(self, item_features, sharded: bool = True) -> torch.Tensor:
+        """[N, L] ids as the index build takes them, on the tokenizer's
+        device: over the mesh's shards (each on its device) when there is a
+        mesh and `sharded`, else on the tokenizer's device."""
+        x = torch.as_tensor(item_features, dtype=torch.float32)
+        if self.mesh is None or not sharded:
+            return self._index_ids(self.model, x.to(self.device), self.use_kernel)
+        parts = [self._index_ids(self.shard_models[xs.device], xs, self._kernel_on(xs.device)).to(self.device)
+                 for xs in shard_rows(self.mesh, x) if xs.shape[0]]
+        return torch.cat(parts)
 
     @torch.no_grad()
     def precompute_corpus_ids(self, item_features) -> torch.Tensor:
-        """Tokenize the whole corpus: encode -> pack -> dedup -> concat."""
+        """Tokenize the whole corpus: encode (per shard with a mesh) -> pack
+        -> dedup over the whole corpus -> concat."""
         ids = self._encode_index(item_features)
         keys = pack_sem_id_tuples(ids, self.model.config.codebook_size)
         dedup = dedup_counts_from_keys(keys)
@@ -131,11 +161,12 @@ class SemanticIdTokenizer:
         A row's dedup column is what a full rebuild gives it: the count of
         equal tuples among the existing items (two searchsorted over their
         sorted keys) plus the count of earlier equal tuples in this batch.
-        The encode runs as the index build's (kernel 1 on the card)."""
+        The encode runs as the index build's (kernel 1 on the card), unsharded
+        on a mesh too, as the JAX tokenizer extends."""
         if self.cached_ids is None:
             raise RuntimeError("extend_corpus_ids needs an existing index; call precompute_corpus_ids first")
         L, K = self.n_layers, self.model.config.codebook_size
-        ids = self._encode_index(new_features)
+        ids = self._encode_index(new_features, sharded=False)
         keys = pack_sem_id_tuples(ids, K)
         old_sorted = torch.sort(pack_sem_id_tuples(self.cached_ids[:, :L], K)).values
         before = (torch.searchsorted(old_sorted, keys, side="right")

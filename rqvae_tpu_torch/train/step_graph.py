@@ -24,9 +24,15 @@ A chunk of k steps works on static device buffers:
 
 Capture follows the serving engine's rules (serving/engine.py): one eager run
 of the body on a side stream first (it builds and loads the kernels, sets
-their attributes, sets up cuBLAS and allocates the gradients and sums), its
-update undone in place; one graph pool; captured state is only ever updated
-in place. Unreachable objects are collected first: a graph left in a dead
+their attributes, sets up cuBLAS and allocates the gradients and sums, and
+runs a data-parallel step's collectives once, so NCCL's communicator and its
+buffers exist before the capture), its update undone in place; one graph
+pool; captured state is only ever updated in place; the capture is
+thread-local, so another thread's CUDA calls (the NCCL watchdog's event
+queries, a serving resolver's waits) do not void it. Under NCCL a
+data-parallel step's all-reduce and all-gathers are nodes of the graph.
+Under gloo (`capturable=False`) they wait for the host, so the steps run
+eagerly on the card through the same buffers. Unreachable objects are collected first: a graph left in a dead
 reference cycle (a step runner closes over itself) that Python's collector
 destroyed during the capture would invalidate it. A capture or replay that
 fails raises: there is no quiet eager fallback.
@@ -85,11 +91,12 @@ class StepChunks:
     steps. `specs` gives each staged buffer's per-step shape and dtype;
     `state()` lists every tensor the body updates in place (parameters,
     moments, the optimizer's count), restored after the capture's eager run.
-    On a CUDA device with n_steps > 1 the steps are replays of one graph."""
+    On a CUDA device with n_steps > 1 the steps are replays of one graph,
+    unless the body's collectives are not `capturable`."""
 
     def __init__(self, body: Callable[..., Dict[str, torch.Tensor]],
                  specs: Dict[str, Tuple[tuple, torch.dtype]], state: Callable[[], List[torch.Tensor]],
-                 device: torch.device, n_steps: int):
+                 device: torch.device, n_steps: int, capturable: bool = True):
         if n_steps < 1:
             raise ValueError(f"a chunk takes at least one step, got {n_steps}")
         self.body, self.state, self.device, self.n_steps = body, state, torch.device(device), int(n_steps)
@@ -98,7 +105,7 @@ class StepChunks:
                        for name, (shape, dtype) in specs.items()}
         self.index = torch.zeros(1, dtype=torch.long, device=self.device)  # the step within the chunk
         self.sums: Optional[Dict[str, torch.Tensor]] = None
-        self.use_graph = self.device.type == "cuda" and self.n_steps > 1
+        self.use_graph = self.device.type == "cuda" and self.n_steps > 1 and capturable
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.pool = torch.cuda.graph_pool_handle() if self.use_graph else None
         self.replays = 0  # graph replays so far (the wrappers' counters do not tick on a replay)
@@ -149,7 +156,8 @@ class StepChunks:
                 t.copy_(s)  # the eager run's update undone
         graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept, so its nodes can be read (debug_dump)
         try:
-            with torch.cuda.device(dev), torch.cuda.graph(graph, pool=self.pool, stream=side):
+            with torch.cuda.device(dev), torch.cuda.graph(graph, pool=self.pool, stream=side,
+                                                          capture_error_mode="thread_local"):
                 self._one_step()
             graph.instantiate()
         except Exception as e:

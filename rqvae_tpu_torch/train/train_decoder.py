@@ -44,6 +44,18 @@ logs its scan's means. `steps_per_loop=1` is the eager route, one step at a
 time; so is debug mode (`RQVAE_TPU_DEBUG=1`, utils/debug.py). Evaluations,
 checkpoints and resumes fall on chunk ends.
 
+Data parallelism, as the JAX trainer's mesh: launched as several processes
+with the markers of parallel/dist.py (RQVAE_TPU_NUM_PROCESSES,
+RQVAE_TPU_PROCESS_ID and JAX_COORDINATOR_ADDRESS, or torchrun's), each rank
+runs on its own card (or the CPU with `device="cpu"`), draws every step's
+global rows from (`seed`, step) and keeps its slice of `batch_size` (which the
+world must divide), and the ranks average their gradients and metrics before
+each update (train/decoder_steps.py). After init or resume the state is
+broadcast from rank 0. Only rank 0 writes checkpoints, logs and prints;
+every rank evaluates the whole evaluation set, so all get the same numbers.
+Under NCCL the step graphs hold the collectives; under gloo (ranks that
+share a card) the steps run eagerly, and the first log line says so.
+
 Knobs with no meaning here are accepted so that the shipped config files bind:
 `split_batches`, `mixed_precision_type` (compute dtype is `t5_dtype`) and
 `wandb_logging` without wandb.
@@ -69,6 +81,7 @@ from rqvae_tpu_torch.models.rqvae import RqVae, RqVaeConfig
 from rqvae_tpu_torch.ops.gumbel import sample_gumbel
 from rqvae_tpu_torch.ops.metrics import TopKAccumulator
 from rqvae_tpu_torch.ops.schedules import inverse_sqrt_schedule
+from rqvae_tpu_torch.parallel import dist
 from rqvae_tpu_torch.serving.beam import build_prefix_table
 from rqvae_tpu_torch.tokenizer.semids import SemanticIdTokenizer
 from rqvae_tpu_torch.train.decoder_steps import (
@@ -99,7 +112,8 @@ def load_rqvae(path: Optional[str], fallback: RqVaeConfig, device, seed: int) ->
         raise ValueError(f"{path} is not an RQ-VAE checkpoint")
     rq = RqVae(restored["config"], device=device, seed=seed)
     rq.load_state_dict(ckpt_lib.params_state_dict(restored))
-    print(f"---Loaded RQVAE iter {restored['step']}---")
+    if dist.is_main_process():
+        print(f"---Loaded RQVAE iter {restored['step']}---")
     return rq
 
 
@@ -171,10 +185,13 @@ def train(
     device: DeviceLike = None,  # None: the card
 ) -> dict:
     debug = maybe_init_debug()
-    dev = resolve_device(device)
+    dist.initialize_distributed(device)
+    replicas = dist.replicas()
+    is_main = dist.is_main_process()
+    dev = resolve_device(device)  # on the card: this rank's, made current by initialize_distributed
     if auto_resume and pretrained_decoder_path is None:
         pretrained_decoder_path = ckpt_lib.latest_checkpoint(save_dir_root)
-        if pretrained_decoder_path:
+        if pretrained_decoder_path and is_main:
             print(f"---Auto-resuming from {pretrained_decoder_path}---")
 
     data = ensure_dataset(dataset_folder, dataset, split=dataset_split, force=force_dataset_process)
@@ -195,7 +212,7 @@ def train(
     vae_cfg = rq_model.config
     tokenizer = SemanticIdTokenizer(rq_model, device=dev)
     cached_ids = tokenizer.precompute_corpus_ids(item_dataset.features)
-    if push_vae_to_hf:
+    if push_vae_to_hf and is_main:
         export_dir = hub.save_pretrained(os.path.join(save_dir_root, "rqvae_export"),
                                          jax_params_from_state_dict(rq_model), vae_cfg)
         try:
@@ -227,7 +244,8 @@ def train(
     )
     model = EncoderDecoderRetrievalModel(cfg, device=dev, seed=seed)
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"Device: {dev}, Num Parameters: {n_params}")
+    if is_main:
+        print(f"Device: {dev}, Num Parameters: {n_params}")
 
     optimizer = adamw(
         model.parameters(),
@@ -241,6 +259,8 @@ def train(
         if not isinstance(restored["config"], RetrievalConfig):
             raise ValueError(f"{pretrained_decoder_path} is not a retrieval-model checkpoint")
         start_iter = ckpt_lib.restore_training_state(restored, model, optimizer)
+    if replicas is not None:  # every rank starts from rank 0's state
+        replicas.broadcast_(optimizer.state_tensors())
 
     # device-resident sequence store: per-step host work is sampling row
     # indices; window subsampling and tokenization run on the device
@@ -263,7 +283,11 @@ def train(
         subsample=train_data_subsample,
         accum=gradient_accumulate_every,
         amp=amp,
+        replicas=replicas,
     )
+    if is_main and replicas is not None and dev.type == "cuda" and spl > 1 and not replicas.capturable:
+        print(f"[dist] {replicas.backend} on the card: its collectives wait for the host, so each step of a "
+              f"chunk runs eagerly (no step graph)", flush=True)
     eval_step = make_decoder_eval_step(model)
     generate = make_generate_fn(model)
     accumulator = TopKAccumulator(ks=top_k_eval_list)
@@ -272,6 +296,7 @@ def train(
         log_dir=os.path.join(save_dir_root, "logs"),
         use_wandb=wandb_logging,
         wandb_project="gen-retrieval-decoder-training",
+        is_main=is_main,
     )
     t_start = time.time()
     summary: dict = {}
@@ -317,17 +342,21 @@ def train(
                 actual = tok.sem_ids_fut[:valid, : vae_cfg.n_layers]
                 accumulator.accumulate(actual=actual.cpu(), top_k=gen.sem_ids[:valid].cpu())
             eval_metrics = accumulator.reduce()
-            print({k: round(v, 5) for k, v in eval_metrics.items()})
+            if is_main:
+                print({k: round(v, 5) for k, v in eval_metrics.items()})
             logger.log(it, eval_metrics, echo=False)
             summary.update(eval_metrics)
 
         if (it + 1) % save_model_every == 0 or it + 1 == end_iter:
-            ckpt_path = ckpt_lib.save_checkpoint(save_dir_root, it, model.state_dict(), optimizer.state_dict(), cfg)
+            ckpt_path = ckpt_lib.save_checkpoint_main(save_dir_root, it, model.state_dict(), optimizer.state_dict(),
+                                                      cfg)
 
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     summary["iterations_per_sec"] = iterations / max(time.time() - t_start, 1e-9)
     summary["checkpoint_path"] = ckpt_path
+    if replicas is not None:  # replicas that drifted apart would be a fault, not noise
+        replicas.check_equal(optimizer.state_tensors(), "parameters and moments after training")
     logger.close()
     return summary
 

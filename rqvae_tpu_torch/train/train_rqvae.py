@@ -38,6 +38,18 @@ A run resumes from a checkpoint of either format (utils/checkpoint.py): this
 package's `.pt`, or the JAX stage-1 trainer's `.msgpack` with its optax
 opt_state (or without one, as the JAX trainer resumes too).
 
+Data parallelism, as the JAX trainer's mesh (batch axis 1 of [A, B, D]):
+launched as several processes with the markers of parallel/dist.py, each
+rank runs on its own card (or the CPU), draws every step's global rows and
+Gumbel uniforms from (`seed`, step) and keeps its slice of `batch_size`
+(which the world must divide); the ranks average their gradients and
+metrics before each update (train/rqvae_steps.py). k-means init and the
+restarts read the same training items on every rank; the state is broadcast
+from rank 0 after init or resume all the same. Only rank 0 writes
+checkpoints and logs; every rank runs the whole evaluation. Under NCCL the
+step graphs hold the collectives; under gloo the steps run eagerly, and the
+first log line says so.
+
 Knobs with no meaning here are accepted so that the shipped config files bind:
 `split_batches`, `mixed_precision_type` and `wandb_logging` without wandb.
 
@@ -60,6 +72,7 @@ from rqvae_tpu_torch.models.quantize import QuantizeForwardMode
 from rqvae_tpu_torch.models.rqvae import RqVae, RqVaeConfig, kmeans_init_codebooks, restart_dead_codebook_entries
 from rqvae_tpu_torch.ops.dedup import codebook_usage, pack_sem_id_tuples, tuple_entropy
 from rqvae_tpu_torch.ops.schedules import gumbel_temperature_at
+from rqvae_tpu_torch.parallel import dist
 from rqvae_tpu_torch.tokenizer.semids import SemanticIdTokenizer
 from rqvae_tpu_torch.train.rqvae_steps import make_rqvae_eval_step, make_rqvae_graph_train_step
 from rqvae_tpu_torch.train.state import adamw
@@ -123,10 +136,13 @@ def train(
 ) -> dict:
     """Returns a summary dict with the last metrics and the checkpoint path."""
     debug = maybe_init_debug()
-    dev = resolve_device(device)
+    dist.initialize_distributed(device)
+    replicas = dist.replicas()
+    is_main = dist.is_main_process()
+    dev = resolve_device(device)  # on the card: this rank's, made current by initialize_distributed
     if auto_resume and pretrained_rqvae_path is None:
         pretrained_rqvae_path = ckpt_lib.latest_checkpoint(save_dir_root)
-        if pretrained_rqvae_path:
+        if pretrained_rqvae_path and is_main:
             print(f"---Auto-resuming from {pretrained_rqvae_path}---")
 
     data = ensure_dataset(dataset_folder, dataset, split=dataset_split, force=force_dataset_process)
@@ -150,7 +166,8 @@ def train(
         if not isinstance(restored["config"], RqVaeConfig):
             raise ValueError(f"{pretrained_rqvae_path} is not an RQ-VAE checkpoint")
         start_iter = ckpt_lib.restore_training_state(restored, model, optimizer, need_opt_state=False)
-        print(f"---Loaded RQVAE iter {restored['step']}---")
+        if is_main:
+            print(f"---Loaded RQVAE iter {restored['step']}---")
     elif use_kmeans_init:
         sync(dev)
         t0 = time.perf_counter()
@@ -162,6 +179,8 @@ def train(
         )
         sync(dev)
         summary["kmeans_init_ms"] = (time.perf_counter() - t0) * 1e3
+    if replicas is not None:  # every rank starts from rank 0's state
+        replicas.broadcast_(optimizer.state_tensors())
 
     # device-resident features: per-step host work is sampling row indices
     features_dev = torch.as_tensor(train_items.features, device=dev)
@@ -181,12 +200,16 @@ def train(
         t_fn = partial(gumbel_temperature_at, t0=gumbel_temperature, min_t=gumbel_min_t,
                        anneal_rate=gumbel_anneal_rate, step_size=gumbel_anneal_step_size)
     train_step = make_rqvae_graph_train_step(model, optimizer, n_steps=spl, accum=gradient_accumulate_every,
-                                             batch_size=batch_size, gumbel_t=gumbel_temperature, t_fn=t_fn, amp=amp)
+                                             batch_size=batch_size, gumbel_t=gumbel_temperature, t_fn=t_fn, amp=amp,
+                                             replicas=replicas)
+    if is_main and replicas is not None and dev.type == "cuda" and spl > 1 and not replicas.capturable:
+        print(f"[dist] {replicas.backend} on the card: its collectives wait for the host, so each step of a "
+              f"chunk runs eagerly (no step graph)", flush=True)
     eval_step = make_rqvae_eval_step(model)
     tokenizer = SemanticIdTokenizer(model, device=dev)
 
     logger = MetricLogger(log_dir=os.path.join(save_dir_root, "logs"), use_wandb=wandb_logging,
-                          wandb_project="rq-vae-training")
+                          wandb_project="rq-vae-training", is_main=is_main)
     t_start = time.time()
     ckpt_path = None
     end_iter = start_iter + iterations
@@ -224,11 +247,14 @@ def train(
             summary.update(diversity)
 
         if (it + 1) % save_model_every == 0 or it + 1 == end_iter:
-            ckpt_path = ckpt_lib.save_checkpoint(save_dir_root, it, model.state_dict(), optimizer.state_dict(), cfg)
+            ckpt_path = ckpt_lib.save_checkpoint_main(save_dir_root, it, model.state_dict(), optimizer.state_dict(),
+                                                      cfg)
 
     sync(dev)
     summary["iterations_per_sec"] = iterations / max(time.time() - t_start, 1e-9)
     summary["checkpoint_path"] = ckpt_path
+    if replicas is not None:  # replicas that drifted apart would be a fault, not noise
+        replicas.check_equal(optimizer.state_tensors(), "parameters and moments after training")
     logger.close()
     return summary
 

@@ -86,6 +86,26 @@ def _write_atomic(path: str, write) -> str:
     return path
 
 
+def checkpoint_path(save_dir: str, step: int, fmt: str = "pt") -> str:
+    """Where save_checkpoint writes the checkpoint of `step`."""
+    if fmt not in ("pt", "msgpack"):
+        raise ValueError(f"fmt must be 'pt' or 'msgpack', got {fmt!r}")
+    return os.path.join(save_dir, f"checkpoint_{step}.{fmt}")
+
+
+def save_checkpoint_main(save_dir: str, step: int, params, opt_state: Any = None, config: Any = None,
+                         fmt: str = "pt") -> str:
+    """save_checkpoint on the main process only, as the JAX trainers gate
+    their writes; every rank returns the path after a barrier, so the file
+    exists before any rank reads it (a process alone just writes)."""
+    from rqvae_tpu_torch.parallel import dist
+
+    if dist.is_main_process():
+        save_checkpoint(save_dir, step, params, opt_state, config, fmt=fmt)
+    dist.barrier()
+    return checkpoint_path(save_dir, step, fmt)
+
+
 def save_checkpoint(save_dir: str, step: int, params, opt_state: Any = None, config: Any = None,
                     extra: Optional[Dict[str, Any]] = None, fmt: str = "pt") -> str:
     """Write checkpoint_{step}.{fmt} under save_dir; returns the path.
@@ -112,9 +132,8 @@ def save_checkpoint(save_dir: str, step: int, params, opt_state: Any = None, con
                 f.write(meta)
                 f.write(blob)
 
-        return _write_atomic(os.path.join(save_dir, f"checkpoint_{step}.msgpack"), write)
-    if fmt != "pt":
-        raise ValueError(f"fmt must be 'pt' or 'msgpack', got {fmt!r}")
+        return _write_atomic(checkpoint_path(save_dir, step, fmt), write)
+    path = checkpoint_path(save_dir, step, fmt)
     to_cpu = lambda t: t.detach().cpu() if isinstance(t, torch.Tensor) else t
     payload = {
         "step": int(step),
@@ -125,7 +144,7 @@ def save_checkpoint(save_dir: str, step: int, params, opt_state: Any = None, con
         payload["opt_state"] = {k: [to_cpu(t) for t in v] if isinstance(v, list) else v for k, v in opt_state.items()}
     if extra:
         payload["extra"] = extra
-    return _write_atomic(os.path.join(save_dir, f"checkpoint_{step}.pt"), lambda tmp: torch.save(payload, tmp))
+    return _write_atomic(path, lambda tmp: torch.save(payload, tmp))
 
 
 def _load_msgpack(path: str) -> Dict[str, Any]:

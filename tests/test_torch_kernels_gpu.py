@@ -444,6 +444,41 @@ def test_stack_kernels_repeat_bit_equal(cuda, dtype):
         assert torch.equal(first, t5_decoder_stack_infer(*ops, eps=eps))
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_stack_kernels_rows_do_not_move_with_the_batch(cuda, dtype):
+    """The first half of a batch equals the same rows launched alone, bit for
+    bit, on both routes of both stack kernels (each batch row is blocks of
+    its own): the decoder at the Amazon serving shapes (64 rows, 10 beams of
+    3, 80 encoder rows), the encoder at 8 rows of 517."""
+    g = torch.Generator().manual_seed(3)
+
+    def stack(is_decoder):
+        s = T5Stack(T5StackConfig(**AMAZON_T5, dtype=dtype), is_decoder=is_decoder, device=cuda)
+        with torch.no_grad():
+            for p in s.parameters():
+                p.copy_((torch.randn(p.shape, generator=g) * p.shape[-1] ** -0.5).to(cuda))
+        return s
+
+    d = AMAZON_T5["d_model"]
+    dec, enc_stack = stack(True), stack(False)
+    x = torch.randn(64, 30, d, generator=g).to(cuda)
+    enc = torch.randn(64, 80, d, generator=g).to(cuda)
+    enc_mask = (torch.rand(64, 80, generator=g) > 0.2).to(torch.int32).to(cuda)
+    enc_mask[:, 0] = 1
+    eps = dec.cfg.layer_norm_eps
+    with torch.no_grad():
+        kv, w = dec.cross_kv(enc), dec.decode_weights()
+        whole = t5_decoder_stack_infer(*dec.decode_operands(x, kv, enc_mask, 10, w), eps=eps)
+        rows = tuple(t[:, :32].contiguous() for t in kv)
+        alone = t5_decoder_stack_infer(*dec.decode_operands(x[:32].contiguous(), rows, enc_mask[:32], 10, w), eps=eps)
+        assert torch.equal(whole[:32], alone)
+        xe = torch.randn(8, 517, d, generator=g).to(cuda)
+        mask = (torch.arange(517)[None, :] < torch.randint(1, 518, (8, 1), generator=g)).to(torch.int32).to(cuda)
+        whole = t5_encoder_stack_infer(*enc_stack.encode_operands(xe, mask), eps=eps)
+        alone = t5_encoder_stack_infer(*enc_stack.encode_operands(xe[:4].contiguous(), mask[:4]), eps=eps)
+        assert torch.equal(whole[:4], alone)
+
+
 def _stack_libraries():
     from rqvae_tpu_torch.ops.cuda import decoder_stack as D
     from rqvae_tpu_torch.ops.cuda import encoder_stack as E
@@ -962,14 +997,14 @@ def test_engine_capture_failure_raises(cuda, monkeypatch):
 
     rq, x, model = _small_serving(cuda)
     r = _retriever(rq, model, x, cuda)
-    body = r._retrieve_body
+    body = r.shard_body
 
-    def host_read(hist, uids, noise=None):
-        out = body(hist, uids, noise)
+    def host_read(i, hist, uids, noise=None):
+        out = body(i, hist, uids, noise)
         out.item_ids.sum().item()  # a host read: illegal while capturing
         return out
 
-    monkeypatch.setattr(r, "_retrieve_body", host_read)
+    monkeypatch.setattr(r, "shard_body", host_read)
     eng = RetrievalEngine(r, max_items=8, batch_buckets=(4,))
     with pytest.raises(RuntimeError, match="capture"):
         eng.retrieve_many([np.arange(5)])
@@ -1244,3 +1279,140 @@ def test_a_dead_step_graph_does_not_break_a_later_capture(cuda):
     finally:
         gc.set_threshold(*thresholds)
     assert second.chunks.replays == 2 and bool(torch.isfinite(metrics["total_loss"]))
+
+
+@pytest.mark.parametrize("dtype,L", [(torch.bfloat16, 80), (torch.bfloat16, 800), (torch.float32, 80)])
+def test_attention_kernels_count_dropout_from_b0(cuda, dtype, L):
+    """Kernels 4 and 5 launched with b0 = B (a data-parallel rank's first
+    global row): the output and dq, dk, dv are bit-equal to rows B .. 2B - 1
+    of the launches over the batch doubled at b0 = 0, within the attention
+    tolerances of the plain versions at b0 = B, and other than at b0 = 0."""
+    B, H = 3, 2
+    q, k, v, bias, mask = _attention_inputs(B, H, L, L, 64, dtype, cuda)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(2)).to(dtype).to(cuda)
+    seed = torch.tensor([77], dtype=torch.int32, device=cuda)
+    tol, gtol, dbias_tol = (2e-5, 4e-6, 4e-6) if dtype == torch.float32 else (3.2e-2, 2.0 ** -7, 1e-4)
+
+    def run(b0, *ops):
+        leaves = [t.detach().clone().requires_grad_() for t in ops[:3]] + [bias.detach().clone().requires_grad_()]
+        out = t5_attention(*leaves, ops[3], seed, dropout_rate=0.1, b0=b0)
+        out.backward(ops[4])
+        return out.detach(), [leaf.grad for leaf in leaves]
+
+    out, grads = run(B, q, k, v, mask, do)
+    whole, whole_grads = run(0, *(torch.cat([t, t]) for t in (q, k, v, mask, do)))
+    assert torch.equal(out, whole[B:])
+    for g, w in zip(grads[:3], whole_grads[:3]):
+        assert torch.equal(g, w[B:])
+    assert not torch.equal(out, run(0, q, k, v, mask, do)[0])
+    want = t5_attention_plain(q, k, v, bias, mask, seed, dropout_rate=0.1, b0=B)
+    assert (out.float() - want.float()).abs().max() <= tol
+    plain = t5_attention_backward_plain(q, k, v, bias, mask, seed, do, dropout_rate=0.1, b0=B)
+    for i, (g, w) in enumerate(zip(grads, plain)):
+        assert (g.float() - w.float()).abs().max() <= (dbias_tol if i == 3 else gtol) * w.float().abs().max(), i
+
+
+def test_nccl_world_of_one_step_graph_equals_the_plain_graph_step(cuda):
+    """A process group of one rank over NCCL: the data-parallel stage-2
+    step's chunks (graphs of 3 steps, the all-reduce and the quantiles'
+    all-gather captured with it) equal, bit for bit, the same chunks without
+    a group (a sum over one rank divided by 1)."""
+    import torch.distributed as tdist
+
+    from rqvae_tpu_torch.ops.schedules import inverse_sqrt_schedule
+    from rqvae_tpu_torch.parallel.dist import Replicas
+    from rqvae_tpu_torch.train.decoder_steps import make_decoder_graph_train_step
+    from rqvae_tpu_torch.train.state import adamw
+    from torch_dist_worker import free_port
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = RetrievalConfig(num_hierarchies=3, codebook_size=16, t5_d_model=64, t5_d_kv=64, t5_num_heads=2,
+                          t5_d_ff=128, t5_num_layers=2, t5_dropout=0.1, t5_dtype="bfloat16")
+    store = _small_store(dev)
+    tdist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", world_size=1, rank=0,
+                             device_id=dev)
+    try:
+        runs = []
+        for replicas in (Replicas(0, 1, "nccl"), None):
+            model = EncoderDecoderRetrievalModel(cfg, device=dev, seed=2)
+            opt = adamw(model.parameters(), inverse_sqrt_schedule(1e-3, 2), weight_decay=0.1, max_grad_norm=1.0)
+            step = make_decoder_graph_train_step(model, opt, max_seq_len=6, n_steps=3, batch_size=8,
+                                                 replicas=replicas)
+            draws = [step.draws(3, s, 48) for s in range(6)]
+            means = [step(*store, draws[i:i + 3]) for i in (0, 3)]
+            assert step.chunks.graph is not None and step.chunks.replays == 6
+            runs.append((model, means))
+    finally:
+        tdist.destroy_process_group()
+    (ma, a), (mb, b) = runs
+    for (n, x), y in zip(ma.named_parameters(), mb.parameters()):
+        assert torch.equal(x, y), n
+    for ca, cb in zip(a, b):
+        assert all(torch.equal(ca[k], cb[k]) for k in ca)
+
+
+def test_sharded_serving_over_two_cards(cuda):
+    """A mesh of [cuda:0, cuda:1]: the index build runs kernel 1 on each card
+    and equals the unsharded build; the Retriever's shards run on their cards
+    (a model and corpus copy on cuda:1) and give the unsharded beams."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from rqvae_tpu_torch.parallel.mesh import make_mesh
+
+    rq, x, model = _small_serving(cuda)
+    mesh = make_mesh(devices=["cuda:0", "cuda:1"])
+    plain = _retriever(rq, model, x, cuda)
+    tok = SemanticIdTokenizer(rq, mesh=mesh)
+    assert torch.equal(tok.precompute_corpus_ids(x), plain.tokenizer.cached_ids)
+    r = Retriever(model, tok, mesh=mesh)
+    assert [s.table.device for s in r.shards] == [torch.device("cuda:0"), torch.device("cuda:1")]
+    hist = np.random.RandomState(0).randint(0, 600, (6, 12)).astype(np.int32)
+    got, want = r.retrieve(hist), plain.retrieve(hist)
+    assert torch.equal(got.item_ids, want.item_ids) and torch.equal(got.sem_ids, want.sem_ids)
+
+
+def test_two_ranks_over_nccl_hold_the_all_reduce_in_their_step_graphs(cuda, tmp_path):
+    """Two processes on two cards (NCCL), stage-2 chunks of 3 replays of
+    the data-parallel step's graph, f32 with dropout 0.1: the all-reduce is
+    an NCCL kernel among the graph's nodes, the ranks end bit-equal, and
+    they follow one process on the whole batch: losses rtol 1e-5; all but
+    1% of the parameters within 1e-5, and every one within the peak LR
+    (1e-3, one AdamW step's size). The sums are taken in another order, and
+    Adam's normalised update turns a last-bit difference in a gradient near
+    0 into a step of up to the LR whatever the gradient's size (measured on
+    two H100s: 0.2-0.8% of a tensor's entries apart, by up to 5.7e-4)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    import json
+
+    from rqvae_tpu_torch.ops.schedules import inverse_sqrt_schedule
+    from rqvae_tpu_torch.train.decoder_steps import make_decoder_graph_train_step
+    from rqvae_tpu_torch.train.state import adamw
+    from torch_dist_worker import launch
+
+    cfg = dict(num_hierarchies=3, codebook_size=16, t5_d_model=64, t5_d_kv=64, t5_num_heads=2, t5_d_ff=128,
+               t5_num_layers=2, t5_dropout=0.1, t5_dtype="float32")
+    spec = {"out": str(tmp_path), "device": "cuda", "scenarios": [dict(
+        kind="decoder_graph", name="graph", device="cuda", config=cfg, n_steps=3, steps=6, batch=8,
+        opt=dict(lr=1e-3, warmup=2, wd=0.1, max_grad_norm=1.0))]}
+    with open(tmp_path / "spec.json", "w") as f:
+        json.dump(spec, f)
+    lines = launch(2, str(tmp_path / "spec.json"), timeout=300)
+    assert [line["backend"] for line in lines] == ["nccl", "nccl"]
+    a, b = (torch.load(tmp_path / f"graph.rank{r}.pt") for r in range(2))
+    assert any("nccl" in name.lower() for name in a["graph_kernels"]), a["graph_kernels"]
+    assert all(torch.equal(a["params"][k], b["params"][k]) for k in a["params"])
+    dev = torch.device("cuda", torch.cuda.current_device())
+    model = EncoderDecoderRetrievalModel(RetrievalConfig(**cfg), device=dev, seed=2)
+    opt = adamw(model.parameters(), inverse_sqrt_schedule(1e-3, 2), weight_decay=0.1, max_grad_norm=1.0)
+    step = make_decoder_graph_train_step(model, opt, max_seq_len=6, n_steps=3, batch_size=8)
+    draws = [step.draws(3, s, 48) for s in range(6)]
+    store = _small_store(dev)
+    means = [step(*store, draws[i:i + 3]) for i in (0, 3)]
+    got, want = ([m["total_loss"].item() for m in ms] for ms in (a["metrics"], means))
+    diffs = torch.cat([(a["params"][k] - p.cpu()).abs().flatten() for k, p in model.state_dict().items()])
+    print(json.dumps({"losses_two_ranks": got, "losses_one_process": want,
+                      "params_share_above_1e-5": float((diffs > 1e-5).float().mean()),
+                      "params_max_abs_diff": float(diffs.max())}))
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    assert float((diffs > 1e-5).float().mean()) < 0.01 and float(diffs.max()) <= 1e-3
