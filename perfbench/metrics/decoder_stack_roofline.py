@@ -1,0 +1,8 @@
+"""decoder_stack_roofline: the decoder_stack function's share of its roofline in the
+traced stretch (perfbench/harness/roofline.py, perfbench/rooflines/decoder_stack.*), in %."""
+
+from perfbench.harness.roofline import share_pct
+
+
+def read(res, ctx):
+    return share_pct(res, "decoder_stack")
