@@ -28,6 +28,14 @@ engine rounds its buckets, and a bucket is one graph per shard, each
 captured on its shard's device (`Retriever.shard_body` on its rows), with a
 stream and a memory pool per device; a dispatch replays every shard's graph
 and the event is recorded after all of them.
+
+Spans (utils/profiling.py, the root recorder): `engine.dispatch` over
+`retrieve_many_device`, `engine.launch` over a bucket group's replays (with
+their copies) or its eager run, `engine.gather` over `finalize_many` and
+`engine.wait` over each event wait in it (the gather's self time is the
+host's stacking of rows), `engine.capture` over a bucket's capture with
+`capture.eager`, `capture.collect` and `capture.record` (capture and
+instantiate) inside.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ import numpy as np
 import torch
 
 from rqvae_tpu_torch.serving.retriever import RetrievalResult, Retriever
+from rqvae_tpu_torch.utils import profiling
 from rqvae_tpu_torch.utils.device import end_failed_capture
 
 
@@ -127,16 +136,18 @@ class RetrievalEngine:
         stream = self.streams[dev]
         with torch.cuda.device(dev):
             stream.wait_stream(torch.cuda.current_stream(dev))
-            with torch.no_grad(), torch.cuda.stream(stream):
+            with profiling.span("capture.eager"), torch.no_grad(), torch.cuda.stream(stream):
                 body(hist, uids, noise)  # eager: builds, loads and sets up every kernel first
             graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept, so its nodes can be read (debug_dump)
-            gc.collect()  # no graph of a dead cycle may be destroyed while this one captures
+            with profiling.span("capture.collect"):
+                gc.collect()  # no graph of a dead cycle may be destroyed while this one captures
             try:
                 # thread_local: a resolver thread's event waits do not void a capture
-                with torch.no_grad(), torch.cuda.graph(graph, pool=self.pools[dev], stream=stream,
-                                                       capture_error_mode="thread_local"):
-                    out = body(hist, uids, noise)
-                graph.instantiate()
+                with profiling.span("capture.record"):
+                    with torch.no_grad(), torch.cuda.graph(graph, pool=self.pools[dev], stream=stream,
+                                                           capture_error_mode="thread_local"):
+                        out = body(hist, uids, noise)
+                    graph.instantiate()
             except Exception as e:
                 end_failed_capture(dev)
                 raise RuntimeError(f"CUDA graph capture of bucket (batch {bb}, items {ib}) failed: {e}") from e
@@ -147,8 +158,9 @@ class RetrievalEngine:
         r = self.retriever
         rows = bb // r.batch_multiple
         self.captures += 1
-        return tuple(self._capture_shard(lambda h, u, n, i=i: r.shard_body(i, h, u, n), s.table.device, rows, ib)
-                     for i, s in enumerate(r.shards))
+        with profiling.span("engine.capture"):
+            return tuple(self._capture_shard(lambda h, u, n, i=i: r.shard_body(i, h, u, n), s.table.device, rows,
+                                             ib) for i, s in enumerate(r.shards))
 
     def graph_for(self, bb: int, ib: int) -> tuple:
         """The bucket's graph, captured at first use."""
@@ -170,7 +182,7 @@ class RetrievalEngine:
         host = RetrievalResult(*(torch.empty((bb, *t.shape[1:]), dtype=t.dtype, pin_memory=True)
                                  for t in shards[0].out))
         event = torch.cuda.Event()
-        with r._lock:
+        with r._lock, profiling.span("engine.launch"):
             for i, g in enumerate(shards):
                 part = slice(i * rows, (i + 1) * rows)
                 noise = r.draw_noise(rows)  # each shard draws its own
@@ -206,7 +218,8 @@ class RetrievalEngine:
         self.shape_counts[(bb, item_bucket)] = self.shape_counts.get((bb, item_bucket), 0) + 1
         if self.use_graphs:
             return self._replay(padded, users)
-        return self.retriever.retrieve(padded, users)
+        with profiling.span("engine.launch"):
+            return self.retriever.retrieve(padded, users)
 
     def retrieve_many_device(
         self,
@@ -221,36 +234,40 @@ class RetrievalEngine:
             user_ids = [0] * len(histories)
         if len(user_ids) != len(histories):
             raise ValueError(f"{len(user_ids)} user ids for {len(histories)} histories")
-        cleaned = []
-        for h in histories:  # drop pad markers, keep the most recent max_items
-            h = np.asarray(h, np.int32)
-            h = h[h >= 0]
-            cleaned.append(h[-self.max_items:])
-        groups: dict = {}
-        for i, h in enumerate(cleaned):
-            groups.setdefault(self._bucket_for(max(len(h), 1), self.item_buckets), []).append(i)
-        plan = []
-        cap = self.batch_buckets[-1]
-        for item_bucket, idxs in sorted(groups.items()):
-            for s in range(0, len(idxs), cap):  # oversize groups split at the largest batch bucket
-                chunk = idxs[s: s + cap]
-                res = self._run_group_device([cleaned[i] for i in chunk], [user_ids[i] for i in chunk], item_bucket)
-                plan.append((chunk, res))
-        return plan
+        with profiling.span("engine.dispatch"):
+            cleaned = []
+            for h in histories:  # drop pad markers, keep the most recent max_items
+                h = np.asarray(h, np.int32)
+                h = h[h >= 0]
+                cleaned.append(h[-self.max_items:])
+            groups: dict = {}
+            for i, h in enumerate(cleaned):
+                groups.setdefault(self._bucket_for(max(len(h), 1), self.item_buckets), []).append(i)
+            plan = []
+            cap = self.batch_buckets[-1]
+            for item_bucket, idxs in sorted(groups.items()):
+                for s in range(0, len(idxs), cap):  # oversize groups split at the largest batch bucket
+                    chunk = idxs[s: s + cap]
+                    res = self._run_group_device([cleaned[i] for i in chunk], [user_ids[i] for i in chunk],
+                                                 item_bucket)
+                    plan.append((chunk, res))
+            return plan
 
     @staticmethod
     def finalize_many(n_requests: int, plan: list) -> RetrievalResult:
         """Fetch phase: wait for each group's results and stack per-request
         rows (numpy) in request order."""
-        out = [None] * n_requests
-        for chunk, res in plan:
-            if isinstance(res, _InFlight):
-                res.event.synchronize()
-                res = res.host
-            host = [t.cpu().numpy() for t in res]
-            for j, i in enumerate(chunk):
-                out[i] = [a[j] for a in host]
-        return RetrievalResult(*(np.stack(cols) for cols in zip(*out)))
+        with profiling.span("engine.gather"):
+            out = [None] * n_requests
+            for chunk, res in plan:
+                if isinstance(res, _InFlight):
+                    with profiling.span("engine.wait"):
+                        res.event.synchronize()
+                    res = res.host
+                host = [t.cpu().numpy() for t in res]
+                for j, i in enumerate(chunk):
+                    out[i] = [a[j] for a in host]
+            return RetrievalResult(*(np.stack(cols) for cols in zip(*out)))
 
     def retrieve_many(
         self,

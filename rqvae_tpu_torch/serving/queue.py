@@ -14,10 +14,23 @@ resolver threads, so the worker dispatches the next flush meanwhile; a
 (QueueOverloadedError), and a request still queued past its deadline is shed
 at batch-cut time (DeadlineExceededError). A submitted request resolves to
 exactly its row of `retrieve_many` over the same flush.
+
+Every request is stamped on one clock (`time.perf_counter_ns`), so that its
+latency is exactly the sum of three records of the queue's `Recorder` (a
+child of utils/profiling.py's root): `queue.wait`, from `submit()` to the
+cut of its flush; `queue.dispatch`, its flush's from the cut until the plan
+goes on the resolver queue (the wait on the in-flight semaphore inside it as
+`queue.backpressure`); `queue.resolve`, from there to the flush's last future
+set (the wait for a free resolver and `finalize_many` inside it). The spans of
+one flush carry its number as `flush`. While the queue is open a
+`gc.callbacks` hook counts Python's collections and their pauses by
+generation (`queue.gc_pause.<generation>`); `queue.open` counts the seconds
+the queue was open, at `close()`.
 """
 
 from __future__ import annotations
 
+import gc
 import queue as _queue
 import threading
 import time
@@ -30,6 +43,9 @@ import torch
 
 from rqvae_tpu_torch.serving.engine import RetrievalEngine
 from rqvae_tpu_torch.serving.retriever import RetrievalResult
+from rqvae_tpu_torch.utils import profiling
+
+GC_PAUSES = tuple(f"queue.gc_pause.{g}" for g in range(3))
 
 
 class QueueOverloadedError(RuntimeError):
@@ -85,13 +101,13 @@ class AsyncRetrievalEngine:
         deadline_ms: Optional[float] = None,
     ):
         self.engine = engine
-        self.max_delay = max_delay_ms / 1000.0
+        self.max_delay_ns = int(max_delay_ms * 1e6)
         self.max_queue_depth = max_queue_depth
-        self.default_deadline = None if deadline_ms is None else deadline_ms / 1000.0
+        self.default_deadline_ns = None if deadline_ms is None else int(deadline_ms * 1e6)
         self._cap = engine.batch_buckets[-1]
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
-        # (history, user_id, Future, enqueue_time, deadline_abs|None);
+        # (history, user_id, Future, enqueue ns, deadline ns|None);
         # deque so a deep backlog
         # doesn't pay O(n) list re-slicing per flush. The delay bound always
         # derives from _pending[0]'s TRUE enqueue time — no separate
@@ -119,17 +135,18 @@ class AsyncRetrievalEngine:
         self.requests = 0
         self.rejected = 0  # admission-control rejects (QueueOverloadedError)
         self.shed = 0  # post-admission deadline sheds (DeadlineExceededError)
-        # end-to-end latency (enqueue -> future resolved) of the most
-        # recent requests, seconds; bounded so long-running services don't
-        # grow memory. Read through stats().
-        self._latencies: deque = deque(maxlen=16384)
-        self._batch_sizes: deque = deque(maxlen=16384)
+        self.recorder = profiling.Recorder(profiling.ROOT)  # read through stats()
+        self._opened_ns: Optional[int] = None
+        self._gc_t0: Optional[int] = None
         if autostart:
             self.start()
 
     # ---- lifecycle ----
 
     def start(self) -> None:
+        if self._opened_ns is None:
+            self._opened_ns = time.perf_counter_ns()
+            gc.callbacks.append(self._on_gc)
         if self._worker is None or not self._worker.is_alive():
             self._shutdown = False
             self._worker = threading.Thread(
@@ -159,6 +176,20 @@ class AsyncRetrievalEngine:
         self._resolvers = []
         # a close() without a worker (autostart=False) still drains
         self.flush()
+        if self._opened_ns is not None:
+            gc.callbacks.remove(self._on_gc)
+            self.recorder.count("queue.open", value=(time.perf_counter_ns() - self._opened_ns) * 1e-9)
+            self._opened_ns = None
+
+    def _on_gc(self, phase: str, info: dict) -> None:
+        """gc.callbacks hook: a collection's pause, on whichever thread ran it
+        (no collection starts inside another)."""
+        if phase == "start":
+            self._gc_t0 = time.perf_counter_ns()
+        elif self._gc_t0 is not None:
+            pause = (time.perf_counter_ns() - self._gc_t0) * 1e-9
+            self._gc_t0 = None
+            self.recorder.count(GC_PAUSES[info["generation"]], value=pause)
 
     def __enter__(self):
         return self
@@ -182,8 +213,8 @@ class AsyncRetrievalEngine:
         h = np.asarray(history, np.int32)
         assert h.ndim == 1, "submit() takes a single 1-D history"
         fut: Future = Future()
-        dl = self.default_deadline if deadline_ms is None else deadline_ms / 1000.0
-        now = time.monotonic()
+        dl = self.default_deadline_ns if deadline_ms is None else int(deadline_ms * 1e6)
+        now = time.perf_counter_ns()
         with self._cond:
             if self._shutdown:
                 raise RuntimeError("AsyncRetrievalEngine is closed")
@@ -208,13 +239,13 @@ class AsyncRetrievalEngine:
 
     def _take_batch(self) -> tuple:
         """Under the lock: pop up to `cap` LIVE requests. Returns
-        (batch, expired): expired requests (deadline already passed at cut
-        time) are popped alongside and must be failed by the caller
-        OUTSIDE the lock via _fail_expired (set_exception runs
+        (batch, expired, cut time): expired requests (deadline already
+        passed at cut time) are popped alongside and must be failed by the
+        caller OUTSIDE the lock via _fail_expired (set_exception runs
         done-callbacks in the calling thread; a callback that re-submits
         would deadlock on the condition lock)."""
         batch, expired = [], []
-        now = time.monotonic()
+        now = time.perf_counter_ns()
         while self._pending and len(batch) < self._cap:
             item = self._pending.popleft()
             if item[4] is not None and now > item[4]:
@@ -222,7 +253,7 @@ class AsyncRetrievalEngine:
             else:
                 batch.append(item)
         self.shed += len(expired)
-        return batch, expired
+        return batch, expired, now
 
     @staticmethod
     def _fail_expired(expired: list) -> None:
@@ -231,78 +262,94 @@ class AsyncRetrievalEngine:
                 DeadlineExceededError("request shed: deadline elapsed while queued")
             )
 
-    def _record_flush(self, batch: list) -> None:
+    def _record_flush(self, batch: list, cut: int) -> dict:
+        """Count a flush cut at `cut` and its requests' waits; returns the
+        arguments its spans carry."""
         self.flushes += 1
-        with self._lock:  # stats() iterates these deques under the lock
-            self._batch_sizes.append(len(batch))
+        self.recorder.count("queue.flush_size", value=len(batch))
+        self.recorder.record("queue.wait", [(cut - b[3]) * 1e-9 for b in batch])
+        return {"flush": self.flushes}
 
-    def _settle(self, batch: list, res) -> None:
-        """Resolve a flush's futures from the fetched host result."""
+    def _settle(self, batch: list, res, resolve: profiling.Span) -> None:
+        """Resolve a flush's futures from the fetched host result; the last
+        one set ends the flush's `queue.resolve` span and every latency."""
         futs = [b[2] for b in batch]
         for i, f in enumerate(futs):
             f.set_result(RetrievalResult(*(np.asarray(a)[i] for a in res)))
-        done = time.monotonic()
-        with self._lock:
-            self._latencies.extend(done - b[3] for b in batch)
+        done = resolve.stop()
+        self.recorder.record("queue.latency", [(done - b[3]) * 1e-9 for b in batch])
 
     def _fail(self, batch: list, e: Exception) -> None:
         for _, _, f, *_rest in batch:  # resolve every waiter, never deadlock
             if not f.done():
                 f.set_exception(e)
 
-    def _dispatch(self, batch: list) -> None:
+    def _dispatch(self, batch: list, cut: int) -> None:
         """Synchronous flush (manual mode / final drain): dispatch, fetch,
         resolve in one step."""
         if not batch:
             return
-        self._record_flush(batch)
-        try:
-            res = self.engine.retrieve_many([b[0] for b in batch], [b[1] for b in batch])
-        except Exception as e:
-            self._fail(batch, e)
-            return
-        self._settle(batch, res)
+        args = self._record_flush(batch, cut)
+        rec = self.recorder
+        with rec.span("queue.dispatch", args, start=cut) as dispatch:
+            try:
+                plan = self.engine.retrieve_many_device([b[0] for b in batch], [b[1] for b in batch])
+            except Exception as e:
+                self._fail(batch, e)
+                return
+            put = dispatch.stop()
+        with rec.span("queue.resolve", args, start=put) as resolve:
+            try:
+                res = self.engine.finalize_many(len(batch), plan)
+            except Exception as e:
+                self._fail(batch, e)
+                return
+            self._settle(batch, res, resolve)
 
-    def _dispatch_async(self, batch: list) -> None:
+    def _dispatch_async(self, batch: list, cut: int) -> None:
         """Worker path: dispatch the bucket replays and hand the unfetched
         plan to the resolver pool, so the wait for one flush's results
         overlaps the next flush's dispatch."""
         if not batch:
             return
-        self._record_flush(batch)
-        self._inflight_sem.acquire()  # blocks at max_in_flight unsettled
-        try:
-            plan = self.engine.retrieve_many_device(
-                [b[0] for b in batch], [b[1] for b in batch]
-            )
-        except Exception as e:
-            self._inflight_sem.release()
-            self._fail(batch, e)
-            return
-        self._resolve_q.put((batch, plan))
+        args = self._record_flush(batch, cut)
+        rec = self.recorder
+        with rec.span("queue.dispatch", args, start=cut) as dispatch:
+            with rec.span("queue.backpressure", args):
+                self._inflight_sem.acquire()  # blocks at max_in_flight unsettled
+            try:
+                plan = self.engine.retrieve_many_device(
+                    [b[0] for b in batch], [b[1] for b in batch]
+                )
+            except Exception as e:
+                self._inflight_sem.release()
+                self._fail(batch, e)
+                return
+            self._resolve_q.put((batch, plan, dispatch.stop(), args))
 
     def _run_resolver(self) -> None:
         while True:
             item = self._resolve_q.get()
             if item is None:
                 return
-            batch, plan = item
-            try:
-                res = self.engine.finalize_many(len(batch), plan)
-            except Exception as e:
-                self._fail(batch, e)
-                continue
-            finally:
-                self._inflight_sem.release()
-            self._settle(batch, res)
+            batch, plan, put, args = item
+            with self.recorder.span("queue.resolve", args, start=put) as resolve:
+                try:
+                    res = self.engine.finalize_many(len(batch), plan)
+                except Exception as e:
+                    self._fail(batch, e)
+                    continue
+                finally:
+                    self._inflight_sem.release()
+                self._settle(batch, res, resolve)
 
     def stats(self) -> dict:
-        """Service-level observability over the most recent requests:
-        end-to-end latency percentiles (enqueue -> result, seconds) and
-        dispatch batch-size distribution. Thread-safe snapshot."""
-        with self._lock:
-            lats = np.asarray(self._latencies, np.float64)
-            sizes = np.asarray(self._batch_sizes, np.float64)
+        """Service-level observability since the queue was made, from its
+        recorder: end-to-end latency percentiles (submit -> result, seconds),
+        the dispatch batch-size distribution, the median wait for a flush and
+        resolve, the seconds spent at the in-flight bound, and Python's
+        collections while open. Thread-safe snapshot."""
+        agg = self.recorder.snapshot()
         out = {
             "requests": self.requests,
             "flushes": self.flushes,
@@ -312,13 +359,19 @@ class AsyncRetrievalEngine:
             "shed": self.shed,
             "admitted": self.requests - self.rejected,
         }
-        if lats.size:
-            p50, p95, p99 = np.percentile(lats, [50, 95, 99])
-            out.update(latency_p50_s=float(p50), latency_p95_s=float(p95),
-                       latency_p99_s=float(p99), latency_mean_s=float(lats.mean()))
-        if sizes.size:
-            out.update(batch_size_mean=float(sizes.mean()),
-                       batch_size_max=int(sizes.max()))
+        lat, sizes = agg.get("queue.latency"), agg.get("queue.flush_size")
+        if lat is not None:
+            out.update(latency_p50_s=lat.quantile(0.5), latency_p95_s=lat.quantile(0.95),
+                       latency_p99_s=lat.quantile(0.99), latency_mean_s=lat.mean)
+        if sizes is not None:
+            out.update(batch_size_mean=sizes.mean, batch_size_max=int(sizes.max))
+        for key, name in (("wait_p50_s", "queue.wait"), ("resolve_p50_s", "queue.resolve")):
+            if name in agg:
+                out[key] = agg[name].quantile(0.5)
+        out["backpressure_s"] = agg["queue.backpressure"].total if "queue.backpressure" in agg else 0.0
+        pauses = [agg[n] for n in GC_PAUSES if n in agg]
+        out["gc_pauses"] = sum(a.count for a in pauses)
+        out["gc_pause_s"] = sum(a.total for a in pauses)
         return out
 
     def flush(self) -> int:
@@ -329,10 +382,10 @@ class AsyncRetrievalEngine:
             with self._cond:
                 if not self._pending:
                     return served
-                batch, expired = self._take_batch()
+                batch, expired, cut = self._take_batch()
             self._fail_expired(expired)
             served += len(batch)
-            self._dispatch(batch)
+            self._dispatch(batch, cut)
 
     def _run(self) -> None:
         if self.engine.device.type == "cuda":
@@ -351,10 +404,10 @@ class AsyncRetrievalEngine:
                     self._pending
                     and len(self._pending) < self._cap
                     and not self._shutdown
-                    and (left := self._pending[0][3] + self.max_delay - time.monotonic()) > 0
+                    and (left := self._pending[0][3] + self.max_delay_ns - time.perf_counter_ns()) > 0
                 ):
-                    self._cond.wait(timeout=left)
-                batch, expired = self._take_batch()
+                    self._cond.wait(timeout=left * 1e-9)
+                batch, expired, cut = self._take_batch()
             self._fail_expired(expired)
-            self._dispatch_async(batch)
+            self._dispatch_async(batch, cut)
         self.flush()  # drain whatever arrived before close()

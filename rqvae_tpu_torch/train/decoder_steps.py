@@ -60,6 +60,7 @@ from rqvae_tpu_torch.serving.beam import PrefixTable
 from rqvae_tpu_torch.tokenizer.semids import _tokenize_from_cache
 from rqvae_tpu_torch.train.state import AdamW
 from rqvae_tpu_torch.train.step_graph import Draws, StepChunks, step_generator, step_rows
+from rqvae_tpu_torch.utils import profiling
 
 SEQ_LENGTH_QUANTILES = (0.25, 0.5, 0.75, 0.9, 1.0)
 SEQ_LENGTH_KEYS = tuple(f"seq_length_p{int(q * 100)}" for q in SEQ_LENGTH_QUANTILES)
@@ -310,8 +311,10 @@ class DecoderGraphTrainStep:
                                  model.device, n_steps, capturable=capturable)
 
     def draws(self, seed: int, step: int, n_rows: int) -> Draws:
-        return rank_slice(decoder_step_draws(seed, step, n_rows, self.batch_size, self.accum, self.n_sites),
-                          self.replicas, RANK_AXES)
+        """Step `step`'s host draws (span `train.draws`)."""
+        with profiling.span("train.draws"):
+            return rank_slice(decoder_step_draws(seed, step, n_rows, self.batch_size, self.accum, self.n_sites),
+                              self.replicas, RANK_AXES)
 
     def bind(self, seq_items, seq_lengths, user_ids, cached_ids) -> None:
         tables = (seq_items, seq_lengths, user_ids, cached_ids)

@@ -36,6 +36,11 @@ eagerly on the card through the same buffers. Unreachable objects are collected 
 reference cycle (a step runner closes over itself) that Python's collector
 destroyed during the capture would invalidate it. A capture or replay that
 fails raises: there is no quiet eager fallback.
+
+Spans (utils/profiling.py, the root recorder): `train.stage`, `train.replay`
+over a chunk's launches, `train.capture` with `capture.eager`,
+`capture.collect` and `capture.record` (capture and instantiate) inside, as
+the serving engine names its captures' parts; none inside the captured step.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from rqvae_tpu_torch.utils import profiling
 from rqvae_tpu_torch.utils.device import end_failed_capture
 
 Draws = Dict[str, object]  # name -> host array of one step (numpy or torch)
@@ -127,58 +133,63 @@ class StepChunks:
         k = len(draws)
         if not 1 <= k <= self.n_steps:
             raise ValueError(f"a chunk of {k} steps; this one takes 1 to {self.n_steps}")
-        for name, buf in self.staged.items():
-            host = torch.stack([torch.as_tensor(d[name]) for d in draws]).to(buf.dtype)
-            if self.device.type == "cuda":
-                host = host.pin_memory()
-            buf[:k].copy_(host.reshape(buf[:k].shape), non_blocking=True)
-        self.index.zero_()
-        if self.sums is not None:
-            for v in self.sums.values():
-                v.zero_()
+        with profiling.span("train.stage"):
+            for name, buf in self.staged.items():
+                host = torch.stack([torch.as_tensor(d[name]) for d in draws]).to(buf.dtype)
+                if self.device.type == "cuda":
+                    host = host.pin_memory()
+                buf[:k].copy_(host.reshape(buf[:k].shape), non_blocking=True)
+            self.index.zero_()
+            if self.sums is not None:
+                for v in self.sums.values():
+                    v.zero_()
 
     def capture(self) -> None:
         """Capture the step's graph (once; `replay` captures at first use)."""
         if not self.use_graph or self.graph is not None:
             return
-        dev = self.device
-        gc.collect()  # no graph of a dead cycle may be destroyed while this one captures
-        state = self.state()
-        with torch.no_grad():
-            saved = [t.detach().clone() for t in state]
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.device(dev), torch.cuda.stream(side):
-            self._one_step()  # eager: kernels built and set up, grads and sums allocated
-        torch.cuda.current_stream(dev).wait_stream(side)
-        with torch.no_grad():
-            for t, s in zip(state, saved):
-                t.copy_(s)  # the eager run's update undone
-        graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept, so its nodes can be read (debug_dump)
-        try:
-            with torch.cuda.device(dev), torch.cuda.graph(graph, pool=self.pool, stream=side,
-                                                          capture_error_mode="thread_local"):
-                self._one_step()
-            graph.instantiate()
-        except Exception as e:
-            end_failed_capture(dev)
-            raise RuntimeError(f"CUDA graph capture of the training step failed: {e}") from e
-        self.graph = graph
+        with profiling.span("train.capture"):
+            dev = self.device
+            with profiling.span("capture.collect"):
+                gc.collect()  # no graph of a dead cycle may be destroyed while this one captures
+            state = self.state()
+            with torch.no_grad():
+                saved = [t.detach().clone() for t in state]
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with profiling.span("capture.eager"), torch.cuda.device(dev), torch.cuda.stream(side):
+                self._one_step()  # eager: kernels built and set up, grads and sums allocated
+            torch.cuda.current_stream(dev).wait_stream(side)
+            with torch.no_grad():
+                for t, s in zip(state, saved):
+                    t.copy_(s)  # the eager run's update undone
+            graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept, so its nodes can be read (debug_dump)
+            try:
+                with profiling.span("capture.record"):
+                    with torch.cuda.device(dev), torch.cuda.graph(graph, pool=self.pool, stream=side,
+                                                                  capture_error_mode="thread_local"):
+                        self._one_step()
+                    graph.instantiate()
+            except Exception as e:
+                end_failed_capture(dev)
+                raise RuntimeError(f"CUDA graph capture of the training step failed: {e}") from e
+            self.graph = graph
 
     def replay(self, k: int) -> None:
         """Run k staged steps: k replays of the graph, or k eager bodies."""
         if not 1 <= k <= self.n_steps:
             raise ValueError(f"{k} steps of a chunk of at most {self.n_steps}")
         if not self.use_graph:
-            for _ in range(k):
-                self._one_step()
+            with profiling.span("train.replay"):
+                for _ in range(k):
+                    self._one_step()
             return
         if self.graph is None:
             self.capture()
             self.index.zero_()
             for v in self.sums.values():
                 v.zero_()
-        with torch.cuda.device(self.device):
+        with profiling.span("train.replay"), torch.cuda.device(self.device):
             for _ in range(k):
                 self.graph.replay()
         self.replays += k

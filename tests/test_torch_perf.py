@@ -126,8 +126,14 @@ def test_profiling_harness(tmp_path):
     calls = []
     got = profiling.timeit(lambda n: calls.append(n), 3, warmup=2, runs=4)
     assert calls == [3] * 6 and set(got) == {"first_call_s", "steady_state_s", "calls_per_sec"}
+    rec = profiling.Recorder(profiling.ROOT)
     with profiling.trace(str(tmp_path / "tr")):
-        with profiling.annotate("my_region"):
+        with rec.span("my_region", {"step": 7}):
             torch.ones(64, 64) @ torch.ones(64, 64)
     events = json.load(open(os.path.join(tmp_path, "tr", "trace.json")))["traceEvents"]
-    assert any(e.get("name") == "my_region" for e in events)
+    region = [e for e in events if e.get("name") == "my_region"]
+    assert len(region) == 1
+    inside = [e["name"] for e in events if e.get("ph") == "X" and e.get("tid") == region[0]["tid"]
+              and region[0]["ts"] <= e["ts"] <= region[0]["ts"] + region[0]["dur"]]
+    assert "step=7" in inside and "aten::mm" in inside
+    assert rec.snapshot()["my_region"].count == 1
