@@ -11,7 +11,7 @@ dataset's movie count, no multiple of the 64 rows of an rq_encode block). Both:
 3 x 256 codebooks; T5 d_model 384, 6 heads, d_kv 64, d_ff 1024, 4+4 layers,
 bf16, top-k 10, batches of 64 histories.
 
-   1. card: name, count, power limit, torch/CUDA versions; builds the five
+   1. card: name, count, power limit, torch/CUDA versions; builds the six
       CUDA kernels from rqvae_tpu_torch/csrc (one nvcc per source, in
       parallel) and prints each kernel's ptxas registers and spills; the
       tensor-core kernels of encoder_stack, decoder_stack and rq_encode must
@@ -96,6 +96,12 @@ bf16, top-k 10, batches of 64 histories.
       blocks of v and dout); times of the kernel, its plain version and the library's
       backward (autograd through scaled_dot_product_attention, no dropout);
       the forward kernel's time at the Amazon training shape;
+  11a. hash_dropout: the hash-dropout kernel (csrc/hash_dropout.cu) against
+      the plain route bit for bit at both training cells' site shapes
+      ([640, 80, w] and [64, 800, w], w = 384 and 1024), bf16 and f32, the
+      d_ff sites counted from an offset past 2^31; CUDA-event ms of the
+      kernel and of the plain route beside the bound (x read and y written
+      once over 3.35 TB/s), and the encoder's sites of one bf16 step;
   12. stage-2 training at the ML-32M width through train_decoder.train, counts
       zeroed first: 87,585 items, 20,000 synthetic users of 10..202 items
       (histories of up to 200, encoder rows Le = 800), batch 64, bf16, dropout
@@ -118,8 +124,8 @@ bf16, top-k 10, batches of 64 histories.
       gradient within 2e-4 of the tensor's largest entry;
   15. one Amazon training step under torch.profiler: device time by kernel,
       launches, the device's idle share, the shares of the attention kernels
-      and of the cuBLAS products; beside it the CUDA-event time of the
-      hash-dropout masks at the encoder's dropout sites, forward and backward;
+      and of the cuBLAS products, and the hash-dropout kernel's device ms
+      (every site of the step, forward and backward);
   16. stage-1 (RQ-VAE) training at the Amazon width through train_rqvae.train
       at configs/rqvae_amazon.gin's settings (768 -> [512, 256, 128] -> 32,
       3 x 256, STE, batch 640, LR 1e-3, weight decay 1e-4, k-means init on
@@ -193,8 +199,9 @@ bf16, top-k 10, batches of 64 histories.
       steps_per_loop=1 against the automatic chunk (100);
   28. train_graph_amazon: stage 2 at configs/decoder_amazon.gin's widths
       (batch 640, Le 80, bf16, dropout 0.1): 8 eager steps twice against 2
-      chunks of 4 replays, the gates of 25; the graph holds kernel 4 x 4 and
-      kernel 5 x 4 (its launches in the kernels line: nodes x replays; the
+      chunks of 4 replays, the gates of 25; the graph holds kernel 4 x 4,
+      kernel 5 x 4 and as many hash-dropout kernels as an eager step launches
+      (its launches in the kernels line: nodes x replays; the
       wrappers' counters, zeroed first, do not tick on a replay); capture s
       and the graph pool's memory;
   29. train_graph_ml32m: the same at decoder_ml32m.gin's (batch 64, Le
@@ -202,7 +209,8 @@ bf16, top-k 10, batches of 64 histories.
   30. remat: one ML-32M stage-2 step with t5_remat=True against False,
       dropout 0.1, the same seeds: loss and every gradient bit-equal; kernel
       4 launched 8 times with remat (each encoder layer's forward again in
-      the backward), 4 without; the peak memory of both.
+      the backward), 4 without, and the hash-dropout kernel more often with
+      remat than without; the peak memory of both.
 
   The trainers as rqvae_tpu's are configured and resumed, at the Amazon
   widths, run after phase 27:
@@ -1113,10 +1121,12 @@ class LaunchCounts:
         from rqvae_tpu_torch.ops.cuda.attention import t5_attention
         from rqvae_tpu_torch.ops.cuda.decoder_stack import t5_decoder_stack_infer
         from rqvae_tpu_torch.ops.cuda.encoder_stack import t5_encoder_stack_infer
+        from rqvae_tpu_torch.ops.cuda.hash_dropout import hash_dropout_cuda
         from rqvae_tpu_torch.ops.cuda.rq_encode import fused_encode_quantize
 
         self.wrappers = {"rq_encode": fused_encode_quantize, "decoder_stack": t5_decoder_stack_infer,
-                         "encoder_stack": t5_encoder_stack_infer, "attention": t5_attention}
+                         "encoder_stack": t5_encoder_stack_infer, "attention": t5_attention,
+                         "hash_dropout": hash_dropout_cuda}
 
     def zero(self) -> None:
         for fn in self.wrappers.values():
@@ -1352,6 +1362,57 @@ def attention_bwd_phase(dev):
     return kernel_row, {f"{d}_rate{r}": ms for (d, r), ms in fwd_amazon.items()}
 
 
+# the encoder's hash-dropout sites of one micro-batch: the stack's input and
+# output and each layer's attention and FFN outputs at d_model, each layer's
+# FFN inner activation at d_ff
+HASH_SITES = {384: 2 + 2 * 4, 1024: 4}
+
+
+def hash_dropout_phase(dev) -> dict:
+    """The hash-dropout kernel against the plain route, bit for bit, at both
+    training cells' site shapes ([batch, Le, width], width d_model and d_ff)
+    in bf16 and float32, the counters from an offset past 2^31 in one case
+    each; CUDA-event times of the kernel and the plain route beside the bound
+    (x read and y written once over 3.35 TB/s), and the encoder's sites of a
+    bf16 step, forward and backward. Returns its row of the `kernels` line."""
+    from rqvae_tpu_torch.ops import hash_dropout as thd
+
+    seed = torch.tensor([-(2**31) + 77], dtype=torch.int32, device=dev)  # as training passes it
+    geos = {"amazon": (TRAIN_AMAZON["batch"], AMAZON["history"] * 4), "ml32m": (TRAIN_ML32M["batch"], ML32M["history"] * 4)}
+    rows, step_ms = [], {}
+    for name, (B, L) in geos.items():
+        for dt in (torch.bfloat16, torch.float32):
+            for width in HASH_SITES:
+                x = torch.randn(B, L, width, generator=torch.Generator().manual_seed(width)).to(dt).to(dev)
+                offset = 2**31 + 5 if width == 1024 else 0  # a data-parallel rank's span past 2^31
+                total = offset + x.numel()
+                run = lambda: thd._drop(x, seed, 0.1, offset, total, None)
+                plain = lambda: thd.hash_dropout_plain(x, seed, 0.1, offset, total, None)
+                got, want = run(), plain()
+                bits = torch.int16 if dt == torch.bfloat16 else torch.int32  # +0 and -0 apart
+                same = bool(torch.equal(got.view(bits), want.view(bits)))
+                check(same, f"hash_dropout {name} {dtype_name(dt)} width {width}: the kernel differs from the plain route")
+                ms, p_ms = cuda_ms(run, reps=50, warmup=5), cuda_ms(plain, reps=3, warmup=1)
+                b_ms, b_by = bound_ms(0, peak_flops(dt), 2 * nbytes_of(x))
+                rows.append({"geometry": name, "shape": [B, L, width], "dtype": dtype_name(dt), "offset": offset,
+                             "bit_equal": same, "kept_share": float((want != 0).float().mean()), "ms": ms,
+                             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "roofline_share": b_ms / ms})
+                del x, got, want
+            if dt == torch.bfloat16:
+                # the encoder's sites of one step, each forward and backward
+                at = {r["shape"][2]: r for r in rows[-2:]}
+                step_ms[name] = {k: 2 * sum(n * at[w][k] for w, n in HASH_SITES.items())
+                                 for k in ("ms", "plain_ms", "bound_ms")}
+        torch.cuda.empty_cache()
+    emit({"phase": "hash_dropout", "rate": 0.1, "rows": rows, "encoder_sites_per_bf16_step": step_ms,
+          "ptxas": PTXAS.get("hash_dropout")})
+    am = next(r for r in rows if r["geometry"] == "amazon" and r["dtype"] == "bfloat16" and r["shape"][2] == 1024)
+    return {"name": "hash_dropout", "route": "cuda", "source": "rqvae_tpu_torch/csrc/hash_dropout.cu",
+            "replaces": "none (rqvae_tpu/ops/hash_dropout.py is left to XLA's fusion)", "max_abs_err": 0.0,
+            "ms": am["ms"], "plain_ms": am["plain_ms"], "bound_ms": am["bound_ms"], "bound_by": am["bound_by"],
+            "library_ms": None, "shape": am["shape"], "encoder_sites_per_bf16_step": step_ms}
+
+
 def make_sequences(geo: dict, n_items: int, seed: int):
     """Synthetic user histories, leave-two-out layout: [users, max_len] item
     ids right-padded with -1, and their lengths (min_len..max_len)."""
@@ -1449,7 +1510,8 @@ def train_ml32m_phase(rq, x_cpu, x, counts, dev) -> dict:
         got = counts.read()
         peak_train_call = peak_memory()
     check(got["attention"] == 4 * 3 and got["attention_bwd"] == 4 * 3 and got["encoder_stack"] == 1
-          and got["decoder_stack"] == 0 and got["rq_encode"] >= 1, f"ML-32M training launches {got}")
+          and got["decoder_stack"] == 0 and got["rq_encode"] >= 1 and got["hash_dropout"] > 0
+          and got["hash_dropout"] % 3 == 0, f"ML-32M training launches {got}")
     check_summary("train_path_ml32m", summary)
     model, opt, step, tables = training_parts(geo, data, rq, x, dev, "bfloat16")
     run_steps(step, tables, geo, dev, 1)  # warm
@@ -1490,7 +1552,8 @@ def train_amazon_phase(rq, x_cpu, x, counts, dev):
         got = counts.read()
     micro = 5 + 2
     check(got["attention"] == 4 * micro and got["attention_bwd"] == 4 * micro and got["decoder_stack"] == 3 * 2
-          and got["rq_encode"] >= 1 and got["encoder_stack"] == 0, f"Amazon training launches {got}")
+          and got["rq_encode"] >= 1 and got["encoder_stack"] == 0 and got["hash_dropout"] > 0
+          and got["hash_dropout"] % micro == 0, f"Amazon training launches {got}")
     for name, summary in (("first", first), ("resumed", resumed)):
         check_summary(f"train_path {name}", summary)
     check(bool(np.isfinite(first["eval_loss"])), f"train_path: eval loss {first['eval_loss']}")
@@ -1717,11 +1780,8 @@ def item_corpus(n: int, dim: int, n_cat: int, seed: int) -> torch.Tensor:
 
 
 def train_profile_phase(step, tables, dev, top: int = 12) -> None:
-    """One Amazon training step under torch.profiler (CUPTI), and the
-    CUDA-event time of the hash-dropout masks at the encoder's sites."""
+    """One Amazon training step under torch.profiler (CUPTI)."""
     from torch.profiler import ProfilerActivity, profile
-
-    from rqvae_tpu_torch.ops.hash_dropout import hash_dropout
 
     geo = TRAIN_AMAZON
     run_steps(step, tables, geo, dev, 1, first=20)  # warm
@@ -1735,21 +1795,11 @@ def train_profile_phase(step, tables, dev, top: int = 12) -> None:
     attention_bwd = lambda k: any(s in k for s in ("bwd_", "delta_kernel", "dkv_kernel", "dq_dbias_kernel",
                                                    "reduce_groups_kernel"))
     gemm = lambda k: "gemm" in k or "cutlass" in k or "cublas" in k
-    # the masks of the encoder's dropout sites of one micro-batch: input, two
-    # sublayer outputs per layer and the final output at [B * Le, d], the FFN's
-    # inner activation per layer at [B * Le, d_ff]; each built forward and backward
-    n_tok = geo["batch"] * AMAZON["history"] * 4
-    sites = [((n_tok, 384), 2 + 2 * 4), ((n_tok, 1024), 4)]
-    dropout_ms = 0.0
-    for shape, count in sites:
-        h = torch.randn(shape, device=dev).to(torch.bfloat16)
-        dropout_ms += 2 * count * cuda_ms(lambda: hash_dropout(h, 123, 0.1), reps=5, warmup=1)
     emit({"phase": "train_profile", "host_ms": ms[0], "device_ms": device_ms,
           "device_launches": sum(e.count for e in rows),
           "device_idle_share": max(0.0, 1.0 - device_ms / ms[0]),
           "share_attention_forward": share(attention_fwd), "share_attention_backward": share(attention_bwd),
-          "share_gemm": share(gemm), "hash_dropout_encoder_sites_ms": dropout_ms,
-          "hash_dropout_encoder_sites_share_of_device_ms": dropout_ms / device_ms,
+          "share_gemm": share(gemm), "hash_dropout_kernel_ms": share(lambda k: "hash_dropout_kernel" in k) * device_ms,
           "kernels": [{"name": e.key[:60], "count": e.count, "ms": e.self_device_time_total / 1e3}
                       for e in rows[:top]]})
 
@@ -1856,7 +1906,7 @@ def graph_against_eager(phase: str, graph, chunks_eager, tmp: str) -> dict:
     check(not differ, f"{phase}: kernels by name, graph against an eager step: {differ}")
     return {"nodes": sum(nodes.values()), "copies": nodes.get(DEVICE_COPY, 0),
             "eager_step": {k: prof[k] for k in ("host_ms", "device_ms", "device_launches", "device_idle_share")},
-            "attention_nodes": attention_launches_in(nodes)}
+            "attention_nodes": attention_launches_in(nodes), "hash_dropout_nodes": our_kernels(nodes)["hash_dropout"]}
 
 
 def eager_runs(make, run_step, n: int) -> tuple:
@@ -1900,7 +1950,9 @@ def train_graph_phase(phase: str, geo: dict, rq, x, dev, counts, eager: int, chu
         return model, opt, step
 
     run_step = lambda step, d: step(*tables, d)
+    counts.zero()
     me, oe, se, eager, eager_ms, draws = eager_runs(make, run_step, n_eager)
+    eager_hash = counts.read()["hash_dropout"] // n_eager
     again = eager_runs(make, run_step, n_eager)
     model, opt, step = make(chunk)
     step.bind(*tables)
@@ -1929,6 +1981,10 @@ def train_graph_phase(phase: str, geo: dict, rq, x, dev, counts, eager: int, chu
         nodes = graph_against_eager(phase, step.chunks.graph, se.chunks, tmp)
     per_step = nodes["attention_nodes"]
     check(per_step == {"attention": 4, "attention_bwd": 4}, f"{phase}: kernels 4 and 5 in the graph: {per_step}")
+    # every hash-dropout site of a step, forward and backward: the kernel, as many as an eager step launches
+    per_step = {**per_step, "hash_dropout": nodes["hash_dropout_nodes"]}
+    check(per_step["hash_dropout"] == eager_hash and eager_hash > 0,
+          f"{phase}: {per_step['hash_dropout']} hash-dropout nodes, {eager_hash} launches an eager step")
     step.chunks.stage(draws[:chunk])
     timing = replay_timing(step.chunks, chunk)
     emit({"phase": phase, "batch": geo["batch"], "Le": geo["max_seq_len"] * 4, "dtype": "bfloat16", "dropout": 0.1,
@@ -2024,14 +2080,15 @@ def remat_phase(rq, x, dev, counts) -> dict:
         res = model(batch, training=True, seeds=seeds)
         res.loss.backward()
         sync()
-        launched = {k: v for k, v in counts.read().items() if k.startswith("attention")}
+        launched = {k: v for k, v in counts.read().items() if k.startswith("attention") or k == "hash_dropout"}
         out[remat] = (res.loss.detach(), {n: p.grad for n, p in model.named_parameters()},
                       peak_memory() - base, launched)
         del model, res
     (la, ga, pa, ka), (lb, gb, pb, kb) = out[False], out[True]
     same = bool(torch.equal(la, lb)) and all(torch.equal(ga[n], gb[n]) for n in ga)
     check(same, "remat: the loss or a gradient with t5_remat=True differs from t5_remat=False")
-    check(ka == {"attention": 4, "attention_bwd": 4} and kb == {"attention": 8, "attention_bwd": 4},
+    check(ka["attention"] == 4 and ka["attention_bwd"] == 4 and kb["attention"] == 8 and kb["attention_bwd"] == 4
+          and kb["hash_dropout"] > ka["hash_dropout"] > 0,
           f"remat: kernel launches {ka} without, {kb} with (the recompute runs each encoder layer's forward again)")
     emit({"phase": "remat", "batch": geo["batch"], "Le": geo["max_seq_len"] * 4, "dtype": "bfloat16",
           "dropout": 0.1, "loss": float(la), "loss_and_gradients_bit_equal": same,
@@ -2130,7 +2187,8 @@ def graph_launches(nodes: dict) -> dict:
     """The port's kernels among a graph's nodes, kernels 4 and 5 apart."""
     ours = our_kernels(nodes)
     return {"rq_encode": ours["rq_encode"], "decoder_stack": ours["decoder_stack"],
-            "encoder_stack": ours["encoder_stack"], **attention_launches_in(nodes)}
+            "encoder_stack": ours["encoder_stack"], "hash_dropout": ours["hash_dropout"],
+            **attention_launches_in(nodes)}
 
 
 def add_launches(*parts: dict) -> dict:
@@ -2575,7 +2633,7 @@ def rq_encode_packed_phase(rq, x) -> dict:
 def our_kernels(names: dict) -> dict:
     """The count of the port's kernels among kernel names."""
     keys = {"rq_encode": "rq_encode", "decoder_stack": "decoder_stack", "encoder_stack": "encoder_rows",
-            "attention": "attention"}
+            "attention": "attention", "hash_dropout": "hash_dropout_kernel"}
     return {k: sum(c for n, c in names.items() if pat in n) for k, pat in keys.items()}
 
 
@@ -4107,6 +4165,7 @@ def main() -> int:
     # ---- 11. the attention backward kernel at both training shapes ----
     kernels["attention_bwd"], fwd_amazon_ms = attention_bwd_phase(dev)
     kernels["attention"]["amazon_train_shape_ms"] = fwd_amazon_ms
+    kernels["hash_dropout"] = hash_dropout_phase(dev)
 
     # ---- 12. training at the ML-32M width ----
     launches["train_ml32m"] = train_ml32m_phase(rq, x_cpu, x, counts, dev)

@@ -36,7 +36,7 @@
 // all, unlike masked ones) and their v rows are zero; query rows past Lq are
 // computed on zeros and not stored.
 //
-// Dropout (rate > 0): keep bits are the murmur3 finaliser of the wrapping
+// Dropout (rate > 0): keep bits (hash_core.cuh) are the murmur3 finaliser of the wrapping
 // uint32 counter (((b0 + b)*Hg + h0 + h)*Lq + q)*Lk + k XOR seed * 0x9E3779B9, keep iff
 // bits >= round(rate * 2^32); dropped p is zeroed and the rest scaled by
 // 1/(1-rate) in float32 before the rounding to the compute dtype. The int32
@@ -64,6 +64,7 @@
 
 #include <type_traits>
 
+#include "hash_core.cuh"
 #include "mma_core.cuh"
 
 namespace attn {
@@ -98,18 +99,8 @@ __host__ __device__ inline int smem_floats(int dk) {
   return QT * (dk + 4) + KT * (dk + 4) + KT * dk + QT * (KT + 4) + KT;
 }
 
-// seed * 0x9E3779B9 (wrapping) of the int32 seed at `seed`
-__device__ __forceinline__ unsigned seed_mix_of(const int* seed) { return (unsigned)__ldg(seed) * 0x9E3779B9u; }
-
-__device__ __forceinline__ bool keep_bit(unsigned counter, unsigned seed_mix, unsigned thresh) {
-  unsigned x = counter ^ seed_mix;
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x >= thresh;
-}
+using hashdrop::keep_bit;
+using hashdrop::seed_mix_of;
 
 // max / sum over the 16 lanes that share a query row (tid & 15 varies); the
 // butterfly gives every lane the same bits

@@ -22,7 +22,7 @@ from typing import Dict, List
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("rq_encode", "decoder_stack", "attention", "encoder_stack", "attention_bwd")
+SOURCES = ("rq_encode", "decoder_stack", "attention", "encoder_stack", "attention_bwd", "hash_dropout")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC),

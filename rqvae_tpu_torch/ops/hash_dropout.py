@@ -1,10 +1,10 @@
 """Counter-based dropout keep bits (port of rqvae_tpu/ops/hash_dropout.py).
 
 The keep decision for an element is a murmur3-finalizer hash of its uint32
-counter XOR seed * 0x9E3779B9. torch has no uint32 arithmetic, so the
-counters live in int64 and every product is reduced with `& 0xFFFFFFFF`:
-the bits equal the JAX package's exactly, wrap-around included. The attention
-kernel (csrc/attention_core.cuh) computes the same hash in registers.
+counter XOR seed * 0x9E3779B9. torch has no uint32 arithmetic, so the plain
+versions compute it in wrapping int32 arithmetic (below): the bits equal the
+JAX package's exactly, wrap-around included. The CUDA kernels compute the
+same hash in registers (csrc/hash_core.cuh).
 
 The seed is a 1-element int32 tensor on the data's device, as the Pallas
 kernels read theirs from an SMEM operand: seed * 0x9E3779B9 is formed on the
@@ -14,12 +14,15 @@ copied to the device first). An int32 seed holds the uint32 seed's bits, so
 seeds of 2^31 and more are negative int32 values.
 
 `hash_dropout` is dropout whose keep mask is that hash of the element's linear
-index: an autograd function that saves nothing but the seed and rebuilds the
-mask in the backward pass. Its masks are built in wrapping int32 arithmetic
-(4 bytes an element where the int64 emulation takes 8): int32 products wrap as
-uint32 products do, a logical right shift is an arithmetic one with the
-sign-extended bits masked off, and the unsigned compare is a signed compare
-after flipping both sign bits. The bits are the same.
+index: an autograd function that saves nothing but the seed and applies the
+same mask to the gradient in the backward pass. On the card both passes are one
+launch of csrc/hash_dropout.cu (ops/cuda/hash_dropout.py), which hashes the
+keep bit in registers: one read of the input and one write of the output. CPU
+tensors take `hash_dropout_plain`, which builds the mask in wrapping int32
+arithmetic: int32 products wrap as uint32 products do, a logical right shift
+is an arithmetic one with the sign-extended bits masked off, and the unsigned
+compare is a signed compare after flipping both sign bits. The bits are the
+same.
 
 Data parallelism: the JAX package's masks are a hash of the GLOBAL element
 position (its keep_mask iota runs over the global shape that GSPMD sees). A
@@ -43,6 +46,8 @@ import math
 from typing import Sequence, Union
 
 import torch
+
+from rqvae_tpu_torch.ops.cuda.hash_dropout import hash_dropout_cuda
 
 _M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
@@ -79,13 +84,7 @@ def _seed_mix64(seed: Seed, device) -> torch.Tensor:
 def hash_keep_bits(counter: torch.Tensor, seed: Seed, rate: float) -> torch.Tensor:
     """Bool keep decision for int64 `counter`s holding uint32 values
     (callers reduce theirs with `& 0xFFFFFFFF`); `seed` is an int32 value."""
-    x = counter ^ _seed_mix64(seed, counter.device)
-    x = x ^ (x >> 16)
-    x = (x * 0x85EBCA6B) & _M32
-    x = x ^ (x >> 13)
-    x = (x * 0xC2B2AE35) & _M32
-    x = x ^ (x >> 16)
-    return x >= keep_threshold(rate)
+    return _keep_bits_i32(_as_i32(counter), seed, rate)
 
 
 def _check_span(shape: Sequence[int], offset: int, total, row=None) -> int:
@@ -154,6 +153,15 @@ def keep_scale(rate: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(1.0 / (1.0 - rate), dtype=dtype))
 
 
+def hash_dropout_plain(x: torch.Tensor, seed: Seed, rate: float, offset: int = 0, total=None,
+                       row=None) -> torch.Tensor:
+    """The masked multiply in torch, for any device: where(keep_mask, x, 0)
+    * keep_scale(rate, x.dtype). It is what CPU tensors run, and what the
+    kernel is held to."""
+    keep = keep_mask(seed, x.shape, rate, x.device, offset, total, row)
+    return torch.where(keep, x, 0) * keep_scale(rate, x.dtype)
+
+
 class _HashDropout(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, seed, rate, offset, total, row):
@@ -168,8 +176,12 @@ class _HashDropout(torch.autograd.Function):
 
 
 def _drop(x: torch.Tensor, seed: torch.Tensor, rate: float, offset: int, total, row) -> torch.Tensor:
-    keep = keep_mask(seed, x.shape, rate, x.device, offset, total, row)
-    return torch.where(keep, x, 0) * keep_scale(rate, x.dtype)
+    """The masked multiply of both passes: the kernel for a CUDA tensor (it
+    raises on what it does not take), the plain version for a CPU one."""
+    if x.device.type == "cuda":
+        _check_span(x.shape, offset, total, row)
+        return hash_dropout_cuda(x, seed, keep_threshold(rate), keep_scale(rate, x.dtype), offset, row)
+    return hash_dropout_plain(x, seed, rate, offset, total, row)
 
 
 def hash_dropout(x: torch.Tensor, seed: Seed, rate: float, offset: int = 0, total=None, row=None) -> torch.Tensor:

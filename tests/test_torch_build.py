@@ -18,13 +18,15 @@ def csrc_copy(tmp_path, monkeypatch):
 
 
 def test_sources_and_their_headers():
-    assert _build.SOURCES == ("rq_encode", "decoder_stack", "attention", "encoder_stack", "attention_bwd")
+    assert _build.SOURCES == ("rq_encode", "decoder_stack", "attention", "encoder_stack", "attention_bwd",
+                              "hash_dropout")
     names = {name: [p.name for p in _build.source_files(name)] for name in _build.SOURCES}
     assert names == {
         "rq_encode": ["rq_encode.cu", "mma_core.cuh"], "decoder_stack": ["decoder_stack.cu", "mma_core.cuh", "rows_core.cuh"],
-        "attention": ["attention.cu", "attention_core.cuh", "mma_core.cuh"],
-        "encoder_stack": ["encoder_stack.cu", "attention_core.cuh", "mma_core.cuh", "rows_core.cuh"],
-        "attention_bwd": ["attention_bwd.cu", "attention_core.cuh", "mma_core.cuh"],
+        "attention": ["attention.cu", "attention_core.cuh", "hash_core.cuh", "mma_core.cuh"],
+        "encoder_stack": ["encoder_stack.cu", "attention_core.cuh", "hash_core.cuh", "mma_core.cuh", "rows_core.cuh"],
+        "attention_bwd": ["attention_bwd.cu", "attention_core.cuh", "hash_core.cuh", "mma_core.cuh"],
+        "hash_dropout": ["hash_dropout.cu", "hash_core.cuh"],
     }
     assert str(_build.CSRC) in _build.NVCC_FLAGS  # quoted includes resolve under csrc/
 
@@ -46,6 +48,13 @@ def test_library_name_follows_the_header(csrc_copy):
     assert _build._lib_path("encoder_stack").name != after["encoder_stack"]
     assert _build._lib_path("decoder_stack").name != after["decoder_stack"]
     assert _build._lib_path("attention_bwd").name == after["attention_bwd"]
+    assert _build._lib_path("hash_dropout").name == before["hash_dropout"]
+    last = {name: _build._lib_path(name).name for name in _build.SOURCES}
+    with open(csrc_copy / "hash_core.cuh", "a") as f:  # the dropout hash: the attention kernels and hash dropout
+        f.write("// edited\n")
+    moved = {name: _build._lib_path(name).name != last[name] for name in _build.SOURCES}
+    assert moved == {"rq_encode": False, "decoder_stack": False, "attention": True, "encoder_stack": True,
+                     "attention_bwd": True, "hash_dropout": True}
 
 
 def test_nested_and_missing_includes(csrc_copy):
@@ -53,7 +62,7 @@ def test_nested_and_missing_includes(csrc_copy):
     with open(csrc_copy / "attention_core.cuh", "a") as f:
         f.write('#include "inner.cuh"\n')
     assert [p.name for p in _build.source_files("encoder_stack")] == [
-        "encoder_stack.cu", "attention_core.cuh", "inner.cuh", "mma_core.cuh", "rows_core.cuh"]
+        "encoder_stack.cu", "attention_core.cuh", "hash_core.cuh", "inner.cuh", "mma_core.cuh", "rows_core.cuh"]
     (csrc_copy / "inner.cuh").unlink()
     with pytest.raises(RuntimeError, match="inner.cuh"):
         _build.source_files("attention")

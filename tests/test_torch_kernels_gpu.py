@@ -347,6 +347,10 @@ def test_kernels_launch_on_the_tensors_device(cuda):
     assert (t5_decoder_stack_infer(*ops, eps=eps) - t5_decoder_stack_plain(*ops, eps=eps)).abs().max().item() <= 1e-3
     ops, eps = _encoder_operands(SMALL_T5, "float32", 3, 11, dev)
     assert (t5_encoder_stack_infer(*ops, eps=eps) - t5_encoder_stack_plain(*ops, eps=eps)).abs().max().item() <= 1e-3
+    from rqvae_tpu_torch.ops.hash_dropout import hash_dropout, hash_dropout_plain
+
+    h = torch.randn(40, 24, generator=torch.Generator().manual_seed(2)).to(torch.bfloat16).to(dev)
+    assert torch.equal(hash_dropout(h, 77, 0.1), hash_dropout_plain(h, 77, 0.1))
     assert torch.cuda.current_device() == 0
 
 
@@ -1048,6 +1052,144 @@ def test_attention_kernels_read_a_device_seed(cuda, dtype, L):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(captured, t5_attention(q, k, v, bias, mask, row[2:3], dropout_rate=0.1))
+
+
+# ---- hash dropout's masked multiply (csrc/hash_dropout.cu) ----
+
+def _bits(t):
+    """A float32 or bf16 tensor's bits, so that +0 and -0 (and NaN) compare."""
+    return t.contiguous().view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+def _wrapped_plain(x, seed, rate, offset, row=None):
+    """where(keep, x, 0) * scale with the counters built on the host in
+    int64 and wrapped to uint32 (the plain route's _check_span refuses a span
+    that passes 2^32, which the kernel's arithmetic must still wrap)."""
+    from rqvae_tpu_torch.ops import hash_dropout as thd
+
+    i = torch.arange(x.numel(), dtype=torch.int64)
+    counter = offset + (i if row is None else (i // row[0]) * row[1] + i % row[0])
+    keep = thd.hash_keep_bits(counter & 0xFFFFFFFF, seed, rate).reshape(x.shape).to(x.device)
+    return torch.where(keep, x, 0) * thd.keep_scale(rate, x.dtype)
+
+
+# (shape, offset, total, row): the plain layout at sizes that are no multiple
+# of 8 or 4; an offset past 2^31; rows of w in global rows of W, w below and
+# above the vector width
+HASH_LAYOUTS = [((3, 37, 5), 0, None, None), ((1000, 33), 2**31 + 12345, None, None),
+                ((2, 3, 7), 6 * 40, 12 * 40, None), ((20, 3), 5, None, (3, 10)),
+                ((6, 50), 128 + 40, 7 * 128, (50, 128)), ((64, 9, 13), 2**31 + 7, 2**32 - 1, (13, 40))]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,offset,total,row", HASH_LAYOUTS)
+def test_hash_dropout_kernel_matches_plain(cuda, dtype, shape, offset, total, row):
+    """The kernel against the plain route bit for bit, on negative inputs with
+    NaN and -inf in dropped places (+0 out), from a strided view too; each
+    launch counts its elements under hash_dropout.kernel."""
+    from rqvae_tpu_torch.ops import hash_dropout as thd
+    from rqvae_tpu_torch.ops.cuda.hash_dropout import hash_dropout_cuda
+    from rqvae_tpu_torch.utils import profiling
+
+    seed = torch.tensor([-(2**31) + 99], dtype=torch.int32, device=cuda)
+    x = -torch.rand(shape, generator=torch.Generator().manual_seed(4)).to(dtype).to(cuda)
+    keep = thd.keep_mask(seed, shape, 0.3, cuda, offset, total, row)
+    x[~keep] = float("nan")
+    x.view(-1)[~keep.view(-1) & (torch.arange(x.numel(), device=cuda) % 2 == 0)] = float("-inf")
+    want = thd.hash_dropout_plain(x, seed, 0.3, offset, total, row)
+    assert (_bits(want)[~keep] == 0).all() and 0 < keep.float().mean() < 1
+    before = (hash_dropout_cuda.launches, profiling.ROOT.snapshot().get("hash_dropout.kernel"))
+    got = thd._drop(x, seed, 0.3, offset, total, row)
+    assert torch.equal(_bits(got), _bits(want))
+    count = profiling.ROOT.snapshot()["hash_dropout.kernel"].count
+    assert hash_dropout_cuda.launches == before[0] + 1 and count == (before[1].count if before[1] else 0) + x.numel()
+    wide = torch.zeros(*shape[:-1], 2 * shape[-1], dtype=dtype, device=cuda)
+    wide[..., ::2] = x
+    strided = thd._drop(wide[..., ::2], seed, 0.3, offset, total, row)
+    assert strided.is_contiguous() and torch.equal(_bits(strided), _bits(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,offset,row", [(5003, 2**32 - 1000, None), (4800, 2**32 - 30 * 64, (48, 64))])
+def test_hash_dropout_kernel_counters_wrap_past_2_32(cuda, dtype, n, offset, row):
+    """Counters that pass 2^32 inside the span wrap as uint32 values do."""
+    from rqvae_tpu_torch.ops.cuda.hash_dropout import hash_dropout_cuda
+    from rqvae_tpu_torch.ops.hash_dropout import keep_scale, keep_threshold
+
+    seed = torch.tensor([12345], dtype=torch.int32, device=cuda)
+    x = torch.randn(n, generator=torch.Generator().manual_seed(5)).to(dtype).to(cuda)
+    got = hash_dropout_cuda(x, seed, keep_threshold(0.25), keep_scale(0.25, dtype), offset, row)
+    assert torch.equal(_bits(got), _bits(_wrapped_plain(x, seed, 0.25, offset, row)))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,offset,total,row", [HASH_LAYOUTS[0], HASH_LAYOUTS[2], HASH_LAYOUTS[4]])
+def test_hash_dropout_autograd_under_graph_replay(cuda, dtype, shape, offset, total, row):
+    """Forward and backward through autograd captured in one CUDA graph: each
+    replay after the seed buffer changed gives the new seed's output and
+    gradient, bit for bit with the plain route."""
+    from rqvae_tpu_torch.ops import hash_dropout as thd
+
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn(shape, generator=g).to(dtype).to(cuda).requires_grad_()
+    dy = torch.randn(shape, generator=g).to(dtype).to(cuda)
+    buf = torch.tensor([1], dtype=torch.int32, device=cuda)
+
+    def body():
+        y = thd.hash_dropout(x, buf, 0.1, offset, total, row)
+        return y, torch.autograd.grad(y, x, dy)[0]
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body()  # warm: loads the library
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y, dx = body()
+    outs = []
+    for seed in (7, -5, 2**31 - 1):
+        buf.fill_(seed)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = thd.hash_dropout_plain(x.detach(), buf, 0.1, offset, total, row)
+        assert torch.equal(_bits(y), _bits(want)), seed
+        assert torch.equal(_bits(dx), _bits(thd.hash_dropout_plain(dy, buf, 0.1, offset, total, row))), seed
+        outs.append(y.clone())
+    assert not torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_stage2_step_with_the_kernel_equals_the_plain_route(cuda, monkeypatch, remat):
+    """One bf16 stage-2 step with dropout 0.1: loss and updated parameters
+    through the kernel equal those of the same step with _drop patched to the
+    plain route, bit for bit; the kernel ran at every site, forward and
+    backward (and again in remat's recompute)."""
+    from rqvae_tpu_torch.ops import hash_dropout as thd
+    from rqvae_tpu_torch.ops.cuda.hash_dropout import hash_dropout_cuda
+    from rqvae_tpu_torch.ops.schedules import inverse_sqrt_schedule
+    from rqvae_tpu_torch.train.decoder_steps import make_decoder_graph_train_step
+    from rqvae_tpu_torch.train.state import adamw
+
+    cfg = RetrievalConfig(num_hierarchies=3, codebook_size=16, t5_d_model=64, t5_d_kv=64, t5_num_heads=2,
+                          t5_d_ff=128, t5_num_layers=2, t5_dropout=0.1, t5_dtype="bfloat16", t5_remat=remat)
+    store = _small_store(cuda)
+    runs = {}
+    for route in ("kernel", "plain"):
+        if route == "plain":
+            monkeypatch.setattr(thd, "_drop", thd.hash_dropout_plain)
+        model = EncoderDecoderRetrievalModel(cfg, device=cuda, seed=2)
+        opt = adamw(model.parameters(), inverse_sqrt_schedule(1e-3, 2), weight_decay=0.1, max_grad_norm=1.0)
+        step = make_decoder_graph_train_step(model, opt, max_seq_len=6, n_steps=1, batch_size=8)
+        before = hash_dropout_cuda.launches
+        means = step(*store, [step.draws(3, 0, 48)])
+        torch.cuda.synchronize()
+        runs[route] = (means, model, hash_dropout_cuda.launches - before)
+    (mk, model_k, launched), (mp, model_p, plain_launched) = runs["kernel"], runs["plain"]
+    assert plain_launched == 0 and launched >= 2 * 5  # a forward and a backward at each site at least
+    assert torch.equal(mk["total_loss"], mp["total_loss"])
+    for (n, a), b in zip(model_k.named_parameters(), model_p.parameters()):
+        assert torch.equal(a, b), n
 
 
 def _small_store(device, rows=48, T=14, n_items=40, K=16):

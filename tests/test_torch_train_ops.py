@@ -59,6 +59,68 @@ def test_int32_keep_bits_equal_the_uint32_hash_past_2_31():
         np.testing.assert_array_equal(got.numpy(), want)
 
 
+# a rank's part of a global [6, 10, 16] array: the whole of it, batch rows 2-3
+# (data parallelism: offset and total), columns 4-11 of each row (tensor
+# parallelism: rows of 8 in global rows of 16)
+DROP_SLICES = [((slice(None),), 0, None, None), ((slice(2, 4),), 2 * 160, 960, None),
+               ((Ellipsis, slice(4, 12)), 4, 960, (8, 16))]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("index,offset,total,row", DROP_SLICES)
+def test_hash_dropout_slices_equal_the_jax_global_op(dtype, index, offset, total, row):
+    """The CPU route of hash_dropout on a rank's slice (offset and total, or
+    row) against that slice of JAX's hash_dropout over the global array:
+    values and gradient bit for bit; hash_dropout_plain gives the same values;
+    the kernel's counters do not tick."""
+    from rqvae_tpu_torch.ops.cuda.hash_dropout import hash_dropout_cuda
+    from rqvae_tpu_torch.utils import profiling
+
+    r = np.random.RandomState(3)
+    x, g = r.randn(6, 10, 16).astype(np.float32), r.randn(6, 10, 16).astype(np.float32)
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if dtype == "bfloat16" else (jnp.float32, torch.float32)
+    want, vjp = jax.vjp(lambda a: jhd.hash_dropout(a, jnp.asarray(-31, jnp.int32), 0.3), jnp.asarray(x, jdt))
+    want_g = vjp(jnp.asarray(g, jdt))[0]
+    before = (hash_dropout_cuda.launches, profiling.ROOT.snapshot().get("hash_dropout.kernel"))
+    xt = torch.from_numpy(np.ascontiguousarray(x[index])).to(tdt).requires_grad_()
+    got = thd.hash_dropout(xt, -31, 0.3, offset, total, row)
+    got.backward(torch.from_numpy(np.ascontiguousarray(g[index])).to(tdt))
+    as_f32 = lambda a: np.asarray(a[index].astype(jnp.float32))
+    np.testing.assert_array_equal(got.detach().float().numpy(), as_f32(want))
+    np.testing.assert_array_equal(xt.grad.float().numpy(), as_f32(want_g))
+    assert torch.equal(thd.hash_dropout_plain(xt.detach(), -31, 0.3, offset, total, row), got.detach())
+    after = (hash_dropout_cuda.launches, profiling.ROOT.snapshot().get("hash_dropout.kernel"))
+    assert after[0] == before[0] and (after[1] is None) == (before[1] is None)
+    assert after[1] is None or after[1].count == before[1].count
+
+
+_THRESH = thd.keep_threshold(0.1)
+_SEED = torch.tensor([5], dtype=torch.int32)
+
+
+@pytest.mark.parametrize("x,seed,kw,match", [
+    (torch.zeros(8, dtype=torch.float16), _SEED, {}, "float32 or bfloat16"),
+    (torch.zeros(8, dtype=torch.float64), _SEED, {}, "float32 or bfloat16"),
+    (torch.zeros(8), _SEED, dict(offset=-1), "uint32"),
+    (torch.zeros(8), _SEED, dict(offset=2**32), "uint32"),
+    (torch.zeros(8), _SEED, dict(thresh=2**32), "uint32"),
+    (torch.zeros(8), _SEED, dict(row=(0, 4)), "rows of"),
+    (torch.zeros(8), _SEED, dict(row=(5, 4)), "rows of"),
+    (torch.zeros(8), _SEED.long(), {}, "1-element int32"),
+    (torch.zeros(8), torch.tensor([5, 6], dtype=torch.int32), {}, "1-element int32"),
+    (torch.zeros(8), _SEED, {}, "CUDA device"),
+])
+def test_hash_dropout_kernel_wrapper_refuses_before_loading(monkeypatch, x, seed, kw, match):
+    """What the kernel does not take raises ValueError before the library
+    is loaded; nothing falls back to the plain route."""
+    import rqvae_tpu_torch.ops.cuda.hash_dropout as hdk
+
+    monkeypatch.setattr(hdk, "load_library", lambda *a: pytest.fail("the library was loaded"))
+    args = {**dict(thresh=_THRESH, scale=thd.keep_scale(0.1, x.dtype), offset=0, row=None), **kw}
+    with pytest.raises(ValueError, match=match):
+        hdk.hash_dropout_cuda(x, seed, **args)
+
+
 def test_embedding_lookup_gradient_accumulates_duplicates():
     r = np.random.RandomState(2)
     table = r.randn(12, 6).astype(np.float32)
