@@ -9,9 +9,11 @@ beam's log-prob, which rounds to -1e9.
 
 Training: `forward(batch, training, generator)` is the teacher-forced loss, the
 sum over hierarchy levels of the mean cross-entropy of that level's head at
-its decoder position. Its dropout seeds are a device row of `n_dropout_sites`
-int32 values (models/t5.py::DropoutSeeds), passed as `seeds` or drawn from
-`generator`. `t5_remat` rematerialises each T5 block in the backward pass.
+its decoder position, plus, for sparse-expert blocks (`t5_ffn="moe"`,
+models/moe.py), the balance loss of every MoE layer, which `forward` also
+returns apart with the layers' counters. Its dropout seeds are a device row
+of `n_dropout_sites` int32 values (models/t5.py::DropoutSeeds), passed as
+`seeds` or drawn from `generator`. `t5_remat` rematerialises each T5 block in the backward pass.
 
 Tensor parallelism (parallel/tp.py::shard_params): the semantic-id and user
 embeddings are looked up from each rank's rows and summed over the model
@@ -29,7 +31,7 @@ noise that JAX draws.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple, Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -39,6 +41,7 @@ from rqvae_tpu_torch.models.t5 import DropoutSeeds, Seeds, T5Stack, T5StackConfi
 from rqvae_tpu_torch.ops import amp
 from rqvae_tpu_torch.ops.embedding import embedding_lookup
 from rqvae_tpu_torch.ops.gumbel import sample_without_replacement
+from rqvae_tpu_torch.ops.topk import top_k
 from rqvae_tpu_torch.parallel.tp import copy_to_model, gather_from_model, unsharded, vocab_lookup
 from rqvae_tpu_torch.serving.beam import PrefixTable, extend_keys, valid_children
 from rqvae_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -70,6 +73,20 @@ class RetrievalConfig:
     t5_fused_decode: str = "auto"
     t5_fused_encode: str = "auto"
     t5_fused_attention: str = "auto"
+    # the blocks' FFN (models/t5.py::T5StackConfig): the defaults are T5's
+    # ReLU FFN, which every JAX checkpoint's config holds
+    t5_ffn: str = "relu"
+    t5_first_k_dense: int = 0
+    t5_n_experts: int = 0
+    t5_experts_per_token: int = 0
+    t5_expert_d_ff: int = 0
+    t5_shared_d_ff: int = 0
+    t5_experts_held: Optional[Tuple[int, int]] = None
+    t5_aux_loss_alpha: float = 0.0
+
+    # the fields the JAX package's RetrievalConfig lacks: a checkpoint leaves them out at their defaults
+    PORT_ONLY = ("t5_ffn", "t5_first_k_dense", "t5_n_experts", "t5_experts_per_token", "t5_expert_d_ff",
+                 "t5_shared_d_ff", "t5_experts_held", "t5_aux_loss_alpha")
 
     @property
     def t5(self) -> T5StackConfig:
@@ -86,13 +103,23 @@ class RetrievalConfig:
             fused_encode=self.t5_fused_encode,
             fused_attention=self.t5_fused_attention,
             remat=self.t5_remat,
+            ffn=self.t5_ffn,
+            first_k_dense=self.t5_first_k_dense,
+            n_experts=self.t5_n_experts,
+            experts_per_token=self.t5_experts_per_token,
+            expert_d_ff=self.t5_expert_d_ff,
+            shared_d_ff=self.t5_shared_d_ff,
+            experts_held=self.t5_experts_held,
+            aux_loss_alpha=self.t5_aux_loss_alpha,
         )
 
 
 class ModelOutput(NamedTuple):
-    loss: torch.Tensor  # scalar
+    loss: torch.Tensor  # scalar: the levels' losses and the balance loss
     logits: torch.Tensor  # [B, L, K] per-hierarchy teacher-forced logits
     loss_d: torch.Tensor  # [L] per-hierarchy losses
+    aux_loss: Optional[torch.Tensor] = None  # the MoE layers' balance loss (None without)
+    moe_counts: Optional[dict] = None  # stack -> f32 [3]: tokens, held rows, sum of per-layer max rows
 
 
 class GenerationOutput(NamedTuple):
@@ -107,18 +134,12 @@ def strip_dedup_col(flat: torch.Tensor, sem_ids_dim: int, n_layers: int) -> torc
     return flat.reshape(B, N, sem_ids_dim)[:, :, :n_layers].reshape(B, N * n_layers)
 
 
-def top_k(x: torch.Tensor, k: int):
-    """Top k along the last axis, ties to the lower index (jax.lax.top_k's
-    order; torch.topk promises none)."""
-    values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return values[..., :k], idx[..., :k]
-
-
 class EncoderDecoderRetrievalModel(nn.Module):
     """Parameters mirror the flax module's names (utils/convert.py);
-    initialised from `seed` at the JAX package's scales."""
+    initialised from `seed` at the JAX package's scales, or left unset with
+    `seed=None` for a caller that loads every parameter next."""
 
-    def __init__(self, config: RetrievalConfig, device: DeviceLike = None, seed: int = 0):
+    def __init__(self, config: RetrievalConfig, device: DeviceLike = None, seed: Optional[int] = 0):
         super().__init__()
         from rqvae_tpu_torch.utils.convert import init_retrieval_
 
@@ -135,7 +156,8 @@ class EncoderDecoderRetrievalModel(nn.Module):
         self.encoder = T5Stack(cfg.t5, is_decoder=False, device=dev)
         self.decoder = T5Stack(cfg.t5, is_decoder=True, device=dev, site0=self.encoder.n_sites)
         self.heads = nn.Parameter(torch.empty(L, d, K, device=dev))  # per-hierarchy heads
-        init_retrieval_(self, seed)
+        if seed is not None:
+            init_retrieval_(self, seed)
 
     tp = None  # parallel/tp.py::ModelShard once shard_params has cut the model
 
@@ -238,7 +260,12 @@ class EncoderDecoderRetrievalModel(nn.Module):
         logp = torch.log_softmax(logits.float(), dim=-1)
         nll = -torch.gather(logp, 2, fut.long()[:, :, None])[..., 0]  # [B, L]
         loss_d = nll.mean(0)  # [L]
-        return ModelOutput(loss=loss_d.sum(), logits=logits, loss_d=loss_d)
+        if cfg.t5_ffn != "moe":
+            return ModelOutput(loss=loss_d.sum(), logits=logits, loss_d=loss_d)
+        stats = {"encoder": self.encoder.moe_stats, "decoder": self.decoder.moe_stats}
+        aux = stats["encoder"].aux_loss + stats["decoder"].aux_loss
+        return ModelOutput(loss=loss_d.sum() + aux, logits=logits, loss_d=loss_d, aux_loss=aux,
+                           moe_counts={k: v.counts for k, v in stats.items()})
 
     def sampling_noise_shapes(self, batch: int) -> list:
         """The shape of each level's Gumbel noise in sampled-candidate

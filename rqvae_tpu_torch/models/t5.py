@@ -6,7 +6,13 @@
   masks; the relative position bias is computed by the first block of each
   stack and shared by all blocks. Cross-attention has no bias.
 - FFN: wi -> ReLU -> dropout -> wo. Final RMSNorm and dropout at the end of
-  each stack.
+  each stack. `ffn="moe"` gives the first `first_k_dense` blocks a dense
+  SwiGLU of d_ff instead and the rest DeepSeek-V2's sparse-expert FFN
+  (models/moe.py): no dropout inside a gated FFN (its inner site is left
+  unused, so every other site keeps its index). A MoE block returns its layer's `MoEStats` as a third
+  output, and the stack's forward leaves `moe_stats` (the balance loss and
+  the counters summed over its MoE blocks) and `moe_chosen` (each MoE
+  block's expert choices) for the model's loss and the counters.
 - Dropout (training only, rate `dropout`) at the reference's sites, in its
   order: the stack's input, the attention weights (inside the attention kernel
   where that runs), each sublayer's output before the residual add, the FFN's
@@ -73,6 +79,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from rqvae_tpu_torch.models.moe import MoEFFN, MoEStats, SwiGLU
 from rqvae_tpu_torch.ops import amp
 from rqvae_tpu_torch.ops.cuda.attention import t5_attention
 from rqvae_tpu_torch.ops.cuda.decoder_stack import t5_decoder_stack_infer
@@ -117,8 +124,20 @@ class T5StackConfig:
     fused_attention: str = "auto"
     # rematerialise each block in the backward pass of a training forward
     remat: bool = False
+    # the blocks' FFN: "relu" (T5's) or "moe" (first_k_dense dense SwiGLU
+    # blocks of d_ff, then sparse experts, models/moe.py)
+    ffn: str = "relu"
+    first_k_dense: int = 0
+    n_experts: int = 0  # the router's width
+    experts_per_token: int = 0
+    expert_d_ff: int = 0
+    shared_d_ff: int = 0  # the shared experts as one SwiGLU (a MoE stack's is at least 1)
+    experts_held: Optional[Tuple[int, int]] = None  # (first, count) this model holds; None: all
+    aux_loss_alpha: float = 0.0  # the sequence-wise balance loss's weight
 
     def __post_init__(self):
+        if self.ffn not in ("relu", "moe"):
+            raise ValueError(f'ffn must be "relu" or "moe", got {self.ffn!r}')
         for name in ("fused_decode", "fused_encode", "fused_attention"):
             if getattr(self, name) not in ("auto", "on", "off"):
                 raise ValueError(f'{name} must be "auto", "on" or "off", got {getattr(self, name)!r}')
@@ -128,6 +147,13 @@ class T5StackConfig:
     @property
     def compute_dtype(self) -> torch.dtype:
         return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
+
+    def ffn_kind(self, layer: int) -> str:
+        """The FFN of block `layer`: "relu", "swiglu" (a leading dense block of
+        a MoE stack) or "moe"."""
+        if self.ffn == "moe" and layer < self.first_k_dense:
+            return "swiglu"
+        return self.ffn
 
 
 def dense(x: torch.Tensor, weight: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
@@ -422,10 +448,11 @@ class T5Block(nn.Module):
     activation, its output."""
 
     def __init__(self, cfg: T5StackConfig, is_decoder: bool = False,
-                 has_relative_bias: bool = False, device=None, site0: int = 0):
+                 has_relative_bias: bool = False, device=None, site0: int = 0, ffn: str = "relu"):
         super().__init__()
         self.cfg = cfg
         self.is_decoder = is_decoder
+        self.ffn_kind = ffn
         eps = cfg.layer_norm_eps
         self.ln_self = RMSNorm(cfg.d_model, eps, device)
         self.self_attn = T5Attention(cfg, has_relative_bias, not is_decoder, device, site=site0)
@@ -435,7 +462,14 @@ class T5Block(nn.Module):
             self.cross_attn = T5Attention(cfg, device=device, site=site)
             site += 2
         self.ln_ffn = RMSNorm(cfg.d_model, eps, device)
-        self.ffn = T5FFN(cfg, device, site=site)
+        self.ffn_site = site  # the FFN's inner site (unused by a gated FFN); its output's is the next
+        if ffn == "relu":
+            self.ffn = T5FFN(cfg, device, site=site)
+        elif ffn == "swiglu":
+            self.ffn = SwiGLU(cfg.d_model, cfg.d_ff, device)
+        else:
+            self.ffn = MoEFFN(cfg.d_model, cfg.n_experts, cfg.experts_per_token, cfg.expert_d_ff, cfg.shared_d_ff,
+                              cfg.experts_held or (0, cfg.n_experts), cfg.aux_loss_alpha, device)
 
     @staticmethod
     def sites(is_decoder: bool) -> int:
@@ -462,7 +496,15 @@ class T5Block(nn.Module):
             if beams > 1:
                 h = h.reshape(x.shape)
             x = x + drop(h, self.cross_attn.site + 1)
-        return x + drop(self.ffn(self.ln_ffn(x), training, seeds), self.ffn.site + 1), position_bias
+        if self.ffn_kind == "relu":
+            return x + drop(self.ffn(self.ln_ffn(x), training, seeds), self.ffn_site + 1), position_bias
+        cdt = self.cfg.compute_dtype
+        if self.ffn_kind == "swiglu":
+            h = self.ffn(self.ln_ffn(x), cdt)
+        else:  # a decoder's positions are all tokens; an encoder's padding is routed nowhere
+            h, stats = self.ffn(self.ln_ffn(x), cdt, None if self.is_decoder else self_mask, training)
+            return x + drop(h, self.ffn_site + 1), position_bias, stats
+        return x + drop(h, self.ffn_site + 1), position_bias
 
 
 class DecodeWeights(NamedTuple):
@@ -512,10 +554,13 @@ class T5Stack(nn.Module):
         self.site0 = site0
         self.n_sites = 2 + per_block * cfg.num_layers
         self.block = nn.ModuleList(
-            T5Block(cfg, is_decoder, has_relative_bias=(i == 0), device=device, site0=site0 + 1 + per_block * i)
+            T5Block(cfg, is_decoder, has_relative_bias=(i == 0), device=device, site0=site0 + 1 + per_block * i,
+                    ffn=cfg.ffn_kind(i))
             for i in range(cfg.num_layers)
         )
         self.ln_final = RMSNorm(cfg.d_model, cfg.layer_norm_eps, device)
+        self.moe_stats: Optional[MoEStats] = None  # the last forward's, summed over the MoE blocks
+        self.moe_chosen: list = []  # the last forward's expert choices, a [tokens, K] tensor per MoE block
 
     def cross_kv(self, enc_out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Cross-attention K and V of every layer over `enc_out`, stacked as
@@ -527,9 +572,10 @@ class T5Stack(nn.Module):
         return torch.stack([k for k, _ in kv]), torch.stack([v for _, v in kv])
 
     def use_fused_decode(self, enc_len: int) -> bool:
-        """The decoder-stack kernel gate: on unless "off", and only for
-        encoder rows up to FUSED_DECODE_MAX_LEN."""
-        return self.cfg.fused_decode != "off" and enc_len <= FUSED_DECODE_MAX_LEN
+        """The decoder-stack kernel gate: on unless "off", only for encoder
+        rows up to FUSED_DECODE_MAX_LEN, and never for a gated FFN (the
+        kernel computes T5's ReLU FFN)."""
+        return self.cfg.fused_decode != "off" and self.cfg.ffn == "relu" and enc_len <= FUSED_DECODE_MAX_LEN
 
     def _stack(self, get, dtype=None) -> torch.Tensor:
         """get(block) of every block, stacked, at `dtype` (the compute dtype
@@ -615,8 +661,9 @@ class T5Stack(nn.Module):
 
     def use_fused_encode(self, L: int, training: bool = False) -> bool:
         """The encoder-stack kernel gate: encoder stacks at inference, on
-        unless "off", and only for rows of FUSED_ENCODE_MIN_LEN or more."""
-        if self.is_decoder or training or self.cfg.fused_encode == "off":
+        unless "off", only for rows of FUSED_ENCODE_MIN_LEN or more, and
+        never for a gated FFN (the kernel computes T5's ReLU FFN)."""
+        if self.is_decoder or training or self.cfg.fused_encode == "off" or self.cfg.ffn != "relu":
             return False
         return L >= FUSED_ENCODE_MIN_LEN
 
@@ -673,11 +720,17 @@ class T5Stack(nn.Module):
         x = dropout(inputs_embeds.to(cfg.compute_dtype), cfg, training, seeds, self.site0)
         position_bias = None
         remat = cfg.remat and training and torch.is_grad_enabled()
+        stats = []
         for i, blk in enumerate(self.block):
             layer_kv = None if cross_kv is None else (cross_kv[0][i], cross_kv[1][i])
             args = (x, enc_out, self_mask, enc_mask, position_bias, beams, layer_kv, training, seeds)
             if remat:  # the RNG is not read (seeds are by site), so its state need not be kept
-                x, position_bias = checkpoint(blk, *args, use_reentrant=False, preserve_rng_state=False)
+                x, position_bias, *moe = checkpoint(blk, *args, use_reentrant=False, preserve_rng_state=False)
             else:
-                x, position_bias = blk(*args)
+                x, position_bias, *moe = blk(*args)
+            stats += moe
+        if stats:
+            self.moe_stats = MoEStats(torch.stack([st.aux_loss for st in stats]).sum(),
+                                      torch.stack([st.counts for st in stats]).sum(0))
+            self.moe_chosen = [st.chosen for st in stats]
         return dropout(self.ln_final(x), cfg, training, seeds, self.site0 + self.n_sites - 1).float()

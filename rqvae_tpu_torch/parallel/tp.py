@@ -137,6 +137,10 @@ def shard_params(mesh, model: torch.nn.Module, rank: Optional[int] = None) -> to
     Make the optimizer after this call: its moments take the slices'
     shapes. Returns the model."""
     shard = mesh.model if rank is None else mesh.model._replace(rank=int(rank))
+    ffn = getattr(getattr(model, "config", None), "t5_ffn", "relu")
+    if ffn != "relu":
+        raise ValueError(f"tensor parallelism cuts T5's ReLU FFN; a model with t5_ffn={ffn!r} has no "
+                         "tensor-parallel layout (its experts would be cut by expert parallelism)")
     if shard_of(model) is not None:
         raise ValueError("the model is already sharded")
     specs = retrieval_param_specs(model)

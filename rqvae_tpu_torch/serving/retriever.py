@@ -115,7 +115,7 @@ class Retriever:
         restored = ckpt_lib.load_checkpoint(decoder_checkpoint)
         if not isinstance(restored["config"], RetrievalConfig):
             raise ValueError(f"{decoder_checkpoint} is not a decoder checkpoint")
-        model = EncoderDecoderRetrievalModel(restored["config"], device=dev)
+        model = EncoderDecoderRetrievalModel(restored["config"], device=dev, seed=None)  # every parameter loaded next
         model.load_state_dict(ckpt_lib.params_state_dict(restored))
         return cls(model, tokenizer, device=dev, capacity=capacity, mesh=mesh)
 

@@ -80,7 +80,27 @@ def _loss_and_metrics(model, batch: TokenizedSeqBatch, generator=None, seeds=Non
     out = model(batch, training=True, generator=generator, seeds=seeds)
     metrics = {"total_loss": out.loss.detach(), "loss_d": out.loss_d.detach()}
     metrics.update(_debug_metrics(batch, replicas))
+    if out.aux_loss is not None:  # sparse experts: the balance loss and each stack's counters
+        metrics["aux_loss"] = out.aux_loss.detach()
+        metrics.update({f"moe.{stack}": c for stack, c in out.moe_counts.items()})
     return out.loss, metrics
+
+
+MOE_COUNTERS = ("moe.tokens", "moe.rows", "moe.rows_max")
+
+
+def record_moe_counters(host: Dict[str, torch.Tensor], steps: int) -> None:
+    """Hand a read-back chunk's MoE counters to the root recorder (outside
+    captured code): per stack, `moe.tokens.<stack>` (valid tokens times MoE
+    layers), `moe.rows.<stack>` (rows routed to the held experts) and
+    `moe.rows_max.<stack>` (each layer's most-loaded held expert's rows,
+    summed over the layers), the chunk's `steps` steps in all. `host` holds
+    the chunk's means, read back; nothing without MoE layers."""
+    for key, means in host.items():
+        if key.startswith("moe."):
+            stack = key.split(".", 1)[1]
+            for name, v in zip(MOE_COUNTERS, means.tolist()):
+                profiling.count(f"{name}.{stack}", int(round(v * steps)))
 
 
 def _rank_seeds(seeds: Optional[torch.Tensor], replicas: Optional[Replicas], rows: int):

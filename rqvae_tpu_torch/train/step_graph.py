@@ -26,9 +26,10 @@ Capture follows the serving engine's rules (serving/engine.py): one eager run
 of the body on a side stream first (it builds and loads the kernels, sets
 their attributes, sets up cuBLAS and allocates the gradients and sums, and
 runs a data-parallel step's collectives once, so NCCL's communicator and its
-buffers exist before the capture), its update undone in place; one graph
-pool; captured state is only ever updated in place; the capture is
-thread-local, so another thread's CUDA calls (the NCCL watchdog's event
+buffers exist before the capture), its update undone in place from a copy
+of the state kept on the host, and the blocks it freed handed back to the
+card before the capture allocates its own; one graph pool; captured state
+is only ever updated in place; the capture is thread-local, so another thread's CUDA calls (the NCCL watchdog's event
 queries, a serving resolver's waits) do not void it. Under NCCL a
 data-parallel step's all-reduce and all-gathers are nodes of the graph.
 Under gloo (`capturable=False`) they wait for the host, so the steps run
@@ -153,8 +154,8 @@ class StepChunks:
             with profiling.span("capture.collect"):
                 gc.collect()  # no graph of a dead cycle may be destroyed while this one captures
             state = self.state()
-            with torch.no_grad():
-                saved = [t.detach().clone() for t in state]
+            with torch.no_grad():  # kept on the host: a large model's state would otherwise sit twice on the card
+                saved = [t.detach().to("cpu", copy=True) for t in state]
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with profiling.span("capture.eager"), torch.cuda.device(dev), torch.cuda.stream(side):
@@ -163,6 +164,9 @@ class StepChunks:
             with torch.no_grad():
                 for t, s in zip(state, saved):
                     t.copy_(s)  # the eager run's update undone
+                    t.grad = None  # the eager run's gradients (the body allocates its own)
+            del saved
+            torch.cuda.empty_cache()  # the eager run's freed blocks go back to the card, for the graph's pool
             graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept, so its nodes can be read (debug_dump)
             try:
                 with profiling.span("capture.record"):

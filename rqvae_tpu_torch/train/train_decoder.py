@@ -88,6 +88,7 @@ from rqvae_tpu_torch.train.decoder_steps import (
     make_decoder_eval_step,
     make_decoder_graph_train_step,
     make_generate_fn,
+    record_moe_counters,
 )
 from rqvae_tpu_torch.train.state import adamw
 from rqvae_tpu_torch.train.step_graph import step_generator, step_rows  # noqa: F401 (the trainers' step draws)
@@ -175,6 +176,14 @@ def train(
     t5_fused_decode: str = "auto",  # decoder-stack kernel (full eval)
     t5_fused_encode: str = "auto",  # encoder-stack kernel (full eval, long rows)
     t5_hash_dropout: bool = True,
+    t5_ffn: str = "relu",  # "relu" | "moe" (models/t5.py::T5StackConfig)
+    t5_first_k_dense: int = 0,
+    t5_n_experts: int = 0,
+    t5_experts_per_token: int = 0,
+    t5_expert_d_ff: int = 0,
+    t5_shared_d_ff: int = 0,
+    t5_experts_held: Optional[List[int]] = None,  # [first, count]; None: every expert
+    t5_aux_loss_alpha: float = 0.0,
     warmup_steps: int = 10000,
     sample_candidates: bool = False,
     full_eval_max_batches: Optional[int] = None,
@@ -241,6 +250,14 @@ def train(
         t5_fused_decode=t5_fused_decode,
         t5_fused_encode=t5_fused_encode,
         t5_hash_dropout=t5_hash_dropout,
+        t5_ffn=t5_ffn,
+        t5_first_k_dense=t5_first_k_dense,
+        t5_n_experts=t5_n_experts,
+        t5_experts_per_token=t5_experts_per_token,
+        t5_expert_d_ff=t5_expert_d_ff,
+        t5_shared_d_ff=t5_shared_d_ff,
+        t5_experts_held=None if t5_experts_held is None else tuple(t5_experts_held),
+        t5_aux_loss_alpha=t5_aux_loss_alpha,
     )
     model = EncoderDecoderRetrievalModel(cfg, device=dev, seed=seed)
     n_params = sum(p.numel() for p in model.parameters())
@@ -316,6 +333,9 @@ def train(
             log = {"total_loss": float(host["total_loss"])}
             log.update({f"loss_{d}": float(v) for d, v in enumerate(host["loss_d"])})
             log.update({f"train_{k}": float(v) for k, v in host.items() if k.startswith("seq_length_p")})
+            if "aux_loss" in host:  # sparse experts: the balance loss apart, the counters to the recorder
+                log["aux_loss"] = float(host["aux_loss"])
+                record_moe_counters(host, spl)
             logger.push_rolling({"total_loss": log["total_loss"]})
             log["rolling_total_loss"] = logger.rolling_means().get("total_loss", 0.0)
             log["learning_rate"] = optimizer.lr(it)

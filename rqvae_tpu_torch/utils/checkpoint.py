@@ -42,10 +42,15 @@ SUFFIXES = (".pt", ".msgpack")
 
 
 def _config_to_jsonable(cfg: Any) -> Any:
+    """A config as JSON. Fields of the port alone (a dataclass's `PORT_ONLY`)
+    are left out at their defaults, so that a config the JAX package can run
+    is written as it writes it and it reads the file back."""
     if dataclasses.is_dataclass(cfg):
+        skip = getattr(type(cfg), "PORT_ONLY", ())
         return {
             "__dataclass__": type(cfg).__name__,
-            **{f.name: _config_to_jsonable(getattr(cfg, f.name)) for f in dataclasses.fields(cfg)},
+            **{f.name: _config_to_jsonable(getattr(cfg, f.name)) for f in dataclasses.fields(cfg)
+               if not (f.name in skip and getattr(cfg, f.name) == f.default)},
         }
     if isinstance(cfg, enum.Enum):
         return {"__enum__": type(cfg).__name__, "name": cfg.name}
@@ -242,7 +247,7 @@ def export_jax_checkpoint(src: str, dst_dir: str, max_grad_norm: Optional[float]
     if isinstance(cfg, RqVaeConfig):
         model, schedule = RqVae(cfg, device="cpu"), False
     elif isinstance(cfg, RetrievalConfig):
-        model, schedule = EncoderDecoderRetrievalModel(cfg, device="cpu"), True
+        model, schedule = EncoderDecoderRetrievalModel(cfg, device="cpu", seed=None), True
     else:
         raise ValueError(f"{src} holds neither an RQ-VAE nor a retrieval model config")
     model.load_state_dict(restored["params"])

@@ -25,6 +25,8 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from rqvae_tpu_torch.models.moe import INIT_STD
+
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
     out = {}
@@ -135,7 +137,8 @@ def init_retrieval_(model: torch.nn.Module, seed: int) -> None:
     """HF T5 init (factor 1) as in the JAX package: embeddings N(0, 1);
     q N(0, (d*dk)^-1/2), k/v N(0, d^-1/2), o N(0, (H*dk)^-1/2), rel-bias
     N(0, d^-1/2), wi N(0, d^-1/2), wo N(0, dff^-1/2), RMSNorm scales 1;
-    heads U(+-1/sqrt(d))."""
+    heads U(+-1/sqrt(d)); a gated FFN's weights and router N(0, 0.02^2)
+    (models/moe.py::INIT_STD)."""
     cfg = model.config
     d, dk, H = cfg.t5_d_model, cfg.t5_d_kv, cfg.t5_num_heads
     std = {
@@ -153,5 +156,7 @@ def init_retrieval_(model: torch.nn.Module, seed: int) -> None:
             _fill(p, _normal(g, p.shape, d ** -0.5))
         elif parts[-2].startswith("ln"):
             _fill(p, torch.ones(p.shape))
+        elif {"router", "w_gate", "w_up", "w_down"} & set(parts[-2:]):  # gated FFNs (models/moe.py)
+            _fill(p, _normal(g, p.shape, INIT_STD))
         else:  # q/k/v/o and wi/wo Linear weights
             _fill(p, _normal(g, p.shape, std[parts[-2]]))

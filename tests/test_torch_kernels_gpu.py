@@ -1239,6 +1239,95 @@ def test_stage2_graph_chunk_equals_eager_steps(cuda, dtype, accum):
             assert torch.equal(v, total / 3), key
 
 
+@pytest.mark.parametrize("remat", [False, True])
+def test_moe_step_graph_chunk_equals_eager_steps(cuda, remat):
+    """The sparse-expert model (models/moe.py) at small widths, bf16, dropout
+    0.1: 6 eager steps against 2 chunks of 3 replays of the captured step,
+    parameters, moments and chunk means (the balance loss and the MoE
+    counters among them) bit-equal; the choices read after a replay are the
+    last replayed step's."""
+    from rqvae_tpu_torch.ops.schedules import inverse_sqrt_schedule
+    from rqvae_tpu_torch.train.decoder_steps import make_decoder_graph_train_step
+    from rqvae_tpu_torch.train.state import adamw
+
+    cfg = RetrievalConfig(num_hierarchies=3, codebook_size=16, t5_d_model=64, t5_d_kv=64, t5_num_heads=2,
+                          t5_d_ff=128, t5_num_layers=3, t5_dropout=0.1, t5_dtype="bfloat16", t5_remat=remat,
+                          t5_ffn="moe", t5_first_k_dense=1, t5_n_experts=16, t5_experts_per_token=4,
+                          t5_expert_d_ff=64, t5_shared_d_ff=128, t5_experts_held=(4, 8), t5_aux_loss_alpha=0.001)
+    store = _small_store(cuda)
+    runs = {}
+    for name, n_steps in (("eager", 1), ("graph", 3)):
+        model = EncoderDecoderRetrievalModel(cfg, device=cuda, seed=2)
+        opt = adamw(model.parameters(), inverse_sqrt_schedule(1e-3, 2), weight_decay=0.1)
+        step = make_decoder_graph_train_step(model, opt, max_seq_len=6, n_steps=n_steps, batch_size=8)
+        draws = [step.draws(3, s, 48) for s in range(6)]
+        means = [step(*store, draws[i:i + n_steps]) for i in range(0, 6, n_steps)]
+        runs[name] = (model, opt, means, step, [c.clone() for c in model.encoder.moe_chosen])
+    (me, oe, eager, _, chosen_e), (mg, og, chunks, gstep, chosen_g) = runs["eager"], runs["graph"]
+    assert gstep.chunks.graph is not None and gstep.chunks.replays == 6
+    for (n, a), b in zip(me.named_parameters(), mg.parameters()):
+        assert torch.equal(a, b), n
+    for a, b in zip(oe.mu + oe.nu, og.mu + og.nu):
+        assert torch.equal(a, b)
+    assert {"aux_loss", "moe.encoder", "moe.decoder"} <= set(chunks[0])
+    for c, chunk in enumerate(chunks):
+        for key, v in chunk.items():
+            total = torch.zeros_like(v)
+            for m in eager[3 * c:3 * c + 3]:
+                total = total + m[key]
+            assert torch.equal(v, total / 3), key
+    assert all(torch.equal(a, b) for a, b in zip(chosen_e, chosen_g))
+
+
+def test_moe_grouped_products_equal_the_per_expert_loop(cuda):
+    """The MoE layer's grouped products (torch._grouped_mm over the held
+    experts' rows, on the card) against a loop over the held experts with
+    masks, both bf16 operands with f32 sums, forward and every gradient, on a
+    router biased (over inputs of one sign) so that a few experts take most
+    rows and one none."""
+    from rqvae_tpu_torch.models.moe import MoEFFN
+
+    d, f, E = 256, 128, 32
+    layer = MoEFFN(d, E, 6, f, 256, (8, 16), 0.001, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.copy_(torch.randn(p.shape, generator=g, device=cuda) * 0.05)
+        layer.router[9] += 0.2
+        layer.router[10] += 0.1
+        layer.router[12] -= 1.0
+    x = torch.randn(4, 300, d, generator=g, device=cuda).abs().to(torch.bfloat16)
+    mask = torch.ones(4, 300, dtype=torch.bool, device=cuda)
+    mask[1, 200:] = False
+    params = list(layer.parameters())
+    y, stats = layer(x, torch.bfloat16, mask, training=True)
+    dy = torch.randn(y.shape, generator=g, device=cuda).to(torch.bfloat16)
+    got = torch.autograd.grad([y, stats.aux_loss], params, [dy, torch.ones((), device=cuda)], allow_unused=True)
+
+    h = x.reshape(-1, d)
+    valid = mask.reshape(-1)
+    s, chosen, weight, key = layer.route(h, valid)
+    assert torch.equal(chosen, stats.chosen)
+    out = layer.shared(h, torch.bfloat16).float()
+    wg, wu, wd = (w.to(torch.bfloat16) for w in (layer.w_gate, layer.w_up, layer.w_down))
+    for e in range(layer.count):
+        pick = key == e
+        rows = pick.any(1)
+        he = h[rows]
+        a = (torch.nn.functional.silu((he @ wg[e]).float()) * (he @ wu[e]).float()).to(torch.bfloat16)
+        ye = (a @ wd[e]).float()
+        out = out.index_add(0, rows.nonzero()[:, 0], (weight * pick).sum(1)[rows, None] * ye)
+    want = out.to(torch.bfloat16).reshape(y.shape)
+    aux = layer.balance_loss(s, chosen, valid, 4)
+    ref = torch.autograd.grad([want, aux], params, [dy, torch.ones((), device=cuda)], allow_unused=True)
+    torch.testing.assert_close(y.float(), want.float(), rtol=2e-2, atol=2e-2)
+    for (n, _), a, b in zip(layer.named_parameters(), got, ref):
+        scale = float(b.abs().max())
+        assert float((a.float() - b.float()).abs().max()) <= 2e-2 * scale, n
+    counts = (key < layer.count).sum()
+    assert int(stats.counts[1]) == int(counts) and int((key == 4).sum()) == 0  # expert 12: none routed
+
+
 def test_stage1_graph_chunk_equals_eager_steps(cuda):
     """Stage 1, Gumbel mode with the anneal on the device and 2 micro-batches:
     6 eager steps against 2 chunks of 3 replays, bit-equal."""
