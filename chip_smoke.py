@@ -33,13 +33,18 @@ bf16, top-k 10, batches of 64 histories.
       tensor-core route's sums (tc_sum_model_ids), reported; and the index
       build's time in bf16 beside f32;
    3. decoder_stack kernel against its plain version on the card (B = 64,
-      Le = 80, kT = 1, 20, 30): max abs error <= 1e-3 in f32 and <= 6e-2 in
-      bf16 (bf16 rounding of the residual stream over 4 layers: a summation
-      order that differs in the last f32 bit can flip a bf16 rounding, and the
-      flip carries through the later layers); bf16 must take the tensor-core
-      route; each row prints its route, the shared memory a block asks for,
-      the error's mean and the count of entries above half the bound; two
-      launches must give the same bits;
+      Le = 80, kT = 1, 20, 30): max abs error <= 1e-3 in f32; in bf16 both
+      are held to a float64 evaluation of the same operands with no rounding
+      between steps, and the kernel may lie no farther from it than the plain
+      version does, by one bf16 step at the output's largest magnitude in the
+      max abs error and by 2% in the mean (bf16 rounding of the residual
+      stream over 4 layers puts each side up to about 0.06 from the float64
+      value, and a summation order that differs in the last f32 bit can flip
+      a bf16 rounding that carries through the later layers, so the two
+      sides' difference, printed beside 6e-2, is no measure of either);
+      bf16 must take the tensor-core route; each row prints its route, the
+      shared memory a block asks for, the error's mean and the count of
+      entries above half the bound; two launches must give the same bits;
    4. the Amazon main path with the launch counts zeroed first: index build
       (rq_encode, bf16), Retriever, 3 retrieve() calls; requires 1 rq_encode launch
       and 3 levels x 3 calls decoder_stack launches, corpus-valid beams and
@@ -286,6 +291,7 @@ import functools
 import gc
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -309,7 +315,8 @@ ML32M = dict(items=87585, history=200, input_dim=788, embed_dim=64)
 ML1M = dict(items=3883, input_dim=786, embed_dim=32)  # configs/rqvae_ml1m.gin; MovieLens-1M's movie count
 CPU_QUERIES_ML32M = 8
 ID_NEAR_TIE = 1e-5  # top-2 gap relative to ||res||^2 + max ||c||^2
-DECODER_TOL = {torch.float32: 1e-3, torch.bfloat16: 6e-2}
+DECODER_TOL = {torch.float32: 1e-3, torch.bfloat16: 6e-2}  # bf16: reported; the gate is DECODER_F64_MEAN's
+DECODER_F64_MEAN = 1.02  # bf16: the kernel's mean abs error against float64 over the plain version's
 ATTENTION_TOL = {torch.float32: 2e-5, torch.bfloat16: 3.2e-2}
 # attention backward, relative to the tensor's largest entry: (dq, dk, dv; dbias)
 ATTENTION_BWD_TOL = {torch.float32: (4e-6, 4e-6), torch.bfloat16: (2.0 ** -7, 1e-4)}
@@ -1021,6 +1028,30 @@ def encoder_stack_phase(models: dict, dev) -> dict:
     return kernel_row
 
 
+def decoder_stack_f64(ops, eps: float) -> torch.Tensor:
+    """The decoder stack of `ops` (t5_decoder_stack_infer's operands) in
+    float64 with no rounding between its steps: the value that the kernel
+    and its plain version each approximate in their own order of roundings."""
+    x, wq, wk, wv, wo, cq, co, wi, wo2, ln_s, ln_c, ln_f, ln_final, bias_fold, kc, vc, mask = (t.double() for t in ops)
+
+    def rms(t, w):
+        return t * torch.rsqrt(torch.mean(t * t, dim=-1, keepdim=True) + eps) * w
+
+    for l in range(wq.shape[0]):
+        xn, attn = rms(x, ln_s[l]), torch.zeros_like(x)
+        for h in range(wq.shape[1]):
+            q, k, v = xn @ wq[l, h], xn @ wk[l, h], xn @ wv[l, h]
+            attn = attn + torch.softmax(q @ k.transpose(-1, -2) + bias_fold[h], dim=-1) @ v @ wo[l, h]
+        x = x + attn
+        xn, catt = rms(x, ln_c[l]), torch.zeros_like(x)
+        for h in range(wq.shape[1]):
+            s = xn @ cq[l, h] @ kc[l, :, h].transpose(-1, -2) + mask[:, None, :]
+            catt = catt + torch.softmax(s, dim=-1) @ vc[l, :, h] @ co[l, h]
+        x = x + catt
+        x = x + torch.relu(rms(x, ln_f[l]) @ wi[l]) @ wo2[l]
+    return rms(x, ln_final)
+
+
 def decoder_stack_phase(models: dict, rq, x, hist, dev) -> dict:
     """decoder_stack kernel against its plain version at the Amazon path's
     three levels; two launches bit-equal; returns the kernel's row of the
@@ -1070,7 +1101,18 @@ def decoder_stack_phase(models: dict, rq, x, hist, dev) -> dict:
                 errs = error_distribution(y, y_plain, DECODER_TOL[dt])
                 err = errs["max_abs_err"]
                 check(bool(torch.isfinite(y).all()), f"decoder_stack {dt} kT={beams * T}: non-finite output")
-                check(err <= DECODER_TOL[dt], f"decoder_stack {dt} kT={beams * T}: max abs err {err}")
+                if dt == torch.bfloat16:
+                    y64 = decoder_stack_f64(ops, eps)
+                    k64 = error_distribution(y.double(), y64, DECODER_TOL[dt])
+                    p64 = error_distribution(y_plain.double(), y64, DECODER_TOL[dt])
+                    step = 2.0 ** (math.floor(math.log2(float(y64.abs().max()))) - 7)  # one bf16 step there
+                    errs.update({"kernel_vs_f64": k64, "plain_vs_f64": p64, "f64_max_step": step})
+                    check(k64["max_abs_err"] <= p64["max_abs_err"] + step
+                          and k64["mean_abs_err"] <= DECODER_F64_MEAN * p64["mean_abs_err"],
+                          f"decoder_stack {dt} kT={beams * T}: against float64 kernel {k64}, plain {p64}")
+                    del y64
+                else:
+                    check(err <= DECODER_TOL[dt], f"decoder_stack {dt} kT={beams * T}: max abs err {err}")
                 check(torch.equal(y, y_again), f"decoder_stack {dt} kT={beams * T}: two launches differ")
                 k_ms = cuda_ms(lambda: t5_decoder_stack_infer(*ops, eps=eps), reps=10)
                 p_ms = cuda_ms(lambda: t5_decoder_stack_plain(*ops, eps=eps), reps=10)
@@ -2254,10 +2296,19 @@ def amp_routes(phase: str, make, run_step, k: int, params0: dict, tmp: str, coun
     (the counters, zeroed after the eager steps, must not tick again)."""
     from rqvae_tpu_torch.ops import amp as amp_lib
 
-    n0 = amp_lib.products
+    launched, mm = [], amp_lib._mm  # one entry a bf16 product launched
+
+    def counting_mm(*args):
+        launched.append(args[-1])
+        return mm(*args)
+
     counts.zero()
-    me, oe, se, eager, eager_ms, draws = eager_runs(functools.partial(make, amp=True), run_step, k)
-    products = (amp_lib.products - n0) / k
+    amp_lib._mm = counting_mm
+    try:
+        me, oe, se, eager, eager_ms, draws = eager_runs(functools.partial(make, amp=True), run_step, k)
+    finally:
+        amp_lib._mm = mm
+    products = len(launched) / k
     again = eager_runs(functools.partial(make, amp=True), run_step, k)
     eager_launches = counts.read()
     counts.zero()

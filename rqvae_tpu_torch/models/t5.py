@@ -158,10 +158,16 @@ class T5StackConfig:
 
 def dense(x: torch.Tensor, weight: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
     """x @ weight.T at the compute dtype: operands rounded to cdt, products
-    summed in f32, the result rounded to cdt once. At float32 inside an amp
-    step on the card, bf16 operands with f32 sums (ops/amp.py)."""
+    summed in f32, the result rounded to cdt once, and in the backward dX and
+    dW rounded to cdt once each. At bf16 on the card these are tensor-core
+    products of the bf16 operands with f32 sums, and only those operands are
+    kept for the backward (ops/amp.py); on the CPU, f32 products of the
+    rounded operands. At float32 inside an amp step on the card, bf16
+    operands with f32 sums (ops/amp.py)."""
     if cdt == torch.float32:
         return amp.linear(x.float(), weight.float())
+    if amp.on_card(x):
+        return amp.bf16_linear(x, weight, cdt)
     return F.linear(x.to(cdt).float(), weight.to(cdt).float()).to(cdt)
 
 

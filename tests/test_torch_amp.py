@@ -43,6 +43,7 @@ from rqvae_tpu_torch.train import decoder_steps as tdsteps
 from rqvae_tpu_torch.train import rqvae_steps as trsteps
 from rqvae_tpu_torch.train import train_decoder
 from rqvae_tpu_torch.train.state import adamw
+from rqvae_tpu_torch.utils import profiling
 from rqvae_tpu_torch.utils.convert import grads_from_jax, load_jax_params
 from tests.test_torch_step_graphs import (
     B, BANNED, FIELDS, ROWS, RQ_FIELDS, _features, _jax_decoder, _Record, _store,
@@ -59,15 +60,26 @@ def _one_torch_thread():
 
 @pytest.fixture
 def emulated_card(monkeypatch):
-    """The bf16 route on CPU tensors: `active` as on the card, and the card's
-    mm(a16, b16, out_dtype=float32) as a float32 product of the bf16 operands."""
+    """The bf16 route on CPU tensors: every tensor counts as on the card, and
+    the card's product of bf16 operands with float32 sums is a float32
+    product of them, rounded to the output dtype (tests/test_torch_dense.py
+    takes it too). Yields the list of the output dtypes of the products
+    launched, one entry a product."""
+    launched = []
 
-    def mm(a, b):
-        amp.products += 1
-        return a.float() @ b.float()
+    def mm(a, b, out_dtype):
+        launched.append(out_dtype)
+        return (a.float() @ b.float()).to(out_dtype)
 
-    monkeypatch.setattr(amp, "active", lambda x: amp._enabled)
+    monkeypatch.setattr(amp, "on_card", lambda x: True)
     monkeypatch.setattr(amp, "_mm", mm)
+    return launched
+
+
+def counted(name: str) -> int:
+    """The multiply-adds counted under `name` in the root recorder."""
+    agg = profiling.ROOT.snapshot().get(name)
+    return 0 if agg is None else agg.count
 
 
 def _rounded(t):
@@ -79,13 +91,13 @@ def test_amp_is_the_float32_product_on_the_cpu():
     x, w = torch.randn(5, 7, 12, generator=g), torch.randn(9, 12, generator=g)
     a, b = torch.randn(3, 4, 12, generator=g), torch.randn(3, 12, 6, generator=g)
     matmul = torch.backends.cuda.matmul
-    before = (amp.products, matmul.allow_bf16_reduced_precision_reduction)
+    before = (counted("amp.bf16"), matmul.allow_bf16_reduced_precision_reduction)
     with amp.bf16_products(True):
         assert amp._enabled and not matmul.allow_bf16_reduced_precision_reduction
         assert not amp.active(x)
         y, c = amp.linear(x, w), amp.matmul(a, b)
     assert torch.equal(y, F.linear(x, w)) and torch.equal(c, a @ b)
-    assert (amp.products, matmul.allow_bf16_reduced_precision_reduction) == before and not amp._enabled
+    assert (counted("amp.bf16"), matmul.allow_bf16_reduced_precision_reduction) == before and not amp._enabled
     with amp.bf16_products(False):
         assert not amp._enabled
 
@@ -102,11 +114,13 @@ def test_the_bf16_route_rounds_the_operands_and_sums_in_float32(case, emulated_c
         b = torch.randn(5, 16, generator=g).requires_grad_(True)
         fn, want = amp.linear, lambda: _rounded(a) @ _rounded(b).t()
     gy = torch.randn(want().shape, generator=g)
-    n0 = amp.products
+    n0, c0 = len(emulated_card), counted("amp.bf16")
     with amp.bf16_products(True):
         y = fn(a, b)
         y.backward(gy)
-    assert amp.products - n0 == (2 if case == "linear_input_without_grad" else 3)
+    n = 2 if case == "linear_input_without_grad" else 3
+    assert emulated_card[n0:] == [torch.float32] * n
+    assert counted("amp.bf16") - c0 == n * a.numel() * 5  # each product: a's rows x 16 x 5
     torch.testing.assert_close(y, want(), rtol=1e-6, atol=1e-6)
     g16 = _rounded(gy)
     if case == "batched":
@@ -142,10 +156,10 @@ def test_amp_steps_launch_their_products_and_read_nothing_back(emulated_card):
     chunk.bind(*store)
     chunk.chunks.stage([chunk.draws(0, s, ROWS) for s in range(2)])
     chunk.chunks.replay(1)
-    n0 = amp.products
+    n0 = len(emulated_card)
     with _Record() as rec:
         chunk.chunks.replay(1)
-    assert amp.products - n0 == 2 * _decoder_products(FIELDS)
+    assert len(emulated_card) - n0 == 2 * _decoder_products(FIELDS)
     assert "mm" in rec.ops and not rec.ops & BANNED, rec.ops & BANNED
 
     x = _features()
@@ -155,11 +169,11 @@ def test_amp_steps_launch_their_products_and_read_nothing_back(emulated_card):
     chunk.features = x
     chunk.chunks.stage([chunk.draws(0, s, len(x)) for s in range(2)])
     chunk.chunks.replay(1)
-    n0 = amp.products
+    n0 = len(emulated_card)
     with _Record() as rec:
         chunk.chunks.replay(1)
     n_lin = len(RQ_FIELDS["hidden_dims"]) + 1  # per MLP; the first encoder layer's input needs no gradient
-    assert amp.products - n0 == 2 * (3 * 2 * n_lin - 1)
+    assert len(emulated_card) - n0 == 2 * (3 * 2 * n_lin - 1)
     assert not rec.ops & BANNED, rec.ops & BANNED
 
 
@@ -230,9 +244,9 @@ def test_the_stage2_trainer_takes_amp(tmp_path, emulated_card):
               steps_per_loop=1, t5_dtype="float32", device="cpu")
     runs = {}
     for flag in (False, True):
-        n0 = amp.products
+        n0 = len(emulated_card)
         runs[flag] = train_decoder.train(amp=flag, save_dir_root=str(tmp_path / f"amp{flag}"), **kw)
-        runs[flag]["products"] = amp.products - n0
+        runs[flag]["products"] = len(emulated_card) - n0
     per_step = 3 * (6 + 10 + 1)
     assert runs[False]["products"] == 0 and runs[True]["products"] == 2 * per_step
     assert runs[True]["total_loss"] != runs[False]["total_loss"]

@@ -1395,9 +1395,11 @@ def test_amp_linear_matches_f32_products_of_bf16_operands(cuda, x_shape, w_shape
     products of the bf16-rounded operands (TF32 off), within 1e-5 of the
     tensor's largest entry for the forward and dx (sums of up to 1,024 terms
     in another order) and 1e-4 for dW (sums over all 51,200 rows); 3 products
-    (2 when x needs no gradient); reduced-precision reduction off inside the
-    flag and restored after."""
+    (2 when x needs no gradient), counted by their multiply-adds under
+    "amp.bf16"; reduced-precision reduction off inside the flag and restored
+    after."""
     from rqvae_tpu_torch.ops import amp
+    from rqvae_tpu_torch.utils import profiling
 
     g = torch.Generator().manual_seed(7)
     x = torch.randn(x_shape, generator=g).to(cuda).requires_grad_(x_grad)
@@ -1405,13 +1407,14 @@ def test_amp_linear_matches_f32_products_of_bf16_operands(cuda, x_shape, w_shape
     gy = torch.randn(*x_shape[:-1], w_shape[0], generator=g).to(cuda)
     assert not torch.backends.cuda.matmul.allow_tf32
     before = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
-    n0 = amp.products
+    agg = lambda: profiling.ROOT.snapshot().get("amp.bf16")  # noqa: E731
+    n0 = agg().count if agg() else 0
     with amp.bf16_products(True):
         assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
         y = amp.linear(x, w)
         y.backward(gy)
     assert torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction == before
-    assert amp.products - n0 == (3 if x_grad else 2) and y.dtype == torch.float32
+    assert agg().count - n0 == (3 if x_grad else 2) * x.numel() * w_shape[0] and y.dtype == torch.float32
     xb, wb, gb = (t.detach().to(torch.bfloat16).float() for t in (x, w, gy))
     assert _rel_err(y, xb @ wb.t()) <= 1e-5
     assert _rel_err(w.grad, gb.reshape(-1, w_shape[0]).t() @ xb.reshape(-1, w_shape[1])) <= 1e-4
@@ -1436,6 +1439,121 @@ def test_amp_batched_heads_match_f32_products_of_bf16_operands(cuda):
     assert _rel_err(y, ab @ bb) <= 1e-5
     assert _rel_err(a.grad, gb @ bb.transpose(1, 2)) <= 1e-5
     assert _rel_err(b.grad, ab.transpose(1, 2) @ gb) <= 1e-4
+
+
+# ---- dense at bf16: tensor-core products with float32 sums (models/t5.py, ops/amp.py) ----
+
+# (rows, in, out) of the training cells' products: Amazon's FFN (wi, wo) over
+# its 640 x 80 tokens, and at 2,048 wide the MoE cell's dense SwiGLU gate and
+# its shared experts' down projection over 64 x 800
+DENSE_SHAPES = {"amazon-wi": (51200, 384, 1024), "amazon-wo": (51200, 1024, 384),
+                "moe-gate": (51200, 2048, 10944), "moe-shared-down": (51200, 2816, 2048)}
+
+
+def _dense_formula(x16, w16, g16):
+    """The float32 formula on the card (TF32 off): y, dX and dW as float32
+    products of the bf16 operands, each rounded to bf16 once."""
+    xf, wf, gf = x16.float(), w16.float(), g16.float()
+    return (xf @ wf.t()).to(torch.bfloat16), (gf @ wf).to(torch.bfloat16), (gf.t() @ xf).to(torch.bfloat16)
+
+
+def _dense_route(x16, w, g16):
+    from rqvae_tpu_torch.models.t5 import dense
+
+    x = x16.detach().requires_grad_(True)
+    y = dense(x, w, torch.bfloat16)
+    y.backward(g16)
+    return y.detach(), x.grad, w.grad
+
+
+@pytest.mark.parametrize("data", ["integers", "normal"])
+@pytest.mark.parametrize("shape", list(DENSE_SHAPES), ids=list(DENSE_SHAPES))
+def test_dense_bf16_route_matches_the_float32_formula(cuda, shape, data):
+    """dense at bf16 on the card (bf16 operands on the tensor cores, float32
+    sums, each of y, dX and dW rounded to bf16 once) against the float32
+    formula on the card, at the training cells' shapes. On small integers,
+    whose float32 sums are exact in any order, bit for bit: a bf16 partial
+    sum or a missing or extra rounding would show. On normal values, every
+    element within one bf16 step of the formula's (or, for a sum that
+    cancels to near zero, within 1e-5 of the tensor's largest entry, 1e-4
+    for dW's sums over 51,200 rows: what summation order alone moves). dW
+    reaches the float32 parameter as its bf16 value; 3 products counted under
+    dense.bf16; no backend flag changed."""
+    from rqvae_tpu_torch.ops import amp
+    from rqvae_tpu_torch.utils import profiling
+
+    m, k, n = DENSE_SHAPES[shape]
+    g = torch.Generator(device=cuda).manual_seed(11)
+    if data == "integers":
+        x16, w, g16 = (torch.randint(-4, 5, s, generator=g, device=cuda).float() for s in ((m, k), (n, k), (m, n)))
+    else:
+        x16, w, g16 = (torch.randn(s, generator=g, device=cuda) for s in ((m, k), (n, k), (m, n)))
+        w = w * k ** -0.5
+    x16, g16 = x16.to(torch.bfloat16), g16.to(torch.bfloat16)
+    w.requires_grad_(True)
+    matmul = torch.backends.cuda.matmul
+    flags = (matmul.allow_tf32, matmul.allow_bf16_reduced_precision_reduction)
+    before = profiling.ROOT.snapshot().get("dense.bf16")
+    got = _dense_route(x16, w, g16)
+    torch.cuda.synchronize()
+    after = profiling.ROOT.snapshot()["dense.bf16"].count
+    assert after - (0 if before is None else before.count) == 3 * m * k * n
+    assert (matmul.allow_tf32, matmul.allow_bf16_reduced_precision_reduction) == flags
+    want = _dense_formula(x16, w.detach().to(torch.bfloat16), g16)
+    assert got[2].dtype == torch.float32 and torch.equal(got[2], got[2].to(torch.bfloat16).float())
+    for name, a, b, floor in zip(("y", "dx", "dw"), got, want, (1e-5, 1e-5, 1e-4)):
+        a = a.to(torch.bfloat16)
+        if data == "integers":
+            assert torch.equal(a, b), (shape, name, int((a != b).sum()))
+            continue
+        bf = b.float()
+        step = torch.where(bf == 0, 0.0, 2.0 ** (torch.frexp(bf).exponent - 8).float())  # one bf16 step at |b|
+        bound = torch.maximum(step, floor * bf.abs().max())
+        err = (a.float() - bf).abs()
+        assert bool((err <= bound).all()), (shape, name, float((err / bound).max()), int((err > step).sum()))
+
+
+# (rows, in, out) of every product dense runs at bf16 in each cell: the training
+# cells' encoders over 51,200 tokens and their decoders over batch x 4 rows
+# (forward, dX and dW); serving's plain encoder and cross K/V over the buckets'
+# 80-key rows, and the batch cell's cross K/V over 1,024 x 800 rows and its
+# plain decoder's beams (forward only)
+T5_WIDTHS = ((384, 384), (384, 1024), (1024, 384))
+MOE_WIDTHS = ((2048, 2048), (2048, 10944), (10944, 2048), (2048, 2816), (2816, 2048))
+DENSE_CELL_SHAPES = {
+    "amazon-beauty.train": [(m, k, n, True) for m in (51200, 2560) for k, n in T5_WIDTHS],
+    "ml-32m.train": [(m, k, n, True) for m in (51200, 256) for k, n in T5_WIDTHS],
+    "ml-32m-moe.train": [(m, k, n, True) for m in (51200, 256) for k, n in MOE_WIDTHS],
+    "amazon-beauty.serve-poisson": [(80 * b, k, n, False) for b in (1, 4, 16, 64) for k, n in T5_WIDTHS],
+    "ml-32m.batch-retrieve": [(819200, 384, 384, False)] + [(m, k, n, False) for m in (1024, 10240, 30720)
+                                                            for k, n in T5_WIDTHS],
+}
+
+
+@pytest.mark.parametrize("cell", list(DENSE_CELL_SHAPES))
+def test_dense_bf16_output_equals_the_float32_output_rounded(cuda, cell):
+    """dense's products write bf16 straight from cuBLAS (float32 sums,
+    reduced-precision reductions off for the call): bit-equal to the
+    float32-output product rounded to bf16 once, for every product of the
+    cell (forward; dX = g W and dW = g^T x where it trains), on normal
+    values; the flag is back on after each call."""
+    from rqvae_tpu_torch.ops import amp
+
+    bf = torch.bfloat16
+    g = torch.Generator(device=cuda).manual_seed(5)
+    matmul = torch.backends.cuda.matmul
+    assert matmul.allow_bf16_reduced_precision_reduction
+    for m, k, n, trains in DENSE_CELL_SHAPES[cell]:
+        x, w, gy = (torch.randn(s, generator=g, device=cuda).to(bf) for s in ((m, k), (n, k), (m, n)))
+        products = {"y": (x, w.t())}
+        if trains:
+            products.update(dx=(gy, w), dw=(gy.t(), x))
+        for name, (a, b) in products.items():
+            got = amp._product(a, b, bf)
+            assert matmul.allow_bf16_reduced_precision_reduction
+            want = amp._product(a, b, torch.float32).to(bf)
+            assert got.dtype == bf and torch.equal(got, want), (cell, (m, k, n), name, int((got != want).sum()))
+        del x, w, gy, products
 
 
 @pytest.mark.parametrize("stage", ["stage1", "stage2"])
