@@ -85,10 +85,10 @@ class RetrievalEngine:
     """Batched, shape-bucketed front end over `Retriever`.
 
     `max_items` is the longest history served; a longer one keeps its most
-    recent `max_items` items. `cuda_graphs=False` runs the card eagerly, for
-    timing eager against replay only. Batch buckets are rounded up to
-    multiples of the retriever's `batch_multiple` (its mesh's 'data' size; 1
-    without a mesh)."""
+    recent `max_items` items. On the card each bucket replays a CUDA graph;
+    elsewhere it runs eagerly. Batch buckets are rounded up to multiples of
+    the retriever's `batch_multiple` (its mesh's 'data' size; 1 without a
+    mesh)."""
 
     def __init__(
         self,
@@ -96,7 +96,6 @@ class RetrievalEngine:
         max_items: int,
         item_buckets: Optional[Sequence[int]] = None,
         batch_buckets: Sequence[int] = (1, 4, 16, 64),
-        cuda_graphs: bool = True,
     ):
         self.retriever = retriever
         self.max_items = int(max_items)
@@ -107,7 +106,7 @@ class RetrievalEngine:
         self.batch_buckets = tuple(sorted({max(-(-b // m) * m, m) for b in batch_buckets}))
         self.shape_counts: dict = {}  # batches run at each (batch, items) shape
         self.device = retriever.device
-        self.use_graphs = self.device.type == "cuda" and cuda_graphs
+        self.use_graphs = self.device.type == "cuda"
         self.graphs: dict = {}  # (batch bucket, item bucket) -> (BucketGraph of each shard, ...)
         self.captures = 0  # buckets captured so far: a served shape captured once stays captured
         if self.use_graphs:

@@ -146,8 +146,7 @@ def _decoder_products(fields) -> int:
 
 def test_amp_steps_launch_their_products_and_read_nothing_back(emulated_card):
     """What a step graph captures with amp: one step's count of bf16 products
-    (chip_smoke.py holds the graph's bf16 GEMM nodes to this count) and no
-    host read, in both stages, 2 micro-batches each."""
+    and no host read, in both stages, 2 micro-batches each."""
     store = _store()
     model = tr.EncoderDecoderRetrievalModel(tr.RetrievalConfig(**FIELDS, t5_dropout=0.1), device="cpu", seed=0)
     opt = adamw(model.parameters(), tsched.inverse_sqrt_schedule(1e-3, 2), weight_decay=0.1, max_grad_norm=0.5)

@@ -114,8 +114,10 @@ def _imports(path):
 
 def test_port_never_imports_jax():
     package = sorted((ROOT / "rqvae_tpu_torch").rglob("*.py"))
-    # the worker of the multi-process tests runs the port as a user would: it is held to the same rule
-    files = package + [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist_worker.py"]
+    # the worker of the multi-process tests runs the port as a user would, and the card's path tests and
+    # their shared helpers run where JAX is missing: all are held to the same rule
+    files = package + [ROOT / "tests" / f for f in ("torch_dist_worker.py", "test_torch_paths_gpu.py",
+                                                    "torch_gpu_common.py")]
     assert len(files) > 35 and all(f.exists() for f in files)
     assert {"hash_dropout.py", "attention.py", "encoder_stack.py", "_build.py"} <= {f.name for f in files}
     rel = {str(f.relative_to(ROOT / "rqvae_tpu_torch")) for f in package}

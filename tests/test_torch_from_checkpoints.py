@@ -4,8 +4,8 @@ start, and the stage-2 trainer over a `.msgpack` RQ-VAE.
 
 The committed fixture (tests/fixtures/jax_synthetic/, regenerated by its
 make_fixture.py) holds checkpoints that flax wrote and what the JAX package
-served for them; the card reads the same files (chip_smoke.py phase
-checkpoint_interop). The port's index is built at precision="f32", the
+served for them; the card reads the same files
+(tests/test_torch_paths_gpu.py::test_checkpoint_interop). The port's index is built at precision="f32", the
 precision of the CPU comparisons. Item ids exact, log_probas within 1e-5.
 """
 

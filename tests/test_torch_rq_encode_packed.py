@@ -3,7 +3,7 @@ output against the Pallas kernel's in interpret mode (emit_packed=True, as
 tests/test_pallas_kernels.py runs it), exact: in f32 on random inputs, in
 bf16 on integer-valued ones (every float32 sum exact, so the rounding points
 alone decide). The kernel's own column is held on the card
-(tests/test_torch_kernels_gpu.py, chip_smoke.py phase rq_encode_packed)."""
+(tests/test_torch_kernels_gpu.py::test_rq_encode_emit_packed)."""
 
 import jax.numpy as jnp
 import numpy as np

@@ -1,7 +1,9 @@
 """Worker of the port's multi-process tests (tests/test_torch_data_parallel.py,
 tests/test_torch_dp_trainers.py, tests/test_torch_tp.py,
-tests/test_torch_checkpoint_sharded.py): one rank of a data-parallel or
-tensor-parallel run of rqvae_tpu_torch on the CPU, over gloo.
+tests/test_torch_checkpoint_sharded.py, and the card's in
+tests/test_torch_kernels_gpu.py and tests/test_torch_paths_gpu.py): one rank
+of a data-parallel or tensor-parallel run of rqvae_tpu_torch, on the CPU over
+gloo or on the card.
 
     python tests/torch_dist_worker.py SPEC.json
 
@@ -9,11 +11,17 @@ The launcher (`launch`, below) sets the JAX package's manual markers
 (RQVAE_TPU_NUM_PROCESSES, RQVAE_TPU_PROCESS_ID, JAX_COORDINATOR_ADDRESS),
 which rqvae_tpu_torch.parallel.dist reads. The spec lists scenarios; each
 rank runs them in order and writes what it saw to
-`<out>/<scenario name>.rank<r>.pt`, then prints one JSON line. This script
+`<out>/<scenario name>.rank<r>.pt`, then prints one JSON line. Each result
+also holds the launches of the port's kernels during its scenario and the
+(b0, h0, heads_total) that kernels 4 and 5 were launched with; a scenario's
+"fault" plants one on rank 1 (`_recorded`), as a control that a test's gate
+must catch. This script
 imports torch and rqvae_tpu_torch, never JAX or rqvae_tpu
 (tests/test_torch_convert.py holds it to that).
 """
 
+import contextlib
+import functools
 import json
 import os
 import socket
@@ -205,8 +213,8 @@ def tp_step(sc: dict, replicas) -> dict:
     data = torch.load(sc["batches"])
     if sc.get("generate"):
         b = data["batches"][0]
-        table = build_prefix_table(data["corpus"], sc["config"]["codebook_size"])
-        g = model.generate(b["sem_ids"], b["seq_mask"], b["user_ids"], table)
+        table = build_prefix_table(data["corpus"].to(dev), sc["config"]["codebook_size"])
+        g = model.generate(*(b[k].to(dev) for k in ("sem_ids", "seq_mask", "user_ids")), table)
         out["generate"] = {"sem_ids": g.sem_ids.cpu(), "log_probas": g.log_probas.cpu()}
         out["still_sharded"] = tp.shard_of(model) is not None and tuple(model.heads.shape) == \
             out["local_shapes"]["heads"]
@@ -289,6 +297,101 @@ def trainer(sc: dict, replicas) -> dict:
     return {"summaries": [fn(**_enums(kw)) for kw in sc["calls"]]}
 
 
+def cli(sc: dict, replicas) -> dict:
+    """A trainer's command line, `main(argv)` of train_decoder (stage 2) or
+    train_rqvae (stage 1). Returns the run's summary and, for each step
+    runner it made, whether the runner holds a CUDA graph."""
+    from rqvae_tpu_torch.train import train_decoder, train_rqvae
+
+    module, factory = ((train_decoder, "make_decoder_graph_train_step") if sc["stage"] == 2
+                       else (train_rqvae, "make_rqvae_graph_train_step"))
+    make, run, runners, summaries = getattr(module, factory), module.train, [], []
+
+    def making(*args, **kwargs):
+        runners.append(make(*args, **kwargs))
+        return runners[-1]
+
+    @functools.wraps(run)  # the config reads the trainer's signature
+    def train(*args, **kwargs):
+        summaries.append(run(*args, **kwargs))
+        return summaries[-1]
+
+    setattr(module, factory, making)
+    module.train = train
+    try:
+        module.main(sc["argv"])
+    finally:
+        setattr(module, factory, make)
+        module.train = run
+    return {"summary": summaries[-1], "graphs": [s.chunks.graph is not None for s in runners]}
+
+
+@contextlib.contextmanager
+def _recorded(sc: dict, rank: int):
+    """While a scenario runs: the kernel wrappers' launch counters start from
+    zero, each launch of kernels 4 and 5 has its (b0, h0, heads_total)
+    recorded, and rank 1 carries the fault `sc["fault"]`, if any:
+    "dropout_rows_from_0", its data-parallel forwards draw dropout masks
+    from global row 0, as rank 0's do; "grads_left_out", its gradients enter
+    the all-reduce as zeros, so the mean holds rank 0's alone;
+    "heads_from_0", kernels 4 and 5 draw the masks of heads 0.. in place of
+    its own. Either way the ranks stay bit-equal and the run completes.
+    Yields the dict that receives "launches" and "attention_calls"."""
+    from rqvae_tpu_torch.ops.cuda import attention as A
+    from rqvae_tpu_torch.ops.cuda.decoder_stack import t5_decoder_stack_infer
+    from rqvae_tpu_torch.ops.cuda.encoder_stack import t5_encoder_stack_infer
+    from rqvae_tpu_torch.ops.cuda.hash_dropout import hash_dropout_cuda
+    from rqvae_tpu_torch.ops.cuda.rq_encode import fused_encode_quantize
+    from rqvae_tpu_torch.parallel import dist
+    from rqvae_tpu_torch.train import decoder_steps
+
+    wrappers = {"rq_encode": fused_encode_quantize, "decoder_stack": t5_decoder_stack_infer,
+                "encoder_stack": t5_encoder_stack_infer, "attention": A.t5_attention, "hash_dropout": hash_dropout_cuda}
+    for fn in wrappers.values():
+        fn.launches = 0
+    A.t5_attention.backward_launches = 0
+    fault = sc.get("fault") if rank == 1 else None
+    calls = set()
+    saved = [(A, "_forward_cuda", A._forward_cuda), (A, "_backward_cuda", A._backward_cuda),
+             (decoder_steps, "_rank_seeds", decoder_steps._rank_seeds),
+             (dist.Replicas, "average_step_", dist.Replicas.average_step_)]
+    fwd, bwd, rank_seeds, average = (v for _, _, v in saved)
+
+    def recording(kernel):
+        def launch(*args, b0=0, h0=0, heads_total=None, **kwargs):
+            h0 = 0 if fault == "heads_from_0" else h0
+            calls.add((kernel.__name__, int(b0), int(h0), heads_total))
+            return kernel(*args, b0=b0, h0=h0, heads_total=heads_total, **kwargs)
+        return launch
+
+    def rows_from_0(seeds, replicas, rows):
+        out = rank_seeds(seeds, replicas, rows)
+        return out if out is None or replicas is None else out._replace(b0=0)
+
+    def left_out(self, params, metrics, exact=()):
+        for p in params:
+            if p.grad is not None:
+                p.grad.zero_()
+        return average(self, params, metrics, exact)
+
+    A._forward_cuda, A._backward_cuda = recording(fwd), recording(bwd)
+    if fault == "dropout_rows_from_0":
+        decoder_steps._rank_seeds = rows_from_0
+    elif fault == "grads_left_out":
+        dist.Replicas.average_step_ = left_out
+    elif fault not in (None, "heads_from_0"):
+        raise ValueError(f"no planted fault {fault!r}")
+    seen = {}
+    try:
+        yield seen
+    finally:
+        for owner, name, value in saved:
+            setattr(owner, name, value)
+    seen["launches"] = {**{name: fn.launches for name, fn in wrappers.items()},
+                        "attention_bwd": A.t5_attention.backward_launches}
+    seen["attention_calls"] = sorted(calls, key=str)
+
+
 def main(spec_path: str) -> None:
     import torch
 
@@ -297,14 +400,17 @@ def main(spec_path: str) -> None:
 
     with open(spec_path) as f:
         spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     backend = dist.initialize_distributed(spec.get("device", "cpu"))
     replicas = dist.replicas()
     run = {"decoder_step": decoder_step, "decoder_graph": decoder_graph, "rqvae_step": rqvae_step,
            "train_decoder": trainer, "train_rqvae": trainer, "tp_step": tp_step,
-           "ckpt_sharded": ckpt_sharded}
+           "ckpt_sharded": ckpt_sharded, "cli": cli}
     for sc in spec["scenarios"]:
-        result = run[sc["kind"]](sc, replicas)
-        torch.save(result, os.path.join(spec["out"], f"{sc['name']}.rank{replicas.rank}.pt"))
+        with _recorded(sc, dist.process_index()) as seen:
+            result = run[sc["kind"]](sc, replicas)
+        torch.save({**result, **seen}, os.path.join(spec["out"], f"{sc['name']}.rank{dist.process_index()}.pt"))
     print(json.dumps({"rank": dist.process_index(), "world": dist.process_count(), "backend": backend,
                       "done": [sc["name"] for sc in spec["scenarios"]]}), flush=True)
 
