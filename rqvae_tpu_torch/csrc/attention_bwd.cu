@@ -25,10 +25,11 @@
 // in a fixed order instead (no float atomics: two launches on the same inputs
 // give the same bits), and what the TPU kernel keeps out of device memory
 // stays out: scores, p, dp and ds live in registers and shared memory only.
-// dbias is summed per batch group, in batch order, into the group's partial
-// [groups, H, Lq, Lk] (dbias itself for one group), and reduce_groups_kernel
-// adds the partials in group order. Three routes (backward_route; the wrapper
-// picks the batch groups for each):
+// On the whole-row and CUDA-core routes dbias is summed per batch group, in
+// batch order, into the group's partial [groups, H, Lq, Lk] (dbias itself for
+// one group), and reduce_groups_kernel adds the partials in group order; the
+// tiled route sums it over the whole batch in registers. Three routes
+// (backward_route; the wrapper picks the batch groups for each):
 //
 // Whole-row route: bf16, dk = 64, Lq and Lk <= 128 (Amazon's 80 x 80). One
 // kernel, bwd_rows_kernel, one block per (head, batch group), which walks its
@@ -46,34 +47,58 @@
 //     ldmatrix.trans).
 // The group's partial dbias [Lq, Lk] stays in shared memory across its rows.
 //
-// Tiled route: bf16, dk = 64, longer rows (ML-32M's 800). Four kernels:
-//   1. bwd_delta_tiled_kernel, one block of 4 warps per (batch row, head, 64
-//      queries): walks the 64-key tiles and writes the row term [B, H, Lq];
+// Tiled route: bf16, dk = 64, longer rows up to 1,280 keys (ML-32M's 800; the
+// backward of longer bf16 rows takes the CUDA cores). Two kernels, seven
+// score-sized products where the reference has five:
+//   1. bwd_dq_tiled_kernel, one cluster of C = ceil(Lk / 160) blocks of 8
+//      warps per (64 queries, head): block r holds keys 160r .. 160r + 159,
+//      each warp 16 queries and 80 of those keys, and the cluster walks the
+//      batch rows in order. Per batch row: s = q k^T, dp = dout v^T, p and the
+//      keep bits; the row term sum_k(dp * p) as each warp's partial over its
+//      keys, stored into every block of the cluster (distributed shared
+//      memory) and, after the row's one cluster barrier, added by each thread
+//      in a fixed order (block, then key half); ds; dbias += ds in registers,
+//      the block's [64, 160] tile summed over the whole batch in order and
+//      written once at the end (no partial, no per-batch-row round trip, no
+//      reduce kernel, at any head count); dq = round(ds) k over the warp's
+//      keys, stored into the block that owns the row, which adds the
+//      partials after the next barrier in the same fixed order and rounds
+//      once. It writes the row term and 1 / l for kernel 2. Three products.
 //   2. bwd_dkv_tiled_kernel, one block of 4 warps per (batch row, head, 64
-//      keys): walks the 64-query tiles (double-buffered q and dout), phase A
-//      and B as above per tile, dv and dk summed in registers;
-//   3. bwd_dq_tiled_kernel, one block of 4 warps per (64 queries, head, batch
-//      group): walks its group's batch rows in order and, inside, the key
-//      tiles (double-buffered k and v): dq in registers, the unrounded ds
-//      added into its own region of the group's partial dbias in device
-//      memory (a plain read-modify-write: no other block touches the region);
-//   4. reduce_groups_kernel.
-// Every product is on mma.sync, operands staged as bf16 by cp.async and read
-// by ldmatrix; each step's bias tile (and row statistics, and partial dbias)
-// is copied while its q k^T runs. It computes 9 products where the reference
-// computes 5 (kernel 1: q k^T and dout v^T; kernel 2: those and the two that
-// give dv and dk; kernel 3: those and the one that gives dq): a score row of
-// 800 keys does not fit a warp, and dq and dk sum along different axes. With
-// dropout, the keep bits come from the forward (one 64-bit word per row and
-// 64-key tile, written by the tiled forward) instead of three more hashes per
-// score; without them (keep_bits null) the kernels hash anew, the same bits.
-// The groups are as many as keep their partial dbias regions in L2 together
-// (3 at the long-row shape), since each batch row reads and writes them.
+//      keys), batch rows fastest: each warp holds its 16 keys' k and v as A
+//      fragments and computes s^T = k q^T, dp^T = v dout^T per query tile
+//      (each q.k the sum attn::qk_product builds, the operands' roles
+//      swapped: the same bits), so that round(pd)^T and round(ds)^T are the
+//      A fragments of dv += pd^T dout and dk += ds^T q straight from the
+//      score registers; one barrier per tile. Four products.
+// The per-score work is specialised by dropout mode (none, the forward's
+// keep bits, the hash) and, in kernel 2, by whether a tile has an edge
+// (causal, or keys past Lk): branch-free code, with which kernel 2 runs 1.6x
+// as fast on an H100. Every product is on mma.sync, operands staged as bf16 by
+// cp.async (the next batch row's or query tile's during this one's work) and
+// read by ldmatrix: p must be the forward's bit for bit, and the forward
+// (kernel 4) builds its scores with mma.sync; wgmma's sums are not known to
+// round as mma.sync's do. The two kernels still recompute q k^T and dout v^T
+// once each beyond the reference: dq and dk sum along different axes, and
+// the row term must be whole before any ds. With dropout, the keep bits come
+// from the forward (one 64-bit word per row and 64-key tile) instead of three
+// more hashes per score; without them (keep_bits null) the kernels hash anew,
+// the same bits. Kernel 1 holds 213,632 B of shared memory and about 250
+// registers a thread, one block an SM; 22 clusters of 5 run at once on an
+// H100 (110 of its 132 SMs). Kernel 2 holds 94,976 B, two blocks an SM. Scratch: the row
+// term and 1 / l, [2, B, H, Lq] f32 (26.2 MB at [64, 32, 800]); nothing
+// score-sized and no dq accumulator in device memory. The kernels' names are
+// among those perfbench/rooflines/attention_bwd.json lists:
+// attention_bwd_roofline reads their device time.
 //
-// CUDA-core route: float32 (which must not drop to TF32), and bf16 at other
-// head widths than 64: the same four kernels with 64 x 64 tiles staged as
-// float32 (bf16 values are exact there, and every rounding point above is
-// applied explicitly), each thread owning 4 x 4 pieces fed by float4 reads.
+// CUDA-core route: float32 (which must not drop to TF32), bf16 at other head
+// widths than 64 and bf16 rows of more than 1,280 keys: three kernels (the
+// row term; dv and dk; dq and the group's partial dbias) and
+// reduce_groups_kernel, with 64 x 64 tiles staged as float32 (bf16 values are
+// exact there, and every rounding point above is applied explicitly), each
+// thread owning 4 x 4 pieces fed by float4 reads. The backward of bf16 rows
+// past 1,280 keys then rebuilds p by the CUDA cores' order, not the forward's
+// mma.sync: the same p up to the last bits of q.k.
 //
 // The same p as the forward's, bit for bit: the bf16 routes build q.k with
 // the forward's own instruction sequence (attn::qk_product: mma.sync, four
@@ -83,13 +108,18 @@
 // exp(s - m) / l from the forward's own m and l, by the forward's own
 // functions (attn::sm_p on the bf16 routes: the hardware exp and 1 / l).
 //
-// Bound on the H100 (5 products, q, k, v, dout, bias, mask in, dq, dk, dv,
-// dbias out): at the Amazon training shape [640, 6, 80, 64] 15.7 GFLOP and
-// about 275 MB in bf16, bound by bytes (0.082 ms); at the long-row shape
-// [64, 6, 800, 64] 157 GFLOP, bound by operations (0.159 ms). Beside the
-// bound, the tiled route reads the f32 bias three times per batch row (from
-// L2) and moves the partial dbias through a read and a write per batch row:
-// 2 x 64 x 6 x 800 x 800 x 4 B = 1.97 GB at the long-row shape.
+// Bound on the H100 (perfbench/rooflines/attention_bwd.py: the four products
+// once p is known, q, k, v, dout, bias, mask in, dq, dk, dv, dbias out): at the
+// Amazon training shape [640, 6, 80, 64] 12.6 GFLOP and about 315 MB in bf16,
+// bound by bytes (0.094 ms); at the long-row shapes [64, 6, 800, 64] 125.8
+// GFLOP (0.127 ms) and [64, 32, 800, 64] 671 GFLOP (0.679 ms), bound by
+// operations. Beside the bound, the tiled route reads the f32 bias once in
+// kernel 1 and once per batch row in kernel 2 (from L2: the blocks that run
+// together share a head), k and v once per query tile of kernel 1, and
+// computes about 20 instructions of per-score work (bias, mask, exp, keep
+// bits, ds) twice per score, which with the products' ldmatrix traffic and
+// kernel 1's cluster barriers keeps both kernels far from the tensor cores'
+// rate (PERF.md section 6).
 
 #include "attention_core.cuh"
 
@@ -112,7 +142,7 @@ template <typename T> struct BwdParams {
   const float* bias;          // [H, Lq, Lk]
   const int* mask;            // [B, Lk] 1 = attend
   const float *row_max, *row_sum;  // [B, H, Lq] from the forward
-  float* delta;               // [B, H, Lq] scratch: sum_k(dp * p)
+  float* delta;               // [2][B, H, Lq] scratch: sum_k(dp * p), then (tiled route) 1 / l
   T *dq, *dk, *dv;
   float* dbias_part;          // [groups, H, Lq, Lk]; dbias itself when groups == 1
   float* dbias;               // [H, Lq, Lk]
@@ -492,19 +522,20 @@ __global__ void reduce_groups_kernel(const float* part, float* dbias, size_t n, 
 // ---- bf16, dk = 64: the tensor-core routes ----
 
 using bf16 = __nv_bfloat16;
-using attn::a_frags_global;
 using attn::a_frags_smem;
+using attn::add_bias_masks;
 using attn::add_bias_masks_global;
-using attn::add_bias_masks_tile;
 using attn::BIAS_LD;
 using attn::bn_col;
 using attn::bn_row;
 using attn::bt_col;
 using attn::bt_row;
+using attn::cluster_addr;
+using attn::cluster_sync;
+using attn::cp_async16;
 using attn::cp_async4;
 using attn::cp_async_commit;
 using attn::cp_async_wait_all;
-using attn::cp_async_wait_but_one;
 using attn::drop_counter;
 using attn::ldsm_x4_t;
 using attn::MMA_DK;
@@ -517,20 +548,20 @@ using attn::stage_bias_async;
 using attn::stage_mask_async;
 using attn::stage_rows_async;
 using attn::store_rows_bf16;
-using attn::TILED_SMEM;
 using attn::TL_KT;
-using attn::TL_WARPS;
 using attn::WR_MAX_KEYS;
 
-constexpr int DKV_WARPS = 4;  // tiled route, kernels 2 and 3: 64 rows (keys or queries) per block
-// kernel 2: k, v; q, dout x 2 buffers; round(pd), round(ds); a bias tile; m, l, delta; the key mask
-constexpr int DKV_SMEM = (2 + 4 + 2) * 64 * MMA_LD * 2 + 64 * BIAS_LD * 4 + 3 * 64 * 4 + 64 * 4;
-// kernel 3: k, v x 2 buffers; a bias tile and a partial-dbias tile; the key mask
-constexpr int DQ_SMEM = 4 * TL_KT * MMA_LD * 2 + 2 * 64 * BIAS_LD * 4 + TL_KT * 4;
+constexpr int DKV_WARPS = 4;  // tiled route, kernel 2: 64 keys per block
+// kernel 2: k, v; q, dout, bias tiles, m, l, delta and keep-bit words x 2 buffers; the key mask
+// (94,976 B: two blocks an SM)
+constexpr int DKV_SMEM = (2 + 4) * 64 * MMA_LD * 2 + 2 * 64 * BIAS_LD * 4 + 2 * 3 * 64 * 4 + 2 * 64 * 2 * 4 + 64 * 4;
+// tiled route: a cluster of at most 8 blocks of 160 keys holds a whole score row
+constexpr int TILED_MAX_KEYS = 1280;
 
 // The backward's route; ops/cuda/attention.py::attention_route mirrors it.
+// bf16 rows longer than the tiled route's clusters hold take the CUDA cores.
 __host__ __device__ inline int backward_route(bool is_bf16, int Lq, int Lk, int dk) {
-  if (!is_bf16 || dk != MMA_DK) return attn::ROUTE_CUDA_CORES;
+  if (!is_bf16 || dk != MMA_DK || Lk > TILED_MAX_KEYS) return attn::ROUTE_CUDA_CORES;
   return Lq <= WR_MAX_KEYS && Lk <= WR_MAX_KEYS ? attn::ROUTE_WHOLE_ROW : attn::ROUTE_TILED;
 }
 
@@ -555,29 +586,16 @@ __device__ __forceinline__ void load_stats(const BwdParams<bf16>& P, size_t bh, 
 
 // From the scores s (((q.k + bias) + mask) + causal, -inf past Lk) and the
 // raw dout.v (dp) of rows row_lo, row_lo + 8 and keys k0 + j*8 + 2t + (e & 1):
-// s becomes p = exp(s - m) / l and dp gets the forward's keep bits and scale;
+// s becomes p = exp(s - m) / l and dp gets the keep bits (hashed) and scale;
 // pd (p with the keep bits and scale) is written rounded to pd_tile [rows,
-// ld] at row pd_row0 + g (+ 8), unless pd_tile is null. The keep bits come
-// from the forward's words (bits, 64-key tiles; NJ = 8) or, when bits is
-// null, from the hash.
+// ld] at row pd_row0 + g (+ 8).
 template <int NJ>
 __device__ __forceinline__ void probs_and_dp(float (&s)[NJ][4], float (&dp)[NJ][4], const BwdParams<bf16>& P, int b,
                                              int h, int row_lo, int k0, const float (&m)[2], const float (&l)[2],
-                                             bf16* pd_tile, int ld, int pd_row0, const unsigned* bits) {
+                                             bf16* pd_tile, int ld, int pd_row0) {
   const int t = threadIdx.x & 3, g = (threadIdx.x & 31) >> 2;
   const float inv_l[2] = {1.f / l[0], 1.f / l[1]};
-  const unsigned seed_mix = P.dropout && bits == nullptr ? seed_mix_of(P.seed) : 0u;
-  uint2 kw[2] = {make_uint2(0u, 0u), make_uint2(0u, 0u)};
-  if (NJ == 8 && bits != nullptr && P.dropout) {
-    const int nt = (P.Lk + TL_KT - 1) / TL_KT;
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int row = row_lo + hh * 8;
-      if (row < P.Lq)
-        kw[hh] = __ldg(reinterpret_cast<const uint2*>(bits + (((size_t)b * P.H + h) * P.Lq + row) * nt * 2 +
-                                                      (k0 / TL_KT) * 2));
-    }
-  }
+  const unsigned seed_mix = P.dropout ? seed_mix_of(P.seed) : 0u;
 #pragma unroll
   for (int j = 0; j < NJ; ++j)
 #pragma unroll
@@ -589,19 +607,15 @@ __device__ __forceinline__ void probs_and_dp(float (&s)[NJ][4], float (&dp)[NJ][
         const float pv = attn::sm_p(s[j][e], m[hh], inv_l[hh]);
         pd[e2] = pv;
         if (P.dropout) {
-          const int bit = (j & 3) * 8 + 2 * t + e2;
           const bool keep =
-              NJ == 8 && bits != nullptr
-                  ? (((j & 4) ? kw[hh].y : kw[hh].x) >> bit) & 1u
-                  : keep_bit(drop_counter(P.b0 + b, P.h0 + h, P.Hg, P.Lq, P.Lk, row_lo + hh * 8, k0 + j * 8 + 2 * t + e2),
-                             seed_mix, P.keep_thresh);
+              keep_bit(drop_counter(P.b0 + b, P.h0 + h, P.Hg, P.Lq, P.Lk, row_lo + hh * 8, k0 + j * 8 + 2 * t + e2),
+                       seed_mix, P.keep_thresh);
           pd[e2] = (keep ? pv : 0.f) * P.keep_scale;
           dp[j][e] = keep ? dp[j][e] * P.keep_scale : 0.f;
         }
         s[j][e] = pv;
       }
-      if (pd_tile != nullptr)
-        *reinterpret_cast<unsigned*>(pd_tile + (pd_row0 + g + hh * 8) * ld + j * 8 + 2 * t) = pack_bf16(pd[0], pd[1]);
+      *reinterpret_cast<unsigned*>(pd_tile + (pd_row0 + g + hh * 8) * ld + j * 8 + 2 * t) = pack_bf16(pd[0], pd[1]);
     }
 }
 
@@ -739,7 +753,7 @@ __global__ void __launch_bounds__(256) bwd_rows_kernel(BwdParams<bf16> P) {
       a_frags_smem(a, Os, warp * 16);
       qk_product<NJ>(dp, a, Vs);
       add_bias_masks_global<NJ>(s, bias_h, mk, false, row_lo, 0, Lq, Lk, P.causal);
-      probs_and_dp<NJ>(s, dp, P, b, h, row_lo, 0, m, l, PDs, LDP, warp * 16, nullptr);
+      probs_and_dp<NJ>(s, dp, P, b, h, row_lo, 0, m, l, PDs, LDP, warp * 16);
       row_term<NJ>(s, dp, delta);
       make_ds<NJ>(s, dp, delta, DSs, LDP, warp * 16);
 #pragma unroll
@@ -781,242 +795,448 @@ __global__ void __launch_bounds__(256) bwd_rows_kernel(BwdParams<bf16> P) {
 
 // ---- tiled route ----
 
-// 1. the row term, one block of 4 warps per (batch row, head, 64 queries):
-// key tiles double-buffered, each tile's bias and mask copied during its
-// products (the forward's tiled layout of shared memory, then q and dout)
-constexpr int DELTA_SMEM = TILED_SMEM + 2 * TL_WARPS * 16 * MMA_LD * 2;
-__global__ void __launch_bounds__(TL_WARPS * 32, 3) bwd_delta_tiled_kernel(BwdParams<bf16> P) {
-  extern __shared__ float4 bwd_smem4[];
-  bf16* Ks = reinterpret_cast<bf16*>(bwd_smem4);  // [2][TL_KT, MMA_LD]
-  bf16* Vs = Ks + 2 * TL_KT * MMA_LD;
-  float* Bs = reinterpret_cast<float*>(Vs + 2 * TL_KT * MMA_LD);  // [128, BIAS_LD]
-  unsigned* mk = reinterpret_cast<unsigned*>(Bs + TL_WARPS * 16 * BIAS_LD);
-  bf16* Qs = reinterpret_cast<bf16*>(mk + TL_KT);  // [rows, MMA_LD] q, then dout
-  bf16* Os = Qs + TL_WARPS * 16 * MMA_LD;
-  const int Lq = P.Lq, Lk = P.Lk, warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
-  const int q_tiles = (Lq + TL_WARPS * 16 - 1) / (TL_WARPS * 16);
-  const int bhi = blockIdx.x / q_tiles, b = bhi / P.H, h = bhi % P.H;
-  const size_t bh = bhi;
-  const int q0 = (blockIdx.x % q_tiles) * TL_WARPS * 16, row_lo = q0 + warp * 16 + g;
-  const bool active = q0 + warp * 16 < Lq;
-  const int nt = (Lk + TL_KT - 1) / TL_KT;
-  auto prefetch_kv = [&](int tile) {
-    const int buf = tile & 1;
-    stage_rows_async(Ks + buf * TL_KT * MMA_LD, P.k + bh * Lk * MMA_DK, tile * TL_KT, TL_KT, Lk);
-    stage_rows_async(Vs + buf * TL_KT * MMA_LD, P.v + bh * Lk * MMA_DK, tile * TL_KT, TL_KT, Lk);
-    cp_async_commit();
-  };
-  // q and dout rows staged once, their fragments read per tile: registers
-  // for the scores instead (no spills at three blocks per SM)
-  stage_rows_async(Qs, P.q + bh * Lq * MMA_DK, q0, TL_WARPS * 16, Lq);
-  stage_rows_async(Os, P.dout + bh * Lq * MMA_DK, q0, TL_WARPS * 16, Lq);
-  prefetch_kv(0);
-  float m[2], l[2], acc[2] = {0.f, 0.f};
-  load_stats(P, bh, row_lo, m, l);
-  for (int tile = 0; tile < nt; ++tile) {
-    const int buf = tile & 1, k0 = tile * TL_KT;
-    cp_async_wait_all();
-    __syncthreads();  // this tile has landed; the other buffers are read out
-    stage_bias_async(Bs, P.bias + (size_t)h * Lq * Lk, q0, TL_WARPS * 16, k0, Lq, Lk);
-    stage_mask_async(mk, P.mask + (size_t)b * Lk, k0, TL_KT, Lk);
-    cp_async_commit();
-    if (tile + 1 < nt) {
-      prefetch_kv(tile + 1);
-      cp_async_wait_but_one();
-    } else {
-      cp_async_wait_all();
-    }
-    float s[8][4], dp[8][4], d[2];
-    if (active) {
-      unsigned a[4][4];
-      a_frags_smem(a, Qs, warp * 16);
-      qk_product<8>(s, a, Ks + buf * TL_KT * MMA_LD);
-      a_frags_smem(a, Os, warp * 16);
-      qk_product<8>(dp, a, Vs + buf * TL_KT * MMA_LD);
-    }
-    __syncthreads();  // this tile's bias and mask have landed
-    if (!active) continue;
-    add_bias_masks_tile<8>(s, Bs, q0, mk, false, row_lo, k0, Lk, P.causal);
-    probs_and_dp<8>(s, dp, P, b, h, row_lo, k0, m, l, nullptr, 0, 0, P.keep_bits);
-    row_term<8>(s, dp, d);
-    acc[0] += d[0];
-    acc[1] += d[1];
-  }
-  if (!active || (threadIdx.x & 3) != 0) return;
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh)
-    if (row_lo + hh * 8 < Lq) P.delta[bh * Lq + row_lo + hh * 8] = acc[hh];
+// Stores into the shared memory of a block of this cluster (addresses from
+// cluster_addr).
+__device__ __forceinline__ void st_cluster_f32(unsigned addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
+}
+__device__ __forceinline__ void st_cluster_f2(unsigned addr, float x, float y) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(x), "f"(y) : "memory");
 }
 
-// 2. dv and dk, one block of 4 warps per (batch row, head, 64 keys): query
-// tiles of 64 double-buffered, each tile's bias and row statistics copied
-// during its products
-__global__ void __launch_bounds__(DKV_WARPS * 32, 3) bwd_dkv_tiled_kernel(BwdParams<bf16> P) {
+constexpr int TQ = 64;            // bwd_dq_tiled_kernel: query rows per cluster, 4 row groups of 16
+constexpr int TKB = 160;          // keys per block of a cluster, 2 halves of 80 (5 blocks: 800 keys)
+constexpr int TNJ = TKB / 16;     // 8-key score columns a warp holds (80 keys)
+constexpr int TMAX_CLUSTER = 8;   // blocks per cluster at most (portable clusters): rows of up to 1,280 keys
+static_assert(TKB * TMAX_CLUSTER == TILED_MAX_KEYS, "the route's bound is the clusters'");
+constexpr int DQ_WARPS = 8;
+constexpr int TB_LD = TKB + 8;    // floats per staged bias row: conflict-free float2 reads
+constexpr int DQ_SLOTS = 70 * 16;  // float4 pieces of dq a block receives per key half: C ceil(64 / C) <= 70 rows
+constexpr int TKW = 4;             // keep-bit words staged per row: a block's 160 keys lie in 3 of them
+// k (two buffers), v, q, dout; the bias tile; the key mask; the row-term
+// partials and the dq partials a block receives, two buffers each; the next
+// batch row's m, l and keep-bit words
+constexpr int DQ_SMEM = 3 * TKB * MMA_LD * 2 + 2 * TQ * MMA_LD * 2 + TQ * TB_LD * 4 + TKB * 4 +
+                        2 * TMAX_CLUSTER * 2 * TQ * 4 + 2 * 2 * DQ_SLOTS * 16 + 2 * TQ * 4 + TQ * TKW * 8;
+
+// The bias of rows row0 .. row0 + TQ - 1 and keys k0 .. k0 + TKB - 1 of
+// bias_h [Lq, Lk] into dst [TQ, TB_LD] by cp.async (the caller commits),
+// zeros outside [Lq, Lk]; 16-byte copies where Lk is a multiple of 4.
+__device__ __forceinline__ void stage_bias_block(float* dst, const float* bias_h, int row0, int k0, int Lq, int Lk) {
+  if ((Lk & 3) == 0) {
+    for (int i = threadIdx.x; i < TQ * (TKB / 4); i += blockDim.x) {
+      const int r = i / (TKB / 4), c = (i % (TKB / 4)) * 4;
+      const bool ok = row0 + r < Lq && k0 + c < Lk;  // all four keys or none
+      cp_async16(dst + r * TB_LD + c, bias_h + (ok ? (size_t)(row0 + r) * Lk + k0 + c : 0), ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < TQ * TKB; i += blockDim.x) {
+      const int r = i / TKB, c = i % TKB;
+      const bool ok = row0 + r < Lq && k0 + c < Lk;
+      cp_async4(dst + r * TB_LD + c, bias_h + (ok ? (size_t)(row0 + r) * Lk + k0 + c : 0), ok);
+    }
+  }
+}
+
+// 8 bytes from global to shared memory, asynchronously; zeros when !valid
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(attn::smem_addr(dst)), "l"(src),
+               "r"(valid ? 8 : 0)
+               : "memory");
+}
+
+// The forward's keep bits of this thread's keys k0 + 8j + 2t + e (j < NJ,
+// e < 2) in one row, as bit 2j + e, from that row's 64-bit words (one per
+// 64-key tile) staged from word w0 on: shifted to the thread's first key and
+// gathered once per batch row.
+template <int NJ>
+__device__ __forceinline__ unsigned keep_bits_of(const unsigned long long* words, int w0, int k0) {
+  static_assert(NJ <= 16, "the window holds 128 keys");
+  const int w = k0 / TL_KT - w0, sh = k0 % TL_KT + 2 * (threadIdx.x & 3);
+  const unsigned long long a = words[w], c = words[w + 1], d = NJ > 8 ? words[w + 2] : 0ull;
+  const unsigned long long lo = sh ? (a >> sh) | (c << (64 - sh)) : a;
+  const unsigned long long hi = sh ? (c >> sh) | (d << (64 - sh)) : c;
+  unsigned bits = 0u;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) bits |= (unsigned)(((j < 8 ? lo : hi) >> ((j & 7) * 8)) & 3ull) << (2 * j);
+  return bits;
+}
+
+// Kernel 1's p and dp from the scores s and the raw dout.v of rows row_lo,
+// row_lo + 8 and keys k0 + 8j + 2t + (e & 1), in place. DROP: 0 no dropout,
+// 1 the forward's keep bits (kb, from keep_bits_of), 2 the hash.
+template <int NJ, int DROP>
+__device__ __forceinline__ void tiled_probs_dp(float (&s)[NJ][4], float (&dp)[NJ][4], const BwdParams<bf16>& P, int b,
+                                               int h, int row_lo, int k0, const float (&m)[2],
+                                               const float (&inv_l)[2], const unsigned (&kb)[2], unsigned seed_mix) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int hh = e >> 1, e2 = e & 1;
+      s[j][e] = attn::sm_p(s[j][e], m[hh], inv_l[hh]);
+      if (DROP) {
+        const bool keep = DROP == 1 ? (kb[hh] >> (2 * j + e2)) & 1u
+                                    : keep_bit(drop_counter(P.b0 + b, P.h0 + h, P.Hg, P.Lq, P.Lk, row_lo + hh * 8,
+                                                            k0 + j * 8 + 2 * t + e2),
+                                               seed_mix, P.keep_thresh);
+        dp[j][e] = keep ? dp[j][e] * P.keep_scale : 0.f;
+      }
+    }
+}
+
+// 1. The row term, dq and dbias: one cluster of C = ceil(Lk / 160) blocks per
+// (64 queries, head), block `rank` holding keys 160 rank .. 160 rank + 159,
+// each of its 8 warps 16 query rows and 80 of those keys. The cluster walks
+// the batch rows in order, one cluster barrier per row. For batch row b:
+// s = q k^T and dp = dout v^T, p and the keep bits; each warp's row-term
+// partial over its keys, stored into every block of the cluster; the barrier;
+// then each thread adds its rows' partials in a fixed order (block, then key
+// half): the row term, written out for kernel 2; ds; dbias += ds in registers
+// (this block's [64, 160] tile, summed over the whole batch in order and
+// written once); the dq partial round(ds) k over the warp's keys, stored into
+// the block that owns the row (row % C), which adds the partials after the
+// next barrier in the same fixed order and rounds once. k of the next batch
+// row is copied during this one's products, its v, q, dout, mask, m, l and
+// keep bits after this one's barrier; the bias tile, the same for every batch
+// row, once.
+template <int DROP>
+__global__ void __launch_bounds__(DQ_WARPS * 32, 1) bwd_dq_tiled_kernel(BwdParams<bf16> P, int C) {
   extern __shared__ float4 bwd_smem4[];
-  bf16* Ks = reinterpret_cast<bf16*>(bwd_smem4);
+  bf16* Ks = reinterpret_cast<bf16*>(bwd_smem4);  // [2][TKB, MMA_LD]
+  bf16* Vs = Ks + 2 * TKB * MMA_LD;                // [TKB, MMA_LD]
+  bf16* Qs = Vs + TKB * MMA_LD;                    // [TQ, MMA_LD]
+  bf16* Os = Qs + TQ * MMA_LD;                     // [TQ, MMA_LD] dout
+  float* Bs = reinterpret_cast<float*>(Os + TQ * MMA_LD);        // [TQ, TB_LD]
+  unsigned* mk = reinterpret_cast<unsigned*>(Bs + TQ * TB_LD);  // [TKB]
+  float* rt = reinterpret_cast<float*>(mk + TKB);  // [2][TMAX_CLUSTER][2][TQ] row-term partials by block, key half
+  float4* dqr = reinterpret_cast<float4*>(rt + 2 * TMAX_CLUSTER * 2 * TQ);  // [2][C][2][slots] dq partials received
+  float* St = reinterpret_cast<float*>(dqr + 2 * 2 * DQ_SLOTS);               // [2][TQ] m, l
+  unsigned long long* Wk = reinterpret_cast<unsigned long long*>(St + 2 * TQ);  // [TQ][TKW] keep-bit words
+  const int Lq = P.Lq, Lk = P.Lk, tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+  const int rg = warp & 3, half = warp >> 2;
+  const int rank = (int)(blockIdx.x % (unsigned)C), ci = (int)(blockIdx.x / (unsigned)C);
+  const int q_tiles = (Lq + TQ - 1) / TQ, h = ci / q_tiles, q0 = (ci % q_tiles) * TQ;
+  const int kb0 = rank * TKB, kw0 = kb0 + half * (TKB / 2);  // this block's and this warp's first key
+  const int r0 = rg * 16, row_lo = q0 + r0 + g;
+  const int slots = (TQ + C - 1) / C * 16;  // the dq pieces of the rows this block owns, per sender and key half
+  int owner[2], place[2];                   // this thread's two dq rows: the block that owns each, and where
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    owner[hh] = (r0 + g + hh * 8) % C;
+    place[hh] = (r0 + g + hh * 8) / C * 16 + (t >> 1);
+  }
+
+  auto stage_k = [&](int b) {
+    stage_rows_async(Ks + (b & 1) * TKB * MMA_LD, P.k + ((size_t)b * P.H + h) * Lk * MMA_DK, kb0, TKB, Lk);
+    cp_async_commit();
+  };
+  const int nt = (Lk + TL_KT - 1) / TL_KT, wb = kb0 / TL_KT;  // keep-bit words per row; this block's first
+  auto stage_rest = [&](int b) {
+    const size_t bh = (size_t)b * P.H + h;
+    stage_rows_async(Vs, P.v + bh * Lk * MMA_DK, kb0, TKB, Lk);
+    stage_rows_async(Qs, P.q + bh * Lq * MMA_DK, q0, TQ, Lq);
+    stage_rows_async(Os, P.dout + bh * Lq * MMA_DK, q0, TQ, Lq);
+    stage_mask_async(mk, P.mask + (size_t)b * Lk, kb0, TKB, Lk);
+    for (int i = tid; i < 2 * TQ; i += DQ_WARPS * 32) {
+      const int row = q0 + i % TQ;
+      cp_async4(St + i, (i < TQ ? P.row_max : P.row_sum) + (row < Lq ? bh * Lq + row : 0), row < Lq);
+    }
+    if (DROP == 1)
+      for (int i = tid; i < TQ * TKW; i += DQ_WARPS * 32) {
+        const int row = q0 + i / TKW, w = wb + i % TKW;
+        const bool ok = row < Lq && w < nt;
+        cp_async8(Wk + i, P.keep_bits + (ok ? ((bh * Lq + row) * nt + w) * 2 : 0), ok);
+      }
+    cp_async_commit();
+  };
+  // dq of batch row bb's rows that this block owns, from the partials in buffer fb
+  auto finish_dq = [&](int bb, int fb) {
+    const size_t bh = (size_t)bb * P.H + h;
+    for (int i = tid; i < slots; i += DQ_WARPS * 32) {
+      const int row = i / 16 * C + rank, c = (i % 16) * 4;
+      if (row >= TQ) continue;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int r = 0; r < C; ++r)
+#pragma unroll
+        for (int kh = 0; kh < 2; ++kh) {
+          const float4 v = dqr[((fb * C + r) * 2 + kh) * slots + i];
+          acc.x += v.x;
+          acc.y += v.y;
+          acc.z += v.z;
+          acc.w += v.w;
+        }
+      if (q0 + row < Lq) Num<bf16>::store4(P.dq + (bh * Lq + q0 + row) * MMA_DK + c, acc);
+    }
+  };
+
+  stage_bias_block(Bs, P.bias + (size_t)h * Lq * Lk, q0, kb0, Lq, Lk);
+  stage_k(0);
+  stage_rest(0);
+  const unsigned seed_mix = DROP == 2 ? seed_mix_of(P.seed) : 0u;
+  float db[TNJ][4];
+#pragma unroll
+  for (int j = 0; j < TNJ; ++j) db[j][0] = db[j][1] = db[j][2] = db[j][3] = 0.f;
+  cluster_sync();  // every block of the cluster runs: its shared memory may be written
+
+  for (int b = 0; b < P.B; ++b) {
+    const int buf = b & 1;
+    const size_t bh = (size_t)b * P.H + h;
+    cp_async_wait_all();
+    __syncthreads();  // batch row b's operands have landed; k's other buffer is read out
+    if (b + 1 < P.B) stage_k(b + 1);
+    const bf16* Kw = Ks + (buf * TKB + half * (TKB / 2)) * MMA_LD;
+    float s[TNJ][4], dp[TNJ][4], m[2], l[2], delta[2];
+    {
+      unsigned a[4][4];
+      a_frags_smem(a, Qs, r0);
+      qk_product<TNJ>(s, a, Kw);
+      a_frags_smem(a, Os, r0);
+      qk_product<TNJ>(dp, a, Vs + half * (TKB / 2) * MMA_LD);
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {  // past Lq, m = +inf and l = 1, so that p = 0 there
+      m[hh] = row_lo + hh * 8 < Lq ? St[r0 + g + hh * 8] : INFINITY;
+      l[hh] = row_lo + hh * 8 < Lq ? St[TQ + r0 + g + hh * 8] : 1.f;
+    }
+    const float inv_l[2] = {1.f / l[0], 1.f / l[1]};
+    unsigned kb[2] = {0u, 0u};
+    if (DROP == 1) {
+      kb[0] = keep_bits_of<TNJ>(Wk + (r0 + g) * TKW, wb, kw0);
+      kb[1] = keep_bits_of<TNJ>(Wk + (r0 + g + 8) * TKW, wb, kw0);
+    }
+    const float* b_lo = Bs + (r0 + g) * TB_LD + half * (TKB / 2);
+    add_bias_masks<TNJ>(s, b_lo, b_lo + 8 * TB_LD, true, mk + half * (TKB / 2), false, row_lo, kw0, Lk, P.causal);
+    tiled_probs_dp<TNJ, DROP>(s, dp, P, b, h, row_lo, kw0, m, inv_l, kb, seed_mix);
+    {
+      float part[2];
+      row_term<TNJ>(s, dp, part);
+      if (t == 0)
+        for (int r = 0; r < C; ++r) {
+          const unsigned at = cluster_addr(rt + ((buf * TMAX_CLUSTER + rank) * 2 + half) * TQ + r0 + g, (unsigned)r);
+          st_cluster_f32(at, part[0]);
+          st_cluster_f32(at + 8 * 4, part[1]);
+        }
+    }
+    cluster_sync();  // the row-term partials of b and the dq partials of b - 1 are in place
+    if (b + 1 < P.B) stage_rest(b + 1);  // v, q, dout, the mask, m, l and keep bits of b are read out
+    if (b > 0) finish_dq(b - 1, buf ^ 1);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float d = 0.f;
+      for (int r = 0; r < C; ++r) {
+        const float* at = rt + (buf * TMAX_CLUSTER + r) * 2 * TQ + r0 + g + hh * 8;
+        d += at[0];
+        d += at[TQ];
+      }
+      delta[hh] = d;
+    }
+    if (rank == 0 && half == 0 && t == 0)  // the row term and 1 / l (the one p uses) for kernel 2
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        if (row_lo + hh * 8 < Lq) {
+          P.delta[bh * Lq + row_lo + hh * 8] = delta[hh];
+          P.delta[(size_t)P.B * P.H * Lq + bh * Lq + row_lo + hh * 8] = inv_l[hh];
+        }
+    make_ds<TNJ>(s, dp, delta, nullptr, 0, 0);
+#pragma unroll
+    for (int j = 0; j < TNJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) db[j][e] += s[j][e];
+    float dq[8][4];
+    zero8x4(dq);
+    ds_times_k<TNJ>(dq, s, Kw);
+    float4* mine = dqr + ((buf * C + rank) * 2 + half) * slots;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const unsigned at = cluster_addr(mine + place[hh], (unsigned)owner[hh]) + (t & 1) * 8;
+#pragma unroll
+      for (int jn = 0; jn < 8; ++jn) st_cluster_f2(at + jn * 2 * 16, dq[jn][2 * hh], dq[jn][2 * hh + 1]);
+    }
+  }
+  cluster_sync();  // the last batch row's dq partials are in place
+  finish_dq(P.B - 1, (P.B - 1) & 1);
+  // this block's dbias tile, every element of it written here once
+  float* dbias_h = P.dbias + (size_t)h * Lq * Lk;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row_lo + hh * 8;
+    if (row >= Lq) continue;
+    float* drow = dbias_h + (size_t)row * Lk;
+#pragma unroll
+    for (int j = 0; j < TNJ; ++j) {
+      const int key = kw0 + j * 8 + 2 * t;
+      if ((Lk & 1) == 0 && key < Lk) {
+        *reinterpret_cast<float2*>(drow + key) = make_float2(db[j][2 * hh], db[j][2 * hh + 1]);
+      } else {
+        if (key < Lk) drow[key] = db[j][2 * hh];
+        if (key + 1 < Lk) drow[key + 1] = db[j][2 * hh + 1];
+      }
+    }
+  }
+}
+
+// Kernel 2's per-score work on one query tile, in place: s^T and dp^T (key
+// key[e >> 1], query q0 + 8j + 2t + (e & 1)) become round-ready pd^T and
+// ds^T. DROP: 0 no dropout, 1 the forward's keep bits, 2 the hash; EDGE:
+// causal, or keys past Lk in the tile. Rows past Lq were staged as zeros
+// (q, dout, bias, m, 1 / l), so their p is 0 without a test. One
+// specialisation per (DROP, EDGE), branch-free inside.
+template <int DROP, bool EDGE>
+__device__ __forceinline__ void dkv_scores(float (&s)[8][4], float (&dp)[8][4], const BwdParams<bf16>& P, int b,
+                                           int h, int q0, int k0, const int (&key)[2], const float (&madd)[2],
+                                           const float* Bb, const float* Mb, const unsigned* Wb, int wh, int ws,
+                                           unsigned seed_mix) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e1 = 0; e1 < 2; ++e1) {
+      const int ql = j * 8 + 2 * t + e1, q = q0 + ql;
+      const float m = Mb[ql], inv_l = Mb[64 + ql], d = Mb[128 + ql];
+      const unsigned w = DROP == 1 ? Wb[ql * 2 + wh] : 0u;  // the half of the word that holds this thread's keys
+#pragma unroll
+      for (int e2 = 0; e2 < 2; ++e2) {
+        const int e = e2 * 2 + e1;
+        float v = s[j][e] + Bb[ql * BIAS_LD + key[e2] - k0];
+        v += madd[e2];
+        if (EDGE) {
+          if (P.causal) v += key[e2] <= q ? 0.f : MASKED;
+          v = key[e2] < P.Lk ? v : -INFINITY;
+        }
+        const float p = attn::sm_p(v, m, inv_l);
+        float pd = p, dpv = dp[j][e];
+        if (DROP) {
+          const bool keep = DROP == 1 ? (w >> (ws + e2 * 8)) & 1u
+                                      : keep_bit(drop_counter(P.b0 + b, P.h0 + h, P.Hg, P.Lq, P.Lk, q, key[e2]),
+                                                 seed_mix, P.keep_thresh);
+          pd = (keep ? p : 0.f) * P.keep_scale;
+          dpv = keep ? dpv * P.keep_scale : 0.f;
+        }
+        s[j][e] = pd;
+        dp[j][e] = p * (dpv - d);  // ds
+      }
+    }
+}
+
+// 2. dv and dk from the row term of kernel 1, one block of 4 warps per
+// (batch row, head, 64 keys), batch rows fastest (the blocks that run at once
+// read one head's bias, which stays in L2 at 32 heads too). Each warp holds
+// 16 keys, their k and v as A fragments in registers for the whole block, and
+// per query tile of 64 computes the transposed scores s^T = k q^T and
+// dp^T = v dout^T (each q.k the same sum as attn::qk_product's, the operands'
+// roles swapped): round(pd)^T and round(ds)^T are then already the A
+// fragments of dv += pd^T dout and dk += ds^T q, with no round trip through
+// shared memory and one barrier per tile. Each tile's q, dout, bias, row
+// statistics and keep bits are copied during the tile before's products.
+__global__ void __launch_bounds__(DKV_WARPS * 32, 2) bwd_dkv_tiled_kernel(BwdParams<bf16> P) {
+  extern __shared__ float4 bwd_smem4[];
+  bf16* Ks = reinterpret_cast<bf16*>(bwd_smem4);  // [64, MMA_LD], read once into fragments
   bf16* Vs = Ks + 64 * MMA_LD;
   bf16* Qs = Vs + 64 * MMA_LD;  // [2][64, MMA_LD]
   bf16* Os = Qs + 2 * 64 * MMA_LD;
-  bf16* PDs = Os + 2 * 64 * MMA_LD;
-  bf16* DSs = PDs + 64 * MMA_LD;
-  float* Bs = reinterpret_cast<float*>(DSs + 64 * MMA_LD);  // [64, BIAS_LD]
-  float* Ms = Bs + 64 * BIAS_LD;                            // m, l, delta [3][64]
-  unsigned* mk = reinterpret_cast<unsigned*>(Ms + 3 * 64);
-  const int Lq = P.Lq, Lk = P.Lk, warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
-  const int k_tiles = (Lk + 63) / 64;
-  const int bhi = blockIdx.x / k_tiles, b = bhi / P.H, h = bhi % P.H;
-  const size_t bh = bhi;
-  const int k0 = (blockIdx.x % k_tiles) * 64, nq = (Lq + 63) / 64;
-  auto stage_qo = [&](int it) {
-    const int buf = it & 1;
-    stage_rows_async(Qs + buf * 64 * MMA_LD, P.q + bh * Lq * MMA_DK, it * 64, 64, Lq);
-    stage_rows_async(Os + buf * 64 * MMA_LD, P.dout + bh * Lq * MMA_DK, it * 64, 64, Lq);
+  float* Bs = reinterpret_cast<float*>(Os + 2 * 64 * MMA_LD);  // [2][64 queries, BIAS_LD]
+  float* Ms = Bs + 2 * 64 * BIAS_LD;                           // [2][3][64] m, 1 / l, delta
+  unsigned* Ws = reinterpret_cast<unsigned*>(Ms + 2 * 3 * 64);  // [2][64][2] the keep-bit words of the key tile
+  unsigned* mk = Ws + 2 * 64 * 2;                                // [64]
+  const int Lq = P.Lq, Lk = P.Lk, lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int k_tiles = (Lk + 63) / 64, b = (int)(blockIdx.x % (unsigned)P.B);
+  const int kt = (int)(blockIdx.x / (unsigned)P.B) % k_tiles, h = (int)(blockIdx.x / (unsigned)P.B) / k_tiles;
+  const size_t bh = (size_t)b * P.H + h;
+  const int k0 = kt * 64, nq = (Lq + 63) / 64, nw = (Lk + 63) / 64;
+  const bool words = P.keep_bits != nullptr && P.dropout;
+  auto stage_tile = [&](int it) {
+    const int buf = it & 1, q0 = it * 64;
+    stage_rows_async(Qs + buf * 64 * MMA_LD, P.q + bh * Lq * MMA_DK, q0, 64, Lq);
+    stage_rows_async(Os + buf * 64 * MMA_LD, P.dout + bh * Lq * MMA_DK, q0, 64, Lq);
+    stage_bias_async(Bs + buf * 64 * BIAS_LD, P.bias + (size_t)h * Lq * Lk, q0, 64, k0, Lq, Lk);
+    for (int i = threadIdx.x; i < 3 * 64; i += blockDim.x) {
+      const float* src = i < 64 ? P.row_max : i < 128 ? P.delta + (size_t)P.B * P.H * Lq : P.delta;
+      const int row = q0 + (i & 63);
+      cp_async4(Ms + buf * 3 * 64 + i, src + (row < Lq ? bh * Lq + row : 0), row < Lq);
+    }
+    if (words)
+      for (int i = threadIdx.x; i < 64 * 2; i += blockDim.x) {
+        const int row = q0 + (i >> 1);
+        cp_async4(Ws + buf * 128 + i, P.keep_bits + (row < Lq ? ((bh * Lq + row) * nw + kt) * 2 + (i & 1) : 0),
+                  row < Lq);
+      }
     cp_async_commit();
   };
   stage_rows_async(Ks, P.k + bh * Lk * MMA_DK, k0, 64, Lk);
   stage_rows_async(Vs, P.v + bh * Lk * MMA_DK, k0, 64, Lk);
   stage_mask_async(mk, P.mask + (size_t)b * Lk, k0, 64, Lk);
-  stage_qo(0);
+  stage_tile(0);
+  cp_async_wait_all();
+  __syncthreads();
+  unsigned ka[4][4], va[4][4];  // this warp's 16 keys of k and v, A fragments
+  a_frags_smem(ka, Ks, warp * 16);
+  a_frags_smem(va, Vs, warp * 16);
+  float madd[2];  // the additive key mask of this thread's two keys; -inf past Lk (no key)
+  int key[2];
+#pragma unroll
+  for (int e2 = 0; e2 < 2; ++e2) {
+    key[e2] = k0 + warp * 16 + g + e2 * 8;
+    madd[e2] = attn::mask_value(mk[warp * 16 + g + e2 * 8], false);
+  }
+  const unsigned seed_mix = P.dropout && !words ? seed_mix_of(P.seed) : 0u;
+  const int wh = warp >> 1, ws = (warp & 1) * 16 + g;  // this thread's keys: bits ws, ws + 8 of word half wh
+  const int drop = !P.dropout ? 0 : words ? 1 : 2;
+  const bool edge = P.causal || k0 + 64 > Lk;
   float dv[8][4], dk[8][4];
   zero8x4(dv);
   zero8x4(dk);
   for (int it = 0; it < nq; ++it) {
-    const bf16* Qb = Qs + (it & 1) * 64 * MMA_LD;
-    const bf16* Ob = Os + (it & 1) * 64 * MMA_LD;
-    const int q0 = it * 64, row_lo = q0 + warp * 16 + g;
-    cp_async_wait_all();
-    __syncthreads();  // this query tile has landed; the last tile's products are done
-    stage_bias_async(Bs, P.bias + (size_t)h * Lq * Lk, q0, 64, k0, Lq, Lk);
-    for (int i = threadIdx.x; i < 3 * 64; i += blockDim.x) {
-      const float* src = i < 64 ? P.row_max : i < 128 ? P.row_sum : P.delta;
-      const int row = q0 + (i & 63);
-      cp_async4(Ms + i, src + (row < Lq ? bh * Lq + row : 0), row < Lq);
-    }
-    cp_async_commit();
-    if (it + 1 < nq) {
-      stage_qo(it + 1);
-      cp_async_wait_but_one();
-    } else {
+    const int buf = it & 1, q0 = it * 64;
+    const bf16* Qb = Qs + buf * 64 * MMA_LD;
+    const bf16* Ob = Os + buf * 64 * MMA_LD;
+    if (it > 0) {
       cp_async_wait_all();
+      __syncthreads();  // this query tile has landed; the tile before's products are done
     }
-    // phase A: query rows q0 + 16 warp .. + 15 (p = 0 past Lq)
-    unsigned a[4][4];
-    float s[8][4], dp[8][4], m[2], l[2], delta[2];
-    a_frags_smem(a, Qb, warp * 16);
-    qk_product<8>(s, a, Ks);
-    a_frags_smem(a, Ob, warp * 16);
-    qk_product<8>(dp, a, Vs);
-    __syncthreads();  // this tile's bias and statistics have landed
+    if (it + 1 < nq) stage_tile(it + 1);
+    float s[8][4], dp[8][4];  // [query chunk j][e]: key key[e >> 1], query q0 + 8j + 2t + (e & 1)
+    qk_product<8>(s, ka, Qb);
+    qk_product<8>(dp, va, Ob);
+    const float* Bb = Bs + buf * 64 * BIAS_LD;
+    const float* Mb = Ms + buf * 3 * 64;
+    const unsigned* Wb = Ws + buf * 128;
+    if (!edge) {
+      if (drop == 0) dkv_scores<0, false>(s, dp, P, b, h, q0, k0, key, madd, Bb, Mb, Wb, wh, ws, seed_mix);
+      else if (drop == 1) dkv_scores<1, false>(s, dp, P, b, h, q0, k0, key, madd, Bb, Mb, Wb, wh, ws, seed_mix);
+      else dkv_scores<2, false>(s, dp, P, b, h, q0, k0, key, madd, Bb, Mb, Wb, wh, ws, seed_mix);
+    } else {
+      if (drop == 0) dkv_scores<0, true>(s, dp, P, b, h, q0, k0, key, madd, Bb, Mb, Wb, wh, ws, seed_mix);
+      else if (drop == 1) dkv_scores<1, true>(s, dp, P, b, h, q0, k0, key, madd, Bb, Mb, Wb, wh, ws, seed_mix);
+      else dkv_scores<2, true>(s, dp, P, b, h, q0, k0, key, madd, Bb, Mb, Wb, wh, ws, seed_mix);
+    }
+    // dv += round(pd)^T dout, dk += round(ds)^T q over the tile's 64 queries
+    const int bt = bt_row(lane) * MMA_LD + bt_col(lane);
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int r = warp * 16 + g + hh * 8;
-      const bool in = q0 + r < Lq;
-      m[hh] = in ? Ms[r] : INFINITY;
-      l[hh] = in ? Ms[64 + r] : 1.f;
-      delta[hh] = in ? Ms[128 + r] : 0.f;
+    for (int kk = 0; kk < 4; ++kk) {
+      const unsigned a_pd[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      const unsigned a_ds[4] = {pack_bf16(dp[2 * kk][0], dp[2 * kk][1]), pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
+                                pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
+                                pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+#pragma unroll
+      for (int jn = 0; jn < 4; ++jn) {
+        unsigned bo[4], bq[4];
+        ldsm_x4_t(bo, Ob + kk * 16 * MMA_LD + bt + jn * 16);
+        ldsm_x4_t(bq, Qb + kk * 16 * MMA_LD + bt + jn * 16);
+        mma_16816(dv[2 * jn], a_pd, bo[0], bo[1]);
+        mma_16816(dv[2 * jn + 1], a_pd, bo[2], bo[3]);
+        mma_16816(dk[2 * jn], a_ds, bq[0], bq[1]);
+        mma_16816(dk[2 * jn + 1], a_ds, bq[2], bq[3]);
+      }
     }
-    add_bias_masks_tile<8>(s, Bs, q0, mk, false, row_lo, k0, Lk, P.causal);
-    probs_and_dp<8>(s, dp, P, b, h, row_lo, k0, m, l, PDs, MMA_LD, warp * 16, P.keep_bits);
-    make_ds<8>(s, dp, delta, DSs, MMA_LD, warp * 16);
-    __syncthreads();  // round(pd), round(ds) of the tile are written
-    dv_dk_products(dv, dk, PDs, DSs, MMA_LD, warp * 16, Ob, Qb, 64);  // phase B: keys k0 + 16 warp ..
   }
   store_rows_bf16(P.dv + bh * Lk * MMA_DK, dv, k0 + warp * 16 + g, Lk);
   store_rows_bf16(P.dk + bh * Lk * MMA_DK, dk, k0 + warp * 16 + g, Lk);
 }
 
-// 3. dq and the group's partial dbias, one block of 4 warps per (64 queries,
-// head, batch group): (batch row, key tile) steps, keys and values
-// double-buffered; each step's bias, mask and partial-dbias tiles copied
-// during its products
-__global__ void __launch_bounds__(DKV_WARPS * 32, 2) bwd_dq_tiled_kernel(BwdParams<bf16> P) {
-  extern __shared__ float4 bwd_smem4[];
-  bf16* Ks = reinterpret_cast<bf16*>(bwd_smem4);  // [2][TL_KT, MMA_LD]
-  bf16* Vs = Ks + 2 * TL_KT * MMA_LD;
-  float* Bs = reinterpret_cast<float*>(Vs + 2 * TL_KT * MMA_LD);  // [64, BIAS_LD] bias
-  float* Ps = Bs + 64 * BIAS_LD;                                  // [64, BIAS_LD] partial dbias so far
-  unsigned* mk = reinterpret_cast<unsigned*>(Ps + 64 * BIAS_LD);
-  const int Lq = P.Lq, Lk = P.Lk, warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const int q_tiles = (Lq + 63) / 64;
-  const int q0 = (blockIdx.x % q_tiles) * 64, hg = blockIdx.x / q_tiles, h = hg % P.H, grp = hg / P.H;
-  const int rows_per_group = (P.B + P.groups - 1) / P.groups;
-  const int b_lo = grp * rows_per_group, b_hi = min(P.B, b_lo + rows_per_group);
-  const int nt = (Lk + TL_KT - 1) / TL_KT, steps = (b_hi - b_lo) * nt;
-  const int row_lo = q0 + warp * 16 + g;
-  const bool active = q0 + warp * 16 < Lq;
-  float* part = P.dbias_part + ((size_t)grp * P.H + h) * Lq * Lk;
-  auto prefetch_kv = [&](int step) {
-    const int buf = step & 1, b = b_lo + step / nt, k0 = (step % nt) * TL_KT;
-    const size_t kbase = ((size_t)b * P.H + h) * Lk * MMA_DK;
-    stage_rows_async(Ks + buf * TL_KT * MMA_LD, P.k + kbase, k0, TL_KT, Lk);
-    stage_rows_async(Vs + buf * TL_KT * MMA_LD, P.v + kbase, k0, TL_KT, Lk);
-    cp_async_commit();
-  };
-  prefetch_kv(0);
-  unsigned qa[4][4], da[4][4];
-  float m[2], l[2], delta[2], dq[8][4];
-  for (int step = 0; step < steps; ++step) {
-    const int buf = step & 1, b = b_lo + step / nt, tile = step % nt, k0 = tile * TL_KT;
-    const size_t bh = (size_t)b * P.H + h;
-    cp_async_wait_all();
-    __syncthreads();  // this step's keys have landed; the other buffers are read out
-    stage_bias_async(Bs, P.bias + (size_t)h * Lq * Lk, q0, 64, k0, Lq, Lk);
-    if (b != b_lo) stage_bias_async(Ps, part, q0, 64, k0, Lq, Lk);  // same [Lq, Lk] layout
-    stage_mask_async(mk, P.mask + (size_t)b * Lk, k0, TL_KT, Lk);
-    cp_async_commit();
-    if (step + 1 < steps) {
-      prefetch_kv(step + 1);
-      cp_async_wait_but_one();
-    } else {
-      cp_async_wait_all();
-    }
-    float s[8][4], dp[8][4];
-    if (active) {
-      if (tile == 0) {
-        a_frags_global(qa, P.q + bh * Lq * MMA_DK, row_lo, Lq);
-        a_frags_global(da, P.dout + bh * Lq * MMA_DK, row_lo, Lq);
-        load_stats(P, bh, row_lo, m, l);
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh)
-          delta[hh] = row_lo + hh * 8 < Lq ? P.delta[bh * Lq + row_lo + hh * 8] : 0.f;
-        zero8x4(dq);
-      }
-      qk_product<8>(s, qa, Ks + buf * TL_KT * MMA_LD);
-      qk_product<8>(dp, da, Vs + buf * TL_KT * MMA_LD);
-    }
-    __syncthreads();  // this step's bias, mask and partial have landed
-    if (!active) continue;
-    add_bias_masks_tile<8>(s, Bs, q0, mk, false, row_lo, k0, Lk, P.causal);
-    probs_and_dp<8>(s, dp, P, b, h, row_lo, k0, m, l, nullptr, 0, 0, P.keep_bits);
-    make_ds<8>(s, dp, delta, nullptr, 0, 0);
-    // the unrounded ds into this block's region of the group's partial: this
-    // thread owns its elements, and the group's batch rows come in order
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int row = row_lo + hh * 8;
-      if (row >= Lq) continue;
-      float* prow = part + (size_t)row * Lk;
-      const float* was = Ps + (row - q0) * BIAS_LD;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int kl = j * 8 + 2 * t, key = k0 + kl;
-        float2 acc = make_float2(s[j][2 * hh], s[j][2 * hh + 1]);
-        if (b != b_lo) {
-          acc.x = was[kl] + acc.x;
-          acc.y = was[kl + 1] + acc.y;
-        }
-        if ((Lk & 1) == 0 && key < Lk) {
-          *reinterpret_cast<float2*>(prow + key) = acc;
-        } else {
-          if (key < Lk) prow[key] = acc.x;
-          if (key + 1 < Lk) prow[key + 1] = acc.y;
-        }
-      }
-    }
-    ds_times_k<8>(dq, s, Ks + buf * TL_KT * MMA_LD);
-    if (tile == nt - 1) store_rows_bf16(P.dq + bh * Lq * MMA_DK, dq, row_lo, Lq);
-  }
-}
 
 template <int NKS> cudaError_t launch_bwd_rows(const BwdParams<bf16>& P, cudaStream_t stream) {
   const int nqw = (P.Lq + 15) / 16;
@@ -1043,21 +1263,32 @@ inline cudaError_t launch_mma(const BwdParams<bf16>& P, cudaStream_t stream) {
       default: return launch_bwd_rows<8>(P, stream);
     }
   }
-  const long long bh = (long long)P.B * P.H;
-  const long long d_blocks = bh * ((P.Lq + TL_WARPS * 16 - 1) / (TL_WARPS * 16));
-  const long long kv_blocks = bh * ((P.Lk + 63) / 64);
-  const long long q_blocks = (long long)((P.Lq + 63) / 64) * P.H * P.groups;
-  if (d_blocks > 2147483647LL || kv_blocks > 2147483647LL || q_blocks > 2147483647LL) return cudaErrorInvalidValue;
+  // the tiled route: kernel 1 on clusters of C blocks, then kernel 2
+  const int C = (P.Lk + TKB - 1) / TKB;
+  const long long q_blocks = (long long)((P.Lq + TQ - 1) / TQ) * P.H * C;
+  const long long kv_blocks = (long long)P.B * P.H * ((P.Lk + 63) / 64);
+  if (C > TMAX_CLUSTER || q_blocks > 2147483647LL || kv_blocks > 2147483647LL) return cudaErrorInvalidValue;
   cudaError_t err;
-  if ((err = cudaFuncSetAttribute(bwd_delta_tiled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DELTA_SMEM)) ||
-      (err = cudaFuncSetAttribute(bwd_dkv_tiled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DKV_SMEM)) ||
-      (err = cudaFuncSetAttribute(bwd_dq_tiled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DQ_SMEM)))
+  void (*dq_kernel)(BwdParams<bf16>, int) = !P.dropout            ? bwd_dq_tiled_kernel<0>
+                                           : P.keep_bits != nullptr ? bwd_dq_tiled_kernel<1>
+                                                                    : bwd_dq_tiled_kernel<2>;
+  if ((err = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DQ_SMEM)) ||
+      (err = cudaFuncSetAttribute(bwd_dkv_tiled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DKV_SMEM)))
     return err;
-  bwd_delta_tiled_kernel<<<(unsigned)d_blocks, TL_WARPS * 32, DELTA_SMEM, stream>>>(P);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)q_blocks);
+  cfg.blockDim = dim3(DQ_WARPS * 32);
+  cfg.dynamicSmemBytes = DQ_SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = (unsigned)C;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  if ((err = cudaLaunchKernelEx(&cfg, dq_kernel, P, C)) != cudaSuccess) return err;
   bwd_dkv_tiled_kernel<<<(unsigned)kv_blocks, DKV_WARPS * 32, DKV_SMEM, stream>>>(P);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  bwd_dq_tiled_kernel<<<(unsigned)q_blocks, DKV_WARPS * 32, DQ_SMEM, stream>>>(P);
   return cudaGetLastError();
 }
 
@@ -1114,9 +1345,11 @@ int launch(void* const* ptrs, const int* dims, const int* seed, unsigned keep_th
   if (P.dkw % 4 || P.dkw < 4 || P.dkw > MAX_DK || P.B < 1 || P.H < 1 || P.Lq < 1 || P.Lk < 1 || P.groups < 1 ||
       P.groups > P.B || P.h0 < 0 || P.Hg < P.h0 + P.H)
     return (int)cudaErrorInvalidValue;
+  const int route = backward_route(std::is_same<T, bf16>::value, P.Lq, P.Lk, P.dkw);
+  if (route == attn::ROUTE_TILED) P.groups = 1;  // dbias summed over the whole batch in kernel 1
   if (P.groups == 1) P.dbias_part = P.dbias;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = backward_route(std::is_same<T, bf16>::value, P.Lq, P.Lk, P.dkw) != attn::ROUTE_CUDA_CORES
+  cudaError_t err = route != attn::ROUTE_CUDA_CORES
                         ? launch_mma(P, s)
                     : P.dkw <= 64 ? launch_ng<T, 1>(P, s)
                                   : launch_ng<T, 2>(P, s);
@@ -1134,7 +1367,7 @@ extern "C" {
 const char* kernel_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 // ptrs: q, k, v, bias [H, Lq, Lk] f32, mask [B, Lk] int32 (1 = attend), dout,
-// row_max and row_sum [B, H, Lq] f32 (the forward's), delta [B, H, Lq] f32
+// row_max and row_sum [B, H, Lq] f32 (the forward's), delta [2, B, H, Lq] f32
 // (scratch), dq, dk, dv (q's dtype), dbias [H, Lq, Lk] f32, and the partial
 // dbias [groups, H, Lq, Lk] f32 (unused when groups == 1), and the tiled
 // forward's keep bits (attention_forward's keep_bits; null: hashed anew).
@@ -1142,8 +1375,9 @@ const char* kernel_error_string(int code) { return cudaGetErrorString((cudaError
 // (seed: the device address of the int32 seed; b0: the global batch index of
 // batch row 0, h0 that of head 0 and Hg the global head count in the dropout
 // counter).
-// Launches on `stream` the route's kernels (1 on the whole-row route, 3 on the
-// others), and one more when groups > 1.
+// Launches on `stream` the route's kernels (1 on the whole-row route, 2 on the
+// tiled route, 3 on the CUDA cores), and reduce_groups_kernel when groups > 1
+// (the tiled route has one group, whatever dims asks for).
 int attention_backward(int is_bf16, void* const* ptrs, const int* dims, const int* seed, unsigned keep_thresh,
                        float keep_scale, int dropout, int b0, int h0, int Hg, void* stream) {
   return is_bf16 ? launch<__nv_bfloat16>(ptrs, dims, seed, keep_thresh, keep_scale, dropout, b0, h0, Hg, stream)

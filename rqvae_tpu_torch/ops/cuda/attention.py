@@ -5,9 +5,10 @@ Port of rqvae_tpu/ops/pallas/attention.py. `t5_attention` is differentiable in
 q, k, v and bias. For CUDA tensors the forward launches csrc/attention.cu and
 the backward csrc/attention_bwd.cu (or raises: there is no fallback); which
 routine they run is `attention_route`'s (bf16 at dk = 64 on the tensor cores,
-whole rows up to 128 keys, key tiles beyond; float32 on the CUDA cores). CPU
-tensors take `t5_attention_plain` and `t5_attention_backward_plain`, the same
-arithmetic in torch with the keep bits of ops/hash_dropout.py.
+whole rows up to 128 keys, key tiles beyond, for the backward up to 1,280;
+float32 on the CUDA cores). CPU tensors take `t5_attention_plain` and
+`t5_attention_backward_plain`, the same arithmetic in torch with the keep bits
+of ops/hash_dropout.py.
 
 Forward: no 1/sqrt(dk) scale; scores, bias, masks (-1e9, never -inf) and
 softmax in float32; dropped probabilities are zeroed and the rest scaled by
@@ -57,15 +58,15 @@ NEG_INF = -1e9
 MAX_DK = 128  # the kernels' widest head (csrc/attention_core.cuh, csrc/attention_bwd.cu)
 TENSOR_CORE_DK = 64  # the bf16 tensor-core routes' head width
 WHOLE_ROW_MAX = 128  # the whole-row routes' longest rows (csrc/attention_core.cuh WR_MAX_KEYS)
-QUERY_TILE = 64  # query rows per block of the backward's batch-grouped dq/dbias pass (tiled, CUDA cores)
+# the tiled backward's longest rows: a cluster of at most 8 blocks of 160 keys
+# holds a score row (csrc/attention_bwd.cu TILED_MAX_KEYS)
+TILED_BACKWARD_MAX_KEYS = 1280
+QUERY_TILE = 64  # query rows per block of the CUDA-core backward's batch-grouped dq/dbias pass
 # blocks the backward's batch-grouped pass aims at on an H100's 132 SMs: two
 # whole-row blocks (about 100 KB of shared memory each at 80 x 80) fit an SM;
-# the CUDA-core route aims at four
+# the CUDA-core route aims at four. The tiled route has no batch groups: its
+# first kernel sums dbias over the whole batch in registers, in batch order.
 GROUP_TARGET_BLOCKS = {"whole_row": 264, "cuda_cores": 528}
-# the tiled route's groups: their partial dbias regions, read and written once
-# per batch row, together within this much of the H100's 50 MB L2 (3 groups
-# at the ML-32M shape measured faster than 2, 5 or 8)
-TILED_PARTIAL_BYTES = 48 << 20
 _C = ctypes.c_void_p
 _ARGTYPES = [ctypes.c_int, ctypes.POINTER(_C), ctypes.POINTER(ctypes.c_int), _C,
              ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _C]
@@ -174,9 +175,10 @@ def attention_route(Lq: int, Lk: int, dk: int, dtype: torch.dtype, backward: boo
     libraries' `attention_route` / `attention_backward_route` make the same
     choice): "whole_row" (bf16 at dk = 64, Lk <= 128, and for the backward
     Lq <= 128 too: whole score rows in registers), "tiled" (bf16 at dk = 64,
-    longer rows: key tiles, pipelined) or "cuda_cores" (float32, or bf16 at
-    another head width)."""
-    if dtype != torch.bfloat16 or dk != TENSOR_CORE_DK:
+    longer rows: key tiles, pipelined; for the backward at most 1,280 keys,
+    a score row on one cluster of blocks) or "cuda_cores" (float32, bf16 at
+    another head width, and the backward of longer bf16 rows)."""
+    if dtype != torch.bfloat16 or dk != TENSOR_CORE_DK or (backward and Lk > TILED_BACKWARD_MAX_KEYS):
         return "cuda_cores"
     if Lk <= WHOLE_ROW_MAX and (not backward or Lq <= WHOLE_ROW_MAX):
         return "whole_row"
@@ -240,16 +242,15 @@ def backward_groups(B: int, H: int, Lq: int, Lk: int | None = None, dk: int = TE
                     dtype: torch.dtype = torch.bfloat16) -> int:
     """Batch groups of the backward's batch-grouped pass (Lk defaults to Lq):
     the whole-row route's (head, group) blocks or the CUDA-core route's
-    (query tile, head, group) blocks, enough of them to fill the card; on the
-    tiled route as many as keep the groups' partial dbias in L2. At most B / 4
+    (query tile, head, group) blocks, enough of them to fill the card; one on
+    the tiled route, whose clusters walk the whole batch. At most B / 4
     groups, none of them empty. Group i holds batch rows i*r .. i*r + r - 1
     with r = ceil(B / groups)."""
     Lk = Lq if Lk is None else Lk
     route = attention_route(Lq, Lk, dk, dtype, backward=True)
     if route == "tiled":
-        want = TILED_PARTIAL_BYTES // (H * Lq * Lk * 4)
-    else:
-        want = GROUP_TARGET_BLOCKS[route] // (H if route == "whole_row" else H * -(-Lq // QUERY_TILE))
+        return 1
+    want = GROUP_TARGET_BLOCKS[route] // (H if route == "whole_row" else H * -(-Lq // QUERY_TILE))
     want = max(1, min(max(1, B // 4), want))
     rows = -(-B // want)
     return -(-B // rows)
@@ -261,7 +262,7 @@ def _backward_cuda(q, k, v, bias, mask, seed, do, row_max, row_sum, causal, drop
     when the forward wrote them, keep_bits) are the forward's; without
     keep_bits the kernels hash the keep bits anew (the same bits); `groups`
     (default `backward_groups`) only changes the order in which dbias is
-    summed."""
+    summed, and on the tiled route nothing (it has one group)."""
     B, H, Lq, Lk, dk = _check(q, k, v, bias, mask, causal, dropout_rate, b0, h0, heads_total)
     do = launch_operand(do)
     if do.shape != q.shape or do.dtype != q.dtype:
@@ -274,7 +275,9 @@ def _backward_cuda(q, k, v, bias, mask, seed, do, row_max, row_sum, causal, drop
     groups = backward_groups(B, H, Lq, Lk, dk, q.dtype) if groups is None else groups
     if not 1 <= groups <= B or (groups - 1) * -(-B // groups) >= B:
         raise ValueError(f"{groups} batch groups of {B} rows leave a group empty")
-    delta = torch.empty(B, H, Lq, dtype=torch.float32, device=dev)
+    if attention_route(Lq, Lk, dk, q.dtype, backward=True) == "tiled":
+        groups = 1
+    delta = torch.empty(2, B, H, Lq, dtype=torch.float32, device=dev)  # the row term, then 1 / l (scratch)
     part = torch.empty(groups, H, Lq, Lk, dtype=torch.float32, device=dev) if groups > 1 else dbias
     if keep_bits is not None and (
             tuple(keep_bits.shape) != (B, H, Lq, -(-Lk // 64), 2) or keep_bits.dtype != torch.int32

@@ -32,7 +32,8 @@ BF16, F32 = torch.bfloat16, torch.float32
      (129, 128, 64, BF16, True, "tiled"), (128, 129, 64, BF16, True, "tiled"),
      (200, 80, 64, BF16, True, "tiled"), (80, 80, 32, BF16, False, "cuda_cores"),
      (80, 80, 128, BF16, True, "cuda_cores"), (80, 80, 64, F32, False, "cuda_cores"),
-     (800, 800, 64, F32, True, "cuda_cores")],
+     (800, 800, 64, F32, True, "cuda_cores"), (80, 1280, 64, BF16, True, "tiled"),
+     (80, 1281, 64, BF16, True, "cuda_cores"), (80, 1281, 64, BF16, False, "tiled")],
 )
 def test_route_boundaries(Lq, Lk, dk, dtype, backward, want):
     assert attention_route(Lq, Lk, dk, dtype, backward=backward) == want
@@ -46,8 +47,8 @@ def test_route_boundaries(Lq, Lk, dk, dtype, backward, want):
 def test_batch_group_plan_covers_the_batch_in_order(B, H, Lq, Lk, dk, dtype):
     """Group i holds rows i*r .. i*r + r - 1 (r = ceil(B / groups)): together
     they hold every row once, in order, and none is empty; at most B / 4 groups,
-    and no more blocks than the route aims at (on the tiled route, no more
-    partial dbias than the L2 budget)."""
+    and no more blocks than the route aims at (on the tiled route one group:
+    its clusters walk the whole batch)."""
     groups = backward_groups(B, H, Lq, Lk, dk, dtype)
     r = -(-B // groups)
     rows = [b for i in range(groups) for b in range(i * r, min(B, i * r + r))]
@@ -55,8 +56,8 @@ def test_batch_group_plan_covers_the_batch_in_order(B, H, Lq, Lk, dk, dtype):
     assert all(min(B, i * r + r) > i * r for i in range(groups))
     assert 1 <= groups <= max(1, B // 4)
     route = attention_route(Lq, Lk, dk, dtype, backward=True)
-    if route == "tiled":  # the groups' partial dbias within the L2 budget
-        assert groups == 1 or groups * H * Lq * Lk * 4 <= A.TILED_PARTIAL_BYTES
+    if route == "tiled":  # dbias summed over the whole batch, no partials
+        assert groups == 1
     else:
         per_group = H if route == "whole_row" else H * -(-Lq // A.QUERY_TILE)
         assert groups == 1 or groups * per_group <= A.GROUP_TARGET_BLOCKS[route]
@@ -64,9 +65,10 @@ def test_batch_group_plan_covers_the_batch_in_order(B, H, Lq, Lk, dk, dtype):
 
 def test_batch_group_plan_at_the_training_shapes():
     """About two whole-row blocks on each of 132 SMs at the Amazon shape; at
-    the ML-32M shape the tiled route's partial dbias (15.4 MB a group) in L2."""
+    the ML-32M shape one group: the tiled route's clusters of 5 blocks each
+    hold a [64, 160] dbias tile through all 64 batch rows."""
     assert backward_groups(640, 6, 80, 80, 64, BF16) == 43  # 15 batch rows each, 258 blocks
-    assert backward_groups(64, 6, 800, 800, 64, BF16) == 3  # 22 rows each, 46 MB of partials
+    assert backward_groups(64, 6, 800, 800, 64, BF16) == 1  # 78 clusters, no partial dbias
 
 
 @pytest.mark.parametrize("groups", [0, 10, 4])

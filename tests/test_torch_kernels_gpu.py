@@ -256,6 +256,7 @@ def _attention_grads(q, k, v, bias, mask, do, **kw):
      (9, 2, 200, 200, 64, True, 0.2), (640, 6, 80, 80, 64, False, 0.1), (64, 6, 800, 800, 64, False, 0.1),
      # the training shapes without dropout, and Amazon's causal
      (640, 6, 80, 80, 64, False, 0.0), (64, 6, 800, 800, 64, False, 0.0), (640, 6, 80, 80, 64, True, 0.1),
+     (64, 32, 800, 800, 64, False, 0.1),  # the MoE cell's 32 heads
      *ROUTE_CASES],
 )
 def test_attention_backward_kernel_matches_plain(cuda, dtype, tol, dbias_tol, B, H, Lq, Lk, dk, causal, rate):
@@ -353,7 +354,8 @@ def test_attention_routes_match_the_libraries(cuda):
 def test_attention_backward_batch_groups(cuda, dtype, Lq, Lk):
     """An odd batch in groups that do not divide it: dq, dk and dv do not
     depend on the groups (bit-equal to one group); dbias is the same sum in
-    another order."""
+    another order on the whole-row route, and on the tiled route, which has
+    one group whatever it is asked for, the same bits."""
     from rqvae_tpu_torch.ops.cuda import attention as A
 
     q, k, v, bias, mask = _attention_inputs(9, 2, Lq, Lk, 64, dtype, cuda)
@@ -368,6 +370,8 @@ def test_attention_backward_batch_groups(cuda, dtype, Lq, Lk):
         for a, b in zip(got[:3], one[:3]):
             assert torch.equal(a, b), groups
         assert (got[3] - one[3]).abs().max().item() <= 1e-5 * one[3].abs().max().item()
+        if A.attention_route(Lq, Lk, 64, dtype, backward=True) == "tiled":
+            assert torch.equal(got[3], one[3]), groups
 
 
 def test_kernels_launch_on_the_tensors_device(cuda):
@@ -1966,6 +1970,29 @@ def test_attention_kernels_count_dropout_from_h0(cuda, dtype, B, H, L):
     for i, (g, w) in enumerate(zip(grads, plain)):
         assert (g.float() - w.float()).abs().max() <= (dbias_tol if i == 3 else gtol) * w.float().abs().max(), i
     _keep_bits(part_ops[0], part_ops[1], part_ops[3], mask, seed, 0.1, h0=h0, heads_total=H)
+
+
+@pytest.mark.parametrize("B,H,L", [(3, 4, 300), (2, 4, 800)])
+def test_attention_backward_tiled_from_b0_and_h0(cuda, B, H, L):
+    """The tiled backward of a rank holding batch rows B .. 2B - 1 of 2B and
+    heads H/2 .. H - 1 of H (data and tensor parallel at once, b0 and h0 both
+    above 0): dq, dk and dv bit-equal to those rows and heads of the launch
+    over the whole, all four within the plain version's tolerances there."""
+    h0, hs = H // 2, slice(H // 2, H)
+    q, k, v, bias, mask = _attention_inputs(2 * B, H, L, L, 64, torch.bfloat16, cuda)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(2)).to(torch.bfloat16).to(cuda)
+    seed = torch.tensor([77], dtype=torch.int32, device=cuda)
+    _, *whole = _attention_grads(q, k, v, bias, mask, do, dropout_rate=0.1)
+    part = [t[B:, hs].contiguous() for t in (q, k, v)]
+    pbias, pmask, pdo = bias[hs].contiguous(), mask[B:].contiguous(), do[B:, hs].contiguous()
+    leaves = [t.detach().clone().requires_grad_() for t in (*part, pbias)]
+    t5_attention(*leaves, pmask, seed, dropout_rate=0.1, b0=B, h0=h0, heads_total=H).backward(pdo)
+    grads = [leaf.grad for leaf in leaves]
+    for g, w in zip(grads[:3], whole[:3]):
+        assert torch.equal(g, w[B:, hs])
+    plain = t5_attention_backward_plain(*part, pbias, pmask, seed, pdo, dropout_rate=0.1, b0=B, h0=h0, heads_total=H)
+    for i, (g, w) in enumerate(zip(grads, plain)):
+        assert (g.float() - w.float()).abs().max() <= (1e-4 if i == 3 else 2.0 ** -7) * w.float().abs().max(), i
 
 
 def test_two_cards_tensor_parallel_step_over_nccl(cuda, tmp_path):
